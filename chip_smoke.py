@@ -19,7 +19,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    windowed planners against the exact-scan kernel on the same planes, the
    exact scan against the float64 host oracle on a small eval, and each
    kernel against its plain version at the main-path shape;
-5. one JSON line of per-kernel numbers, the card's name and power limit,
+5. the server path: a fused drain batch of 8 evals and 1,024 lanes on
+   the card against the same batch through the plain versions on the
+   CPU; then, with every launch counter set to 0 before and read after,
+   a ``DeviceState`` over the 10K-node cluster (10,240 rows) refreshed
+   with 3,000 dirty rows, a 32-thread drain batch of bench_drain's job
+   mix through the collector on that state, the dense verify of its
+   grants, a refresh with those grants, and a 32-thread multi-tenant
+   batch (4,096 lanes) with its verify. Then output checks: each eval's
+   placements equal its solo exact scan from its usage base, the bases
+   thread the earlier evals' grants, no node over capacity, every
+   placement in the eval's ring and feasible, the verify passes the
+   grants and fails exactly the rows pushed one over; timings of each
+   batch; and the usage-base, dirty-row scatter and dense-verify kernels
+   against their plain versions and the nearest PyTorch calls at the
+   main-path shapes;
+6. one JSON line of per-kernel numbers, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
@@ -28,6 +43,7 @@ Without a CUDA card it exits with status 2 and prints no result.
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -43,10 +59,17 @@ F32_OPS_PER_S = 67e12
 SCORE_OPS = 95
 # integer operations of one fit check: an add and a compare per column
 FIT_OPS_PER_COL = 2
+# int32 adds and compares outside the tensor cores: half the float32 rate
+# (64 int32 lanes per SM and clock against 128 float32)
+I32_OPS_PER_S = F32_OPS_PER_S / 2
 
 NODES, ALLOCS, VALUES = 10_000, 50_000, 4
 EXACT_GROUPS, EXACT_ALLOCS = 8, 8_192
 LIMIT = 10
+DRAIN_EVALS, DIRTY_ROWS = 32, 3_000
+#: the kernels of the server path and of the planners' entry-point path
+SERVER_KERNELS = ("exact_scan", "used_bases", "scatter_rows", "verify_rows")
+PLAN_EVAL_KERNELS = ("exact_scan", "runs", "windowed")
 
 
 def log(msg: str) -> None:
@@ -80,6 +103,24 @@ def cuda_ms(fn, samples: int = 3) -> tuple:
     return float(np.median(times)), out
 
 
+def device_us(fn, calls: int = 20):
+    """Device microseconds per call from a torch.profiler trace of
+    ``calls`` calls after a warm-up: the self device time of every kernel,
+    copy and memset the calls put on the card, without the host's dispatch
+    gaps between them (which CUDA events around a call include). None when
+    the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    return total / calls if total > 0 else None
+
+
 def host_ms(fn) -> tuple:
     """(ms of one call ending in a synchronize, result)."""
     torch.cuda.synchronize()
@@ -104,9 +145,9 @@ def scan_ops(positions: int, scored: int, cols: int) -> int:
     return positions * cols * FIT_OPS_PER_COL + scored * SCORE_OPS
 
 
-def bound(bytes_moved: int, ops: float) -> tuple:
+def bound(bytes_moved: int, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -139,6 +180,302 @@ def check_capacity(planes: dict, placements: np.ndarray, what: str) -> int:
         if not planes["feasible"][g][placements[placed & (groups == g)]].all():
             fail(f"{what}: placement on an infeasible node")
     return int(placed.sum())
+
+
+# ---------------------------------------------------------------------------
+# the server path: fused drain batches on a device-resident state, verify
+# ---------------------------------------------------------------------------
+
+def drive_batch(shared, preps, dev, pad_evals=DRAIN_EVALS) -> tuple:
+    """Submit every prep from a thread of its own, all released together;
+    returns ({eval id: (placements, usage base) as numpy}, e2e ms from the
+    first submit to the last slice on the host, kernel ms of the batch)."""
+    from nomad_tpu_torch.tpu import drain
+
+    collector = drain.KernelBatchCollector(shared, expected=len(preps), pad_evals=pad_evals,
+                                           device=dev)
+    gate = threading.Barrier(len(preps))
+    out, marks, errors = {}, [], []
+
+    def one(d):
+        prep = drain.DrainPrep.from_dict(d)
+        gate.wait()
+        t0 = time.perf_counter()
+        try:
+            placements, base = collector.submit(prep)
+            out[d["eval_id"]] = (placements.cpu().numpy(), base.cpu().numpy())
+        except Exception as e:  # reported below: the phase fails
+            errors.append(f"{d['eval_id']}: {e!r}")
+        marks.append((t0, time.perf_counter()))
+
+    threads = [threading.Thread(target=one, args=(d,)) for d in preps]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if errors or any(t.is_alive() for t in threads) or collector.invocations != 1:
+        fail(f"drain batch failed: {errors or 'a thread did not finish'}")
+    e2e = (max(m[1] for m in marks) - min(m[0] for m in marks)) * 1e3
+    return out, e2e, drain.last_kernel_s() * 1e3
+
+
+def batch_order(preps: list) -> list:
+    return sorted(preps, key=lambda d: (-d["priority"], d["create_index"], d["eval_id"]))
+
+
+def check_batch(label: str, shared: dict, planes: tuple, preps: list, out: dict, dev) -> tuple:
+    """Each eval's placements equal its solo exact scan from its usage base,
+    the bases thread the earlier evals' grants, every placement lies in the
+    eval's ring on a feasible node, and no node ends over capacity; returns
+    the batch's grants per node (int64 [n, C])."""
+    from nomad_tpu_torch.tpu import drain
+
+    n_real = shared["n_real"]
+    used = planes[2].cpu().numpy().astype(np.int64)
+    running = used.copy()
+    for d in batch_order(preps):
+        placements, base = out[d["eval_id"]]
+        if not np.array_equal(base, running):
+            fail(f"{label} {d['eval_id']}: usage base differs from the earlier evals' grants")
+        prep = drain.DrainPrep.from_dict(d)
+        solo = drain.solo_scan(prep, (planes[0], planes[1], torch.from_numpy(base).to(dev)),
+                               n_real, dev)
+        if not np.array_equal(solo.cpu().numpy(), placements):
+            fail(f"{label} {d['eval_id']}: fused placements differ from the solo scan")
+        placed = placements >= 0
+        nodes, lanes = placements[placed], prep.gid_real[placed]
+        if not np.isin(nodes, prep.perm_eligible).all():
+            fail(f"{label} {d['eval_id']}: placement outside the eval's ring")
+        for g, planes_g in enumerate(prep.planes_list):
+            if not planes_g.feasible[nodes[lanes == g]].all():
+                fail(f"{label} {d['eval_id']}: placement on an infeasible node")
+        np.add.at(running, nodes, prep.g_demand[lanes])
+    if (running[:n_real] > shared["capacity"]).any():
+        fail(f"{label}: a node is over capacity")
+    return (running - used)[:n_real]
+
+
+def grant_rows(grants: np.ndarray) -> tuple:
+    rows = np.flatnonzero(grants.any(axis=1))
+    return rows, list(grants[rows])
+
+
+def server_path(dev) -> tuple:
+    """Phase 5; returns (the server path's launches per kernel, JSON rows of
+    the server kernels without their launches)."""
+    from nomad_tpu_torch.core import plan_apply
+    from nomad_tpu_torch.tpu import drain, kernel, mirror, problems
+
+    cluster = problems.build_cluster(NODES, 1, n_values=VALUES, seed=20)
+    shared, bench = problems.drain_problem(cluster, DRAIN_EVALS, "drain-bench", seed=21)
+    _, tenant = problems.drain_problem(cluster, DRAIN_EVALS, "drain-tenant", seed=22)
+    capacity, usable, used0 = shared["capacity"], shared["usable"], shared["used0"]
+    N = problems.bucket(NODES)
+
+    # a fused batch on the card against the same batch on the CPU
+    _, mixed = problems.drain_problem(cluster, 8, "drain-tenant", seed=23)
+    host = drain.SharedCluster(capacity, usable, used0)
+    got, e2e, kms = drive_batch(host, mixed, dev, pad_evals=8)
+    want, cpu_e2e, _ = drive_batch(host, mixed, torch.device("cpu"), pad_evals=8)
+    lanes = sum(len(d["gid_real"]) for d in mixed)
+    err = max_abs_err([(got[k][i], want[k][i]) for k in want for i in (0, 1)])
+    if err or sorted(got) != sorted(want):
+        fail(f"fused batch on the card differs from the plain versions ({err})")
+    log(f"fused batch 8 evals x {lanes} lanes (host upload): identical to the plain versions "
+        f"on the CPU; card e2e {e2e:.2f} ms, kernel {kms:.3f} ms; CPU e2e {cpu_e2e:.0f} ms")
+
+    # ---- the main path, counted ---------------------------------------------
+    rng = np.random.default_rng(24)
+    dirty = rng.choice(NODES, DIRTY_ROWS, replace=False)
+    used1 = used0.copy()
+    used1[dirty, 0] += rng.choice([100, 250, 500], DIRTY_ROWS).astype(np.int32)
+    used1[dirty, 1] += rng.choice([128, 256, 512], DIRTY_ROWS).astype(np.int32)
+
+    kernel.reset_launches()
+    ds = mirror.DeviceState(0, N, capacity, usable, used0, dev)
+    plane0 = ds.arrays()[2]
+    ds.pending.update(int(r) for r in dirty)
+    ds.refresh(used1)
+    planes_b = ds.arrays()
+    out_b, e2e_b, kms_b = drive_batch(drain.SharedCluster(capacity, usable, used1, ds), bench, dev)
+    grants_b = np.zeros((NODES, 4), np.int64)
+    for d in bench:  # the applier's per-row aggregation of the batch's plans
+        placements = out_b[d["eval_id"]][0]
+        placed = placements >= 0
+        np.add.at(grants_b, placements[placed], d["g_demand"][d["gid_real"][placed]])
+    rows_b, deltas_b = grant_rows(grants_b)
+    fits_b = plan_apply.dense_verify(planes_b, rows_b, deltas_b)
+    used2 = used1 + grants_b.astype(np.int32)
+    ds.pending.update(int(r) for r in rows_b)
+    ds.refresh(used2)
+    planes_t = ds.arrays()
+    shared_t = drain.SharedCluster(capacity, usable, used2, ds)
+    out_t, e2e_t, kms_t = drive_batch(shared_t, tenant, dev)
+    grants_t = np.zeros((NODES, 4), np.int64)
+    for d in tenant:
+        placements = out_t[d["eval_id"]][0]
+        placed = placements >= 0
+        np.add.at(grants_t, placements[placed], d["g_demand"][d["gid_real"][placed]])
+    rows_t, deltas_t = grant_rows(grants_t)
+    fits_t = plan_apply.dense_verify(planes_t, rows_t, deltas_t)
+    launches = {name: kernel.LAUNCHES[name] for name in SERVER_KERNELS}
+    log(f"server path launches: {launches}")
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"kernel {name} was not launched on the server path")
+
+    # ---- output checks -------------------------------------------------------
+    want_plane = np.full((N, 4), 2**30, np.int32)
+    want_plane[:NODES] = used1
+    if not np.array_equal(planes_b[2].cpu().numpy(), want_plane):
+        fail("DeviceState.refresh: used plane differs from the committed one")
+    if not np.array_equal(plane0.cpu().numpy()[:NODES], used0):
+        fail("DeviceState.refresh wrote a plane it had handed out")
+    shared_b = dict(shared, used0=used1)
+    for label, sh, planes, preps, out, grants, fits, rows in (
+        ("drain-bench", shared_b, planes_b, bench, out_b, grants_b, fits_b, rows_b),
+        ("drain-tenant", dict(shared, used0=used2), planes_t, tenant, out_t, grants_t, fits_t,
+         rows_t),
+    ):
+        got_grants = check_batch(label, sh, planes, preps, out, dev)
+        if not np.array_equal(got_grants, grants):
+            fail(f"{label}: grants differ")
+        if not fits.all():
+            fail(f"{label}: dense verify refused a batch's own grants")
+        # push one column of a few rows one over capacity
+        cap_p, used_p = planes[0].cpu().numpy(), planes[2].cpu().numpy()
+        deltas = grants[rows].copy()
+        over = rng.choice(len(rows), 5, replace=False)
+        for i in over:
+            c = int(rng.integers(0, 4))
+            deltas[i, c] = int(cap_p[rows[i], c]) - int(used_p[rows[i], c]) + 1
+        pushed = plan_apply.dense_verify(planes, rows, list(deltas))
+        want = np.ones(len(rows), bool)
+        want[over] = False
+        if not np.array_equal(pushed, want):
+            fail(f"{label}: dense verify did not fail exactly the rows pushed over capacity")
+        lanes = sum(len(d["gid_real"]) for d in preps)
+        n_placed = sum(int((out[d["eval_id"]][0] >= 0).sum()) for d in preps)
+        log(f"{label}: {len(preps)} evals x {lanes} lanes on the DeviceState, placed {n_placed}, "
+            f"solo scans identical, no node over capacity, verify {len(rows)} rows fit and "
+            f"fails exactly 5 pushed rows")
+
+    # ---- timings of the two batches -----------------------------------------
+    for label, sh, preps, first, e2e, kms in (
+        ("drain-bench", drain.SharedCluster(capacity, usable, used2, ds), bench, None, e2e_b, kms_b),
+        ("drain-tenant", shared_t, tenant, out_t, e2e_t, kms_t),
+    ):
+        samples = [(e2e, kms)]
+        for _ in range(3):
+            again, e2e, kms = drive_batch(sh, preps, dev)
+            samples.append((e2e, kms))
+            if first is not None and any(not np.array_equal(again[k][0], first[k][0]) for k in first):
+                fail(f"{label}: a repeated batch placed differently")
+        stats = drain.LAST_DRAIN_STATS
+        log(f"{label} batch (e2e ms, kernel ms; first run, then 3 more): "
+            + ", ".join(f"({e:.3f}, {k:.3f})" for e, k in samples)
+            + f"; padded E,G,A,N,V = {stats['padded']}, build {stats['build_s'] * 1e3:.3f} ms")
+
+    # ---- the server kernels at the main-path shapes -------------------------
+    rows_out = []
+    C = 4
+    # K10: the 3,000-row refresh
+    r_np, v_np = mirror.dirty_lanes(np.sort(dirty), used1)
+    r, v = torch.from_numpy(r_np).to(dev), torch.from_numpy(v_np).to(dev)
+    r_long = r.long()
+
+    def scatter_kernel():
+        return mirror.scatter_rows(plane0, r, v)
+
+    def scatter_library():
+        return plane0.index_copy(0, r_long, v)
+
+    ms, got = cuda_ms(scatter_kernel)
+    plain_ms, want = cuda_ms(lambda: mirror.scatter_rows_ref(plane0, r, v))
+    lib_ms, lib = cuda_ms(scatter_library)
+    err = max_abs_err([(got, want), (got, lib), (got, planes_b[2])])
+    R = len(r_np)
+    rows_out.append(("scatter_rows", "nomad_tpu_torch/tpu/csrc/scatter.cu",
+                     "nomad_tpu/tpu/mirror.py:251", err, ms, plain_ms, lib_ms,
+                     (device_us(scatter_kernel), device_us(scatter_library)),
+                     2 * N * C * 4 + R * 4 + R * C * 4, 0, f"N={N} R={R} ({DIRTY_ROWS} dirty)"))
+
+    # K9: the multi-tenant batch's usage bases, from its scan's placements
+    order = [drain.DrainPrep.from_dict(d) for d in batch_order(tenant)]
+    shape = drain.batch_shape(order, NODES, DRAIN_EVALS)
+    E, _, A, _, _ = shape
+    args_np, state_np, _ = drain.assemble(order, NODES, shape)
+    bargs, init = drain.batch_inputs(planes_t, args_np, state_np, dev)
+    _, placements = kernel.plan_batch(bargs, init, NODES)
+    fused = np.concatenate([out_t[p.eval_id][0] for p in order])
+    if not np.array_equal(placements[: len(fused)].cpu().numpy(), fused):
+        fail("drain-tenant: the scan of the assembled batch differs from the collector's")
+    eval_of = kernel.from_numpy(args_np["group_eval"][args_np["groups"]], dev)
+    used_t = init.used
+
+    def bases_kernel():
+        return drain.used_bases(used_t, placements, bargs.demands, eval_of, E, NODES)
+
+    ms, got = cuda_ms(bases_kernel)
+    plain_ms, want = cuda_ms(
+        lambda: drain.used_bases_ref(used_t, placements, bargs.demands, eval_of, E, NODES))
+    valid = (placements >= 0) & (placements < NODES)
+    flat = (eval_of.long() * N + placements.clamp(0, N - 1).long())
+    contrib = torch.where(valid[:, None], bargs.demands, 0)
+
+    def library_bases():
+        delta = torch.zeros((E * N, C), dtype=torch.int32, device=dev).index_add_(0, flat, contrib)
+        delta = delta.view(E, N, C)
+        return used_t[None] + (delta.cumsum(0, dtype=torch.int32) - delta)
+
+    lib_ms, lib = cuda_ms(library_bases)
+    bases_host = np.stack([out_t[p.eval_id][1] for p in order])
+    err = max_abs_err([(got, want), (got, lib), (got[: len(order)], bases_host)])
+    n_valid = int(valid.sum())
+    rows_out.append(("used_bases", "nomad_tpu_torch/tpu/csrc/bases.cu",
+                     "nomad_tpu/tpu/drain.py:181", err, ms, plain_ms, lib_ms,
+                     (device_us(bases_kernel), device_us(library_bases)),
+                     N * C * 4 + A * 4 + A * C * 4 + A * 4 + E * N * C * 4,
+                     n_valid * C + E * N * C, f"E={E} N={N} A={A} ({n_valid} placed)"))
+
+    # K8: the multi-tenant batch's verify
+    p_np, d_np = plan_apply.verify_lanes(rows_t, deltas_t)
+    pr, pd = torch.from_numpy(p_np).to(dev), torch.from_numpy(d_np).to(dev)
+    pr_long = pr.long()
+    cap_t, used_v = planes_t[0], planes_t[2]
+
+    def verify_kernel():
+        return kernel.verify_rows(cap_t, used_v, pr, pd)
+
+    def verify_library():
+        return (used_v.index_add(0, pr_long, pd) <= cap_t).all(dim=1)[pr_long]
+
+    ms, got = cuda_ms(verify_kernel)
+    plain_ms, want = cuda_ms(lambda: kernel.verify_rows_ref(cap_t, used_v, pr, pd))
+    lib_ms, lib = cuda_ms(verify_library)
+    err = max_abs_err([(got, want), (got, lib), (got[: len(rows_t)], fits_t)])
+    R, k = len(p_np), len(rows_t)
+    rows_out.append(("verify_rows", "nomad_tpu_torch/tpu/csrc/verify.cu",
+                     "nomad_tpu/tpu/kernel.py:1061", err, ms, plain_ms, lib_ms,
+                     (device_us(verify_kernel), device_us(verify_library)),
+                     k * C * 4 * 2 + R * 4 + R * C * 4 + R, R * C * FIT_OPS_PER_COL,
+                     f"N={N} R={R} ({k} rows)"))
+
+    server_rows = []
+    for name, source, replaces, err, ms, plain_ms, lib_ms, dev_us, moved, ops, shape in rows_out:
+        if err:
+            fail(f"{name}: kernel differs from its plain version at the main-path shape ({err})")
+        bound_ms, bound_by = bound(moved, ops, I32_OPS_PER_S)
+        server_rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err,
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            device_us=dev_us[0], library_device_us=dev_us[1], shape=shape,
+        ))
+        us = ["not measured" if u is None else f"{u:.2f} us" for u in dev_us]
+        log(f"{name}: {ms:.4f} ms per launch (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
+            f"library {us[1]}; {shape}")
+    return launches, server_rows
 
 
 def main() -> int:
@@ -210,7 +547,7 @@ def main() -> int:
 
     kernel.reset_launches()
     results = {mode: planner.plan_eval(planes, dev) for mode, planes in evals.items()}
-    launches = dict(kernel.LAUNCHES)
+    launches = {name: kernel.LAUNCHES[name] for name in PLAN_EVAL_KERNELS}
     log(f"main path launches: {launches}")
     for mode, (_, stats) in results.items():
         if stats["mode"] != mode:
@@ -318,9 +655,21 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches[name], max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None, rounds=rounds, shape=shape,
+            paths={"plan_eval": launches[name]},
         ))
         log(f"{name}: {ms:.3f} ms per launch (plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
             f"by {bound_by}), rounds {rounds}, {shape}")
+
+    # ---- 5. the server path -------------------------------------------------
+    server_launches, server_rows = server_path(dev)
+    for row in kernels:
+        n = server_launches.get(row["name"], 0)
+        row["launches"] += n
+        row["paths"]["server"] = n
+    for row in server_rows:
+        row["launches"] = server_launches[row["name"]]
+        row["paths"] = {"server": row["launches"]}
+        kernels.append(row)
 
     print(json.dumps({"kernels": kernels}))
     print(card)

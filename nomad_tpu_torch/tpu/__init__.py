@@ -17,8 +17,15 @@ nodes and one ulp changes a placement.
 - Integer planes are int32 (JAX runs with x64 off; torch defaults to
   int64, so every conversion pins the dtype).
 
-Modules: ``problems`` (seeded synthetic clusters), ``exact_np`` (the
-float64 host oracle), ``kernel`` (args, plain versions, kernel wrappers),
-``planner`` (one eval's planner dispatch) and ``_build`` (nvcc build of
-``csrc/``).
+Modules: ``problems`` (seeded synthetic clusters and drain batches),
+``exact_np`` (the float64 host oracle), ``kernel`` (args, plain versions,
+kernel wrappers), ``planner`` (one eval's planner dispatch), ``columnar``
+(per-group planes), ``mirror`` (device-resident node planes and the
+dirty-row scatter), ``drain`` (the fused multi-eval drain batch and the
+per-eval usage bases) and ``_build`` (nvcc build of ``csrc/``). The
+applier's dense verify is ``nomad_tpu_torch.core.plan_apply``.
+
+The server-path kernels (usage bases, dirty-row scatter, dense verify)
+are int32 scatters with a compare or a prefix: integer atomics commute,
+so they are bit-identical to their plain versions with no tolerance.
 """

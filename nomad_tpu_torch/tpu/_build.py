@@ -29,6 +29,9 @@ _ENTRY_POINTS = {
     "ntt_exact_scan": (28, 6),
     "ntt_runs": (30, 5),
     "ntt_windowed": (15, 4),
+    "ntt_used_bases": (5, 5),
+    "ntt_scatter_rows": (5, 3),
+    "ntt_verify_rows": (6, 3),
 }
 
 _LIB = None

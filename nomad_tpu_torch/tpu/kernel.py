@@ -9,7 +9,10 @@ score primitives (``_pow10``, ``_binpack``, ``_class_boosts``, ``_scores``,
 - ``plan_batch_runs``: the run planner for one group with spread or
   affinity and an unbounded limit (fill runs and sweep tie-runs);
 - ``plan_batch_windowed``: the windowed planner for one group with a
-  bounded limit and no dynamic score planes.
+  bounded limit and no dynamic score planes;
+
+and the plan applier's dense verify, ``verify_rows`` (the per-row fit
+check of a plan's aggregated usage deltas).
 
 Each ``*_ref`` function is the plain PyTorch version: it follows the JAX
 program's op order so that its float32 bits match (see the float contract
@@ -572,8 +575,12 @@ def plan_batch_windowed_ref(args: WindowArgs, used0, collisions0, n_real: int, a
 # public wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
-#: kernel launches per planner since the last ``reset_launches``
-LAUNCHES = {"exact_scan": 0, "runs": 0, "windowed": 0}
+#: kernel launches per kernel since the last ``reset_launches`` (the
+#: server-path kernels' wrappers live in ``drain.py`` and ``mirror.py``)
+LAUNCHES = {
+    "exact_scan": 0, "runs": 0, "windowed": 0,
+    "used_bases": 0, "scatter_rows": 0, "verify_rows": 0,
+}
 
 
 def reset_launches() -> None:
@@ -623,6 +630,14 @@ def _check_cuda(named: dict, shapes: dict, device: torch.device) -> dict:
             if size != expect:
                 raise ValueError(f"{name} has shape {tuple(t.shape)}: {letter} is {expect} elsewhere")
     return dims
+
+
+def _check_int32(named: dict, shapes: dict, device: torch.device) -> dict:
+    """``_check_cuda`` for kernels whose every plane is int32."""
+    for name, t in named.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected int32")
+    return _check_cuda(named, shapes, device)
 
 
 def _check_index(t: torch.Tensor, hi: int, name: str) -> None:
@@ -756,3 +771,48 @@ def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad
         _stream(device),
     )
     return placements, rounds[0]
+
+
+# ---------------------------------------------------------------------------
+# dense plan verify (the applier's commit-time fit check)
+# ---------------------------------------------------------------------------
+
+def verify_rows_ref(capacity, used, rows, deltas):
+    """Plain version of the dense verify (JAX ``_verify_rows_jit``): add
+    each lane's deltas into its row of ``used`` (lanes on one row see the
+    sum of all their deltas; int32 adds wrap as JAX's do) and test every
+    column against ``capacity``; returns the verdict per lane, bool[R].
+    ``used`` is not written. A lane whose row lies outside [0, N) adds
+    nothing and fails (the kernel's rule; the JAX program never sees one)."""
+    N = used.shape[0]
+    ok = (rows >= 0) & (rows < N)
+    at = torch.where(ok, rows, 0).long()
+    stacked = used.index_add(0, at, torch.where(ok[:, None], deltas, 0))
+    fits = (stacked <= capacity).all(dim=1)
+    return fits[at] & ok
+
+
+_VERIFY_SHAPES = dict(capacity="NC", used="NC", rows="R", deltas="RC")
+
+
+def verify_rows(capacity, used, rows, deltas):
+    """Per-lane fit of ``used`` plus the summed deltas of every lane on the
+    same row, against ``capacity``; bool[R]. Does not wait for the card."""
+    device = capacity.device
+    if device.type == "cpu":
+        return verify_rows_ref(capacity, used, rows, deltas)
+    from . import _build
+
+    d = _check_int32(dict(capacity=capacity, used=used, rows=rows, deltas=deltas),
+                     _VERIFY_SHAPES, device)
+    N, C, R = d["N"], d["C"], d["R"]
+    fits = torch.empty(R, dtype=torch.bool, device=device)
+    acc = torch.empty((N, C), dtype=torch.int32, device=device)  # per-row sums
+    _launch(
+        "verify_rows",
+        _build.library().ntt_verify_rows,
+        _ptr(capacity), _ptr(used), _ptr(rows), _ptr(deltas), _ptr(fits), _ptr(acc),
+        N, C, R,
+        _stream(device),
+    )
+    return fits

@@ -5,10 +5,13 @@ The port's own copy of the builders in ``nomad_tpu/tpu/multichip.py``
 the same arrays from the same seed, returned as plain dicts keyed by the
 planner args' field names (``kernel.from_numpy`` turns them into tensors).
 ``eval_planes`` turns an exact-scan problem into the columnar planes that
-``planner.plan_eval`` takes.
+``planner.plan_eval`` takes; ``drain_problem`` makes a batch of evals for
+the drain collector (``drain.KernelBatchCollector``).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -251,3 +254,105 @@ def eval_planes(args: dict, init: dict, n_real: int | None = None) -> dict:
         a_real=int(np.asarray(args["valid"]).sum()),
     )
     return planes
+
+
+def compute_limit(num_nodes: int, batch: bool, has_affinity_or_spread: bool) -> int:
+    """Candidate-scan bound (the JAX package's ``columnar.compute_limit``,
+    ref stack.go:74-87)."""
+    if has_affinity_or_spread:
+        return 2**31 - 1
+    limit = 2
+    if not batch and num_nodes > 0:
+        limit = max(limit, int(math.ceil(math.log2(num_nodes))))
+    return limit
+
+
+#: the job mix of each synthetic drain batch: groups per eval, allocs per
+#: group and datacenters per eval as (low, high), the share of groups with
+#: a datacenter spread or a node affinity, and the per-alloc cpu (MHz) and
+#: memory (MB) choices
+DRAIN_SHAPES = {
+    # bench.py bench_drain's jobs: one group of 1-4 allocs over all 4 DCs
+    "drain-bench": dict(groups=(1, 1), allocs=(1, 4), dcs=(4, 4), spread_share=0.0,
+                        affinity_share=0.0, cpu=(100, 250), mem=(64, 128)),
+    # multi-tenant: two groups of 64 allocs, rings over 1-4 DCs, spread on
+    # half the groups
+    "drain-tenant": dict(groups=(2, 2), allocs=(64, 64), dcs=(1, 4), spread_share=0.5,
+                         affinity_share=0.25, cpu=(100, 250, 500), mem=(64, 128, 256)),
+}
+N_DCS = 4
+
+
+def drain_problem(c, n_evals: int, shape: str = "drain-bench", seed: int = 0):
+    """(shared, preps): a seeded drain batch of ``n_evals`` evals over the
+    nodes of ``c`` (``build_cluster``'s, unpadded), node i in datacenter
+    ``dc{i % 4 + 1}``. ``shared`` holds the node planes ``capacity``,
+    ``usable`` and ``used0`` (the reserved usage plus existing allocs on
+    about a third of the nodes) and ``n_real``. Each prep is a dict of
+    ``drain.DrainPrep``'s fields, with ``planes_list`` a list of dicts of
+    ``GroupPlanes``' fields: the eval's ring is a shuffle of the nodes in
+    its datacenters, each group has its feasible, affinity and spread
+    planes, demand and limit."""
+    mix = DRAIN_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    n = c["capacity"].shape[0]
+    dc_of = (np.arange(n) % N_DCS).astype(np.int32)
+    used0 = c["reserved"].astype(np.int32).copy()
+    busy = rng.random(n) < 0.3
+    used0[busy, 0] += rng.choice([250, 500, 1000], int(busy.sum())).astype(np.int32)
+    used0[busy, 1] += rng.choice([256, 512, 1024], int(busy.sum())).astype(np.int32)
+    shared = dict(capacity=c["capacity"], usable=c["usable"], used0=used0, n_real=n)
+
+    preps = []
+    for i in range(n_evals):
+        k = int(rng.integers(mix["dcs"][0], mix["dcs"][1] + 1))
+        dcs = np.sort(rng.choice(N_DCS, k, replace=False))
+        elig = np.flatnonzero(np.isin(dc_of, dcs)).astype(np.int32)
+        n_groups = int(rng.integers(mix["groups"][0], mix["groups"][1] + 1))
+        planes_list, demand, limit, counts = [], [], [], []
+        collisions0 = np.zeros((n_groups, n), dtype=np.int32)
+        for g in range(n_groups):
+            count = int(rng.integers(mix["allocs"][0], mix["allocs"][1] + 1))
+            feasible = c["feasible"] & (rng.random(n) > 0.05)
+            planes = dict(name=f"g{g}", feasible=feasible,
+                          affinity=np.zeros(n, np.float32),
+                          affinity_present=np.zeros(n, bool), count=count)
+            if rng.random() < mix["affinity_share"]:
+                aff = np.where(rng.random(n) < 0.2, 0.5, 0.0).astype(np.float32)
+                planes.update(affinity=aff, affinity_present=aff > 0)
+            if rng.random() < mix["spread_share"]:
+                planes.update(node_value=dc_of.copy(), weight_frac=1.0,
+                              values=[f"dc{d + 1}" for d in range(N_DCS)],
+                              counts0=np.zeros(N_DCS, np.int32),
+                              present0=np.zeros(N_DCS, bool))
+                desired = np.full(N_DCS, -1.0, np.float32)
+                if rng.random() < 0.5:
+                    planes["even"] = True
+                else:
+                    desired[dcs] = (100 // k) / 100.0 * count
+                    total = float(desired[dcs].sum())
+                    if 0 < total < count:
+                        planes["implicit"] = float(count) - total
+                planes["desired"] = desired
+            if rng.random() < 0.25:  # same-job allocs already on a few nodes
+                collisions0[g] = (rng.random(n) < 0.02).astype(np.int32)
+            spread_or_aff = "node_value" in planes or bool(planes["affinity_present"].any())
+            planes_list.append(planes)
+            demand.append([int(rng.choice(mix["cpu"])), int(rng.choice(mix["mem"])), 150, 0])
+            limit.append(min(compute_limit(len(elig), False, spread_or_aff), len(elig)))
+            counts.append(count)
+        gid_real = rng.permutation(np.repeat(np.arange(n_groups), counts)).astype(np.int32)
+        preps.append(dict(
+            eval_id=f"eval-{i:03d}",
+            priority=int(rng.choice([30, 50, 70])),
+            create_index=100 + i,
+            planes_list=planes_list,
+            g_index={p["name"]: g for g, p in enumerate(planes_list)},
+            g_demand=np.array(demand, dtype=np.int32),
+            g_limit=np.array(limit, dtype=np.int32),
+            gid_real=gid_real,
+            perm_eligible=rng.permutation(elig).astype(np.int32),
+            collisions0=collisions0,
+            by_dc={f"dc{d + 1}": int((dc_of[elig] == d).sum()) for d in dcs},
+        ))
+    return shared, preps

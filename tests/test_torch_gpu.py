@@ -10,6 +10,8 @@ Placements, final state and round counts must be identical: the planners
 break ties by exact float equality, so no tolerance applies.
 """
 
+import threading
+
 import numpy as np
 import pytest
 from torch_for_tests import multi_eval_problem, runcap_problem, torch
@@ -176,3 +178,119 @@ def test_random_problems_kernels_match_plain(seed, cuda_device):
     want, want_rounds = tk.plan_batch_runs_ref(a, i, a_pad, even)
     _same(got, want)
     assert int(got_rounds) == want_rounds
+
+
+# ---------------------------------------------------------------------------
+# the server path: usage bases, dirty-row scatter, dense verify, drain batch
+# ---------------------------------------------------------------------------
+
+def _lanes(kind, rng, N, R, C=4):
+    """(rows, values) of R lanes over N rows: ``mid`` random with
+    duplicates, ``one`` a single lane, ``dups`` every lane on three rows,
+    ``invalid`` every row outside [0, N)."""
+    if kind == "one":
+        R = 1
+    rows = rng.integers(0, N, R)
+    if kind == "dups":
+        rows = rng.choice([0, 5, N - 1], R)
+    elif kind == "invalid":
+        rows = np.where(rng.random(R) < 0.5, -1 - rng.integers(0, 3, R), N + rng.integers(0, 3, R))
+    vals = rng.integers(-300, 300, (R, C))
+    return rows.astype(np.int32), vals.astype(np.int32)
+
+
+SERVER_CASES = ["mid", "one", "dups", "invalid"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", SERVER_CASES)
+def test_used_bases_kernel_matches_plain(kind, cuda_device):
+    from nomad_tpu_torch.tpu import drain
+
+    rng = np.random.default_rng(1)
+    E, N, n_real, A = 16, 4096, 4000, 2048
+    lanes, demands = _lanes(kind, rng, N, A)
+    placements = lanes if kind != "invalid" else np.full(len(lanes), -1, np.int32)
+    if kind == "mid":
+        placements[::9] = -1
+    eval_of = rng.integers(0, E, len(placements)).astype(np.int32)
+    used0 = rng.integers(0, 10**5, (N, 4)).astype(np.int32)
+    used0[n_real:] = 2**30
+    t = [torch.from_numpy(a).to(cuda_device) for a in (used0, placements, np.abs(demands), eval_of)]
+    before = tk.LAUNCHES["used_bases"]
+    got = drain.used_bases(*t, E, n_real)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["used_bases"] == before + 1
+    _same(got, drain.used_bases_ref(*t, E, n_real))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", SERVER_CASES)
+def test_scatter_rows_kernel_matches_plain(kind, cuda_device):
+    from nomad_tpu_torch.tpu import mirror
+
+    rng = np.random.default_rng(2)
+    N = 10_240
+    rows, vals = _lanes(kind, rng, N, 3000)
+    used = torch.from_numpy(rng.integers(0, 2**30, (N, 4)).astype(np.int32)).to(cuda_device)
+    kept = used.clone()
+    r, v = torch.from_numpy(rows).to(cuda_device), torch.from_numpy(vals).to(cuda_device)
+    got = mirror.scatter_rows(used, r, v)
+    torch.cuda.synchronize()
+    _same(got, mirror.scatter_rows_ref(used, r, v))
+    _same(used, kept)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", SERVER_CASES)
+def test_verify_rows_kernel_matches_plain(kind, cuda_device):
+    rng = np.random.default_rng(3)
+    N = 10_240
+    rows, deltas = _lanes(kind, rng, N, 4096)
+    capacity = rng.integers(1000, 9000, (N, 4)).astype(np.int32)
+    used = (capacity - rng.integers(0, 600, (N, 4))).astype(np.int32)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (capacity, used, rows, deltas)]
+    kept = t[1].clone()
+    got = tk.verify_rows(*t)
+    torch.cuda.synchronize()
+    want = tk.verify_rows_ref(*t)
+    _same(got, want)
+    _same(t[1], kept)
+    if kind == "invalid":
+        assert not bool(want.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,with_state", [("drain-tenant", True), ("drain-bench", False)])
+def test_drain_batch_on_card_matches_cpu(shape, with_state, cuda_device):
+    from nomad_tpu_torch.tpu import drain, mirror
+
+    c = problems.build_cluster(3000, 1, seed=9)
+    shared, preps = problems.drain_problem(c, 12, shape, seed=9)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ds = None
+        if with_state:
+            ds = mirror.DeviceState(0, 3072, shared["capacity"], shared["usable"],
+                                    shared["used0"], device=dev)
+        collector = drain.KernelBatchCollector(
+            drain.SharedCluster(shared["capacity"], shared["usable"], shared["used0"], ds),
+            expected=len(preps), pad_evals=16, device=dev)
+        got = {}
+
+        def one(d):
+            placements, base = collector.submit(drain.DrainPrep.from_dict(d))
+            got[d["eval_id"]] = (placements.cpu().numpy(), base.cpu().numpy())
+
+        threads = [threading.Thread(target=one, args=(d,)) for d in preps]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        out[str(dev)] = got
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert sorted(cpu) == sorted(card) and len(card) == len(preps)
+    for eval_id, (placements, base) in cpu.items():
+        np.testing.assert_array_equal(card[eval_id][0], placements)
+        np.testing.assert_array_equal(card[eval_id][1], base)

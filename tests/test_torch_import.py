@@ -11,7 +11,8 @@ import pytest
 from torch_for_tests import torch
 
 from nomad_tpu_torch import resolve_device
-from nomad_tpu_torch.tpu import planner, problems
+from nomad_tpu_torch.core import plan_apply
+from nomad_tpu_torch.tpu import drain, mirror, planner, problems
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "nomad_tpu_torch")
@@ -23,6 +24,11 @@ MODULES = [
     "nomad_tpu_torch.tpu.kernel",
     "nomad_tpu_torch.tpu.planner",
     "nomad_tpu_torch.tpu._build",
+    "nomad_tpu_torch.tpu.columnar",
+    "nomad_tpu_torch.tpu.mirror",
+    "nomad_tpu_torch.tpu.drain",
+    "nomad_tpu_torch.core",
+    "nomad_tpu_torch.core.plan_apply",
 ]
 
 
@@ -81,6 +87,19 @@ def test_entry_points_default_to_cuda():
         planner.plan_eval(planes)
     placements, stats = planner.plan_eval(planes, device="cpu")
     assert stats["mode"] == "exact-scan" and (placements >= 0).all()
+
+    # the server path: the drain collector, the device planes, the verify
+    shared = drain.SharedCluster(c["capacity"], c["usable"], c["reserved"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drain.KernelBatchCollector(shared, expected=1)
+    assert drain.KernelBatchCollector(shared, expected=1, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mirror.DeviceState(0, 16, c["capacity"], c["usable"], c["reserved"])
+    ds = mirror.DeviceState(0, 16, c["capacity"], c["usable"], c["reserved"], device="cpu")
+    rows, deltas = [1, 2], [np.zeros(4, np.int32)] * 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        plan_apply.dense_verify((c["capacity"], c["usable"], c["reserved"]), rows, deltas)
+    assert plan_apply.dense_verify(ds.arrays(), rows, deltas).all()
 
 
 def test_chip_smoke_refuses_without_a_card():
