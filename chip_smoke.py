@@ -30,8 +30,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    placements equal its solo exact scan from its usage base, the bases
    thread the earlier evals' grants, no node over capacity, every
    placement in the eval's ring and feasible, the verify passes the
-   grants and fails exactly the rows pushed one over; timings of each
-   batch; and the usage-base, dirty-row scatter and dense-verify kernels
+   grants and fails exactly the rows pushed one over, and both batches
+   give the same placements and bases through the plain versions on the
+   CPU; timings of each batch, repeated on the planes of its first run;
+   and the usage-base, dirty-row scatter and dense-verify kernels
    against their plain versions and the nearest PyTorch calls at the
    main-path shapes;
 6. one JSON line of per-kernel numbers, the card's name and power limit,
@@ -360,16 +362,30 @@ def server_path(dev) -> tuple:
             f"solo scans identical, no node over capacity, verify {len(rows)} rows fit and "
             f"fails exactly 5 pushed rows")
 
-    # ---- timings of the two batches -----------------------------------------
+    # the same two batches through the plain versions on the CPU, from the
+    # host planes the DeviceState holds: identical placements and bases
+    cpu = torch.device("cpu")
+    for label, used, preps, out in (("drain-bench", used1, bench, out_b),
+                                    ("drain-tenant", used2, tenant, out_t)):
+        want, cpu_e2e, _ = drive_batch(drain.SharedCluster(capacity, usable, used), preps, cpu)
+        err = max_abs_err([(out[k][i], want[k][i]) for k in want for i in (0, 1)])
+        if err or sorted(out) != sorted(want):
+            fail(f"{label}: the batch on the card differs from the plain versions ({err})")
+        log(f"{label}: placements and bases identical to the plain versions on the CPU "
+            f"(host upload; CPU e2e {cpu_e2e:.0f} ms)")
+
+    # ---- timings of the two batches, each on the planes of its first run ---
+    ds_b = mirror.DeviceState(0, N, capacity, usable, used1, dev)
     for label, sh, preps, first, e2e, kms in (
-        ("drain-bench", drain.SharedCluster(capacity, usable, used2, ds), bench, None, e2e_b, kms_b),
+        ("drain-bench", drain.SharedCluster(capacity, usable, used1, ds_b), bench, out_b, e2e_b,
+         kms_b),
         ("drain-tenant", shared_t, tenant, out_t, e2e_t, kms_t),
     ):
         samples = [(e2e, kms)]
         for _ in range(3):
             again, e2e, kms = drive_batch(sh, preps, dev)
             samples.append((e2e, kms))
-            if first is not None and any(not np.array_equal(again[k][0], first[k][0]) for k in first):
+            if max_abs_err([(again[k][i], first[k][i]) for k in first for i in (0, 1)]):
                 fail(f"{label}: a repeated batch placed differently")
         stats = drain.LAST_DRAIN_STATS
         log(f"{label} batch (e2e ms, kernel ms; first run, then 3 more): "

@@ -14,34 +14,27 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import resolve_device
 from ..tpu import kernel
 from ..tpu.columnar import R_COLS
 from ..tpu.mirror import DeviceState
 
 
-def dense_verify(arrays, rows, row_deltas, device=None) -> np.ndarray:
+def dense_verify(arrays, rows, row_deltas) -> np.ndarray:
     """Fit verdict per touched row, bool[k], for the rows' aggregated
-    deltas (one lane per row, i64/i32[k,C]) on top of ``arrays``: the
-    (capacity, usable, used) planes of ``DeviceState.arrays()``, or the
-    same planes as numpy, which go to ``device`` (CUDA unless the caller
-    asks for the CPU). The lanes pad to the dirty-row bucket with row 0
-    and a delta of 0, as the JAX applier pads them."""
+    deltas (one lane per row, i64/i32[k,C]) on top of ``arrays``, the
+    (capacity, usable, used) tensors of ``DeviceState.arrays()``; the
+    verify runs on the planes' device. The lanes pad to the dirty-row
+    bucket with row 0 and a delta of 0, as the JAX applier pads them."""
     capacity, _, used = arrays
-    if isinstance(capacity, torch.Tensor):
-        dev = capacity.device
-        if device is not None and resolve_device(device).type != dev.type:
-            raise ValueError(f"planes are on {dev}, not on {device}")
-    else:
-        dev = resolve_device(device)
-        capacity, used = kernel.from_numpy((capacity, used), dev)
+    if not isinstance(capacity, torch.Tensor) or not isinstance(used, torch.Tensor):
+        raise TypeError("dense_verify takes the planes of DeviceState.arrays() as tensors")
     k = len(rows)
     if k == 0:
         return np.zeros(0, dtype=bool)
     if min(rows) < 0 or max(rows) >= capacity.shape[0]:
         raise ValueError(f"row outside [0, {capacity.shape[0]})")
     padded, deltas = verify_lanes(rows, row_deltas)
-    fits = kernel.verify_rows(capacity, used, *kernel.from_numpy((padded, deltas), dev))
+    fits = kernel.verify_rows(capacity, used, *kernel.from_numpy((padded, deltas), capacity.device))
     return fits[:k].cpu().numpy()
 
 

@@ -275,8 +275,9 @@ DRAIN_SHAPES = {
     # bench.py bench_drain's jobs: one group of 1-4 allocs over all 4 DCs
     "drain-bench": dict(groups=(1, 1), allocs=(1, 4), dcs=(4, 4), spread_share=0.0,
                         affinity_share=0.0, cpu=(100, 250), mem=(64, 128)),
-    # multi-tenant: two groups of 64 allocs, rings over 1-4 DCs, spread on
-    # half the groups
+    # a synthetic stress shape of the multi-eval scan, not a traffic mix
+    # the system serves: two groups of 64 allocs (4,096 lanes at 32
+    # evals), rings over 1-4 DCs, spread on half the groups
     "drain-tenant": dict(groups=(2, 2), allocs=(64, 64), dcs=(1, 4), spread_share=0.5,
                          affinity_share=0.25, cpu=(100, 250, 500), mem=(64, 128, 256)),
 }

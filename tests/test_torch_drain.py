@@ -21,8 +21,10 @@ from nomad_tpu.structs.model import Evaluation
 from nomad_tpu.tpu import columnar as jcol
 from nomad_tpu.tpu import drain as jdrain
 from nomad_tpu.tpu import kernel as jk
+from nomad_tpu.tpu import mirror as jmirror
 from nomad_tpu.tpu.batch_sched import TPUBatchScheduler
 from nomad_tpu_torch.tpu import drain as tdrain
+from nomad_tpu_torch.tpu import mirror as tmirror
 from nomad_tpu_torch.tpu import problems
 from test_drain import simple_job
 
@@ -69,15 +71,41 @@ def test_used_bases_match_jax(E):
 # ---------------------------------------------------------------------------
 
 class _JaxShared:
-    """What the JAX collector reads of its shared cluster (no mirror)."""
+    """What the JAX collector reads of its shared cluster; ``mirror`` hands
+    out a JAX ``DeviceState``'s planes, or is None (the host upload)."""
 
-    def __init__(self, shared):
+    def __init__(self, shared, device_state=None):
         self.nodes = list(range(shared["n_real"]))
         self.gen = object()
-        self.mirror = None
+        self.mirror = None if device_state is None else _JaxMirror(device_state)
         self.capacity = shared["capacity"]
         self.usable = shared["usable"]
         self.used0 = shared["used0"]
+
+
+class _JaxMirror:
+    def __init__(self, device_state):
+        self.device_state_ = device_state
+        self.calls = 0
+
+    def device_state(self, n_pad, gen, mesh=None):
+        assert n_pad == self.device_state_.n_pad and mesh is None
+        self.calls += 1
+        return self.device_state_.arrays()
+
+
+def _device_state(module, shared, **kwargs):
+    """A ``DeviceState`` of ``module`` (the JAX one or the port's) made at
+    the reserved usage alone and brought to ``used0`` by a refresh of the
+    rows that differ, as the server keeps it."""
+    n = shared["n_real"]
+    stale = np.zeros_like(shared["used0"])
+    ds = module.DeviceState(0, problems.bucket(n), shared["capacity"], shared["usable"], stale,
+                            **kwargs)
+    ds.pending.update(int(r) for r in np.flatnonzero((shared["used0"] != stale).any(axis=1)))
+    assert ds.pending
+    ds.refresh(shared["used0"])
+    return ds
 
 
 def _jax_prep(d):
@@ -108,20 +136,24 @@ def _drive(collector, preps, make, leave=()):
     return out
 
 
-def _port_batch(shared, preps, pad_evals, leave=()):
+def _port_batch(shared, preps, pad_evals, leave=(), route="host"):
+    ds = _device_state(tmirror, shared, device="cpu") if route == "device-state" else None
     collector = tdrain.KernelBatchCollector(
-        tdrain.SharedCluster(shared["capacity"], shared["usable"], shared["used0"]),
+        tdrain.SharedCluster(shared["capacity"], shared["usable"], shared["used0"], ds),
         expected=len(preps), pad_evals=pad_evals, device="cpu",
     )
     out = _drive(collector, preps, tdrain.DrainPrep.from_dict, leave)
     return out, collector
 
 
-def _jax_batch(shared, preps, pad_evals, leave=()):
-    collector = jdrain.KernelBatchCollector(_JaxShared(shared), expected=len(preps),
-                                            pad_evals=pad_evals)
+def _jax_batch(shared, preps, pad_evals, leave=(), route="host"):
+    ds = _device_state(jmirror, shared) if route == "device-state" else None
+    jshared = _JaxShared(shared, ds)
+    collector = jdrain.KernelBatchCollector(jshared, expected=len(preps), pad_evals=pad_evals)
     with jk.deterministic_scope():
-        return _drive(collector, preps, _jax_prep, leave)
+        out = _drive(collector, preps, _jax_prep, leave)
+    assert ds is None or jshared.mirror.calls == 1
+    return out
 
 
 #: name -> (nodes, evals, drain shape, seed)
@@ -131,8 +163,9 @@ BATCHES = {
 }
 
 
+@pytest.mark.parametrize("route", ["host", "device-state"])
 @pytest.mark.parametrize("case", sorted(BATCHES))
-def test_fused_batch_matches_jax_collector(case):
+def test_fused_batch_matches_jax_collector(case, route):
     n_nodes, n_evals, shape, seed = BATCHES[case]
     shared, preps = problems.drain_problem(problems.build_cluster(n_nodes, 1, seed=seed),
                                            n_evals, shape, seed=seed)
@@ -145,13 +178,14 @@ def test_fused_batch_matches_jax_collector(case):
     if shape == "drain-tenant":
         assert any("node_value" in g for d in preps for g in d["planes_list"])
     pad_evals = 8
-    want = _jax_batch(shared, preps, pad_evals, leave)
+    want = _jax_batch(shared, preps, pad_evals, leave, route)
     before = dict(tdrain.DRAIN_COUNTERS)
-    got, collector = _port_batch(shared, preps, pad_evals, leave)
+    got, collector = _port_batch(shared, preps, pad_evals, leave, route)
     assert collector.invocations == 1
     assert tdrain.DRAIN_COUNTERS == dict(batches=before["batches"] + 1,
                                          evals=before["evals"] + n_evals - 2)
     assert tdrain.LAST_DRAIN_STATS["n_evals"] == n_evals - 2
+    assert tdrain.LAST_DRAIN_STATS["device_state"] == (route == "device-state")
     E, G, A, N, V = tdrain.LAST_DRAIN_STATS["padded"]
     assert N > n_nodes and E == pad_evals > n_evals
     assert sorted(got) == sorted(want) and len(got) == n_evals - 1

@@ -57,15 +57,17 @@ def test_verify_rows_ref_matches_jax(seed):
 
 
 def test_dense_verify_flags_exactly_the_rows_over_capacity():
-    capacity = np.full((20, 4), 1000, np.int64)
-    used = np.full((20, 4), 400, np.int64)
+    capacity = torch.full((20, 4), 1000, dtype=torch.int32)
+    used = torch.full((20, 4), 400, dtype=torch.int32)
     rows = np.array([0, 3, 9, 12, 19])
     deltas = np.full((5, 4), 600, np.int64)  # used + delta == capacity: fits
     deltas[1, 2] = 601
     deltas[4, 0] = 601
-    fits = tapply.dense_verify((capacity, None, used), rows, list(deltas), device="cpu")
+    fits = tapply.dense_verify((capacity, None, used), rows, list(deltas))
     np.testing.assert_array_equal(fits, [True, False, True, True, False])
-    assert tapply.dense_verify((capacity, None, used), [], [], device="cpu").shape == (0,)
+    assert tapply.dense_verify((capacity, None, used), [], []).shape == (0,)
+    with pytest.raises(TypeError):
+        tapply.dense_verify((capacity.numpy(), None, used.numpy()), rows, list(deltas))
 
 
 def _record_applier(monkeypatch):
@@ -111,7 +113,8 @@ def test_replay_of_the_applier_verify(seed, monkeypatch):
     monkeypatch.setattr(tk, "verify_rows", lambda *a: padded.append(a) or tk.verify_rows_ref(*a))
     n_false = 0
     for capacity, used, rows, deltas, k, want in calls:
-        got = tapply.dense_verify((capacity, None, used), rows[:k], list(deltas[:k]), device="cpu")
+        planes = (torch.tensor(capacity), None, torch.tensor(used))
+        got = tapply.dense_verify(planes, rows[:k], list(deltas[:k]))
         _, _, prow, pdelta = padded[-1]
         np.testing.assert_array_equal(prow.numpy(), rows)
         np.testing.assert_array_equal(pdelta.numpy(), deltas)
