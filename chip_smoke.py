@@ -10,15 +10,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    sm_90a, one process per source, and prints ptxas's resource lines;
 3. kernel vs plain version on the card at mid sizes: the exact scan, the
    run planner and the windowed planner must give the same placements,
-   final state and round counts as their plain PyTorch versions;
+   final state and round counts as their plain PyTorch versions; the
+   wavefront planner on the 8-group exact-scan planes (N = 2,048, A =
+   1,024) for windows of 8 and 32 lanes and 1 and 3 candidates per lane,
+   against its plain version on the CPU (placements, final state, rounds);
+   the paged planner on an 8,192-node eval in 1,024-row tiles under a
+   budget of half its planes (LRU eviction), against the flat windowed
+   kernel and the numpy oracle, with every tile sweep it launched against
+   that sweep's plain version on the same inputs;
 4. the main path at full width: ``planner.plan_eval`` on a 10K-node eval
    of 50K allocs spread over 4 values (run planner), a 10K x 50K eval with
    limit 10 (windowed planner) and a 10K-node eval of 8 groups (exact
    scan), with every launch counter set to 0 before and read after; then
-   output checks (no node over capacity), timings, parity of the run and
-   windowed planners against the exact-scan kernel on the same planes, the
-   exact scan against the float64 host oracle on a small eval, and each
-   kernel against its plain version at the main-path shape;
+   the same 8-group eval with the wavefront stanza on (W = 32, M = 1),
+   counted on its own, whose placements must be the exact-scan kernel's;
+   then a 1,000,000-node eval of 100,000 allocs (limit 8) with paging on
+   (65,536-row tiles, an 8 MB budget that cannot hold the 45 MB of planes),
+   counted on its own, whose placements and rounds must be the flat
+   windowed kernel's on the same planes; then output checks (no node over
+   capacity), timings, parity of the run and windowed planners against the
+   exact-scan kernel on the same planes, the exact scan against the float64
+   host oracle on a small eval, and each kernel against its plain version
+   at the main-path shape;
 5. the server path: a fused drain batch of 8 evals and 1,024 lanes on
    the card against the same batch through the plain versions on the
    CPU; then, with every launch counter set to 0 before and read after,
@@ -33,7 +46,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    grants and fails exactly the rows pushed one over, and both batches
    give the same placements and bases through the plain versions on the
    CPU; timings of each batch, repeated on the planes of its first run;
-   and the usage-base, dirty-row scatter and dense-verify kernels
+   both batches again on those planes with the wavefront stanza on,
+   counted on their own, whose placements and bases must be the exact
+   route's; and the usage-base, dirty-row scatter and dense-verify kernels
    against their plain versions and the nearest PyTorch calls at the
    main-path shapes;
 6. one JSON line of per-kernel numbers, the card's name and power limit,
@@ -42,6 +57,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 Without a CUDA card it exits with status 2 and prints no result.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -69,9 +85,17 @@ NODES, ALLOCS, VALUES = 10_000, 50_000, 4
 EXACT_GROUPS, EXACT_ALLOCS = 8, 8_192
 LIMIT = 10
 DRAIN_EVALS, DIRTY_ROWS = 32, 3_000
+#: the wavefront stanza of the full-width runs
+WAVEFRONT_W, WAVEFRONT_M = 32, 1
+#: the paged eval: bench.py bench_paged's shape (seed, nodes, allocs, tile
+#: rows, budget), and the mid-size one it checks parity on
+PAGED_SEED, PAGED_NODES, PAGED_ALLOCS, PAGED_TILE, PAGED_BUDGET_MB = (
+    20260807, 1_000_000, 100_000, 65_536, 8)
+MID_PAGED = (7, 8192, 1024)  # seed, nodes, allocs; limit 4, 1,024-row tiles
 #: the kernels of the server path and of the planners' entry-point path
 SERVER_KERNELS = ("exact_scan", "used_bases", "scatter_rows", "verify_rows")
 PLAN_EVAL_KERNELS = ("exact_scan", "runs", "windowed")
+PAGED_KERNELS = ("tile_count", "tile_window")
 
 
 def log(msg: str) -> None:
@@ -154,10 +178,14 @@ def bound(bytes_moved: int, ops: float, ops_per_s: float = F32_OPS_PER_S) -> tup
 
 
 def max_abs_err(pairs) -> int:
+    """Largest difference of integer outputs; float32 outputs are compared
+    as their bits (0 means bit-identical)."""
     err = 0
     for got, want in pairs:
-        got = torch.as_tensor(got).cpu().to(torch.int64)
-        want = torch.as_tensor(want).cpu().to(torch.int64)
+        got, want = torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu()
+        if got.dtype == torch.float32 and want.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        got, want = got.to(torch.int64), want.to(torch.int64)
         if got.shape != want.shape:
             fail(f"shape {tuple(got.shape)} != {tuple(want.shape)}")
         if got.numel():
@@ -182,6 +210,43 @@ def check_capacity(planes: dict, placements: np.ndarray, what: str) -> int:
         if not planes["feasible"][g][placements[placed & (groups == g)]].all():
             fail(f"{what}: placement on an infeasible node")
     return int(placed.sum())
+
+
+@contextlib.contextmanager
+def recorded_sweeps():
+    """Record every tile sweep the paged planner launches as (name,
+    arguments, outputs); the launches still go through the wrappers."""
+    from nomad_tpu_torch.tpu import paging
+
+    calls = []
+    wrapped = {name: getattr(paging, name) for name in PAGED_KERNELS}
+
+    def recorder(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls.append((name, args, out if isinstance(out, tuple) else (out,)))
+            return out
+        return call
+
+    for name, fn in wrapped.items():
+        setattr(paging, name, recorder(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in wrapped.items():
+            setattr(paging, name, fn)
+
+
+def sweeps_err(calls) -> int:
+    """Each recorded tile sweep against its plain version on its inputs."""
+    from nomad_tpu_torch.tpu import paging
+
+    plain = {"tile_count": paging.tile_count_ref, "tile_window": paging.tile_window_ref}
+    err = 0
+    for name, args, out in calls:
+        want = plain[name](*args)
+        err = max(err, max_abs_err(zip(out, want if isinstance(want, tuple) else (want,))))
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -263,10 +328,11 @@ def grant_rows(grants: np.ndarray) -> tuple:
 
 
 def server_path(dev) -> tuple:
-    """Phase 5; returns (the server path's launches per kernel, JSON rows of
-    the server kernels without their launches)."""
+    """Phase 5; returns (the server path's launches per kernel, the
+    wavefront route's launches per kernel, JSON rows of the server kernels
+    without their launches)."""
     from nomad_tpu_torch.core import plan_apply
-    from nomad_tpu_torch.tpu import drain, kernel, mirror, problems
+    from nomad_tpu_torch.tpu import drain, kernel, mirror, problems, wavefront
 
     cluster = problems.build_cluster(NODES, 1, n_values=VALUES, seed=20)
     shared, bench = problems.drain_problem(cluster, DRAIN_EVALS, "drain-bench", seed=21)
@@ -392,6 +458,37 @@ def server_path(dev) -> tuple:
             + ", ".join(f"({e:.3f}, {k:.3f})" for e, k in samples)
             + f"; padded E,G,A,N,V = {stats['padded']}, build {stats['build_s'] * 1e3:.3f} ms")
 
+    # ---- the wavefront route: both batches again on the same planes --------
+    wavefront.configure(enabled=True, max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
+    kernel.reset_launches()
+    wf_samples = {}
+    for label, sh, preps, first in (
+        ("drain-bench", drain.SharedCluster(capacity, usable, used1, ds_b), bench, out_b),
+        ("drain-tenant", shared_t, tenant, out_t),
+    ):
+        samples = []
+        for _ in range(3):
+            again, e2e, kms = drive_batch(sh, preps, dev)
+            stats = drain.LAST_DRAIN_STATS
+            if stats["planner"] != "wavefront":
+                fail(f"{label}: the batch ran the {stats['planner']} planner")
+            if max_abs_err([(again[k][i], first[k][i]) for k in first for i in (0, 1)]):
+                fail(f"{label}: the wavefront placed or based differently from the exact scan")
+            samples.append((e2e, kms, int(stats["rounds"])))
+        wf_samples[label] = samples
+    wf_launches = {name: kernel.LAUNCHES[name] for name in ("wavefront", "used_bases")}
+    wavefront.reset()
+    log(f"server path, wavefront route launches: {wf_launches}")
+    for name, n in wf_launches.items():
+        if n < 1:
+            fail(f"kernel {name} was not launched on the server's wavefront route")
+    for label, samples in wf_samples.items():
+        lanes = sum(len(d["gid_real"]) for d in (bench if label == "drain-bench" else tenant))
+        log(f"{label} wavefront W={WAVEFRONT_W} M={WAVEFRONT_M}: placements and bases identical "
+            f"to the exact scan's; rounds {samples[0][2]} for {lanes} lanes "
+            f"({samples[0][2] / lanes:.4f} per lane); (e2e ms, kernel ms): "
+            + ", ".join(f"({e:.3f}, {k:.3f})" for e, k, _ in samples))
+
     # ---- the server kernels at the main-path shapes -------------------------
     rows_out = []
     C = 4
@@ -491,7 +588,7 @@ def server_path(dev) -> tuple:
         log(f"{name}: {ms:.4f} ms per launch (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
             f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
             f"library {us[1]}; {shape}")
-    return launches, server_rows
+    return launches, wf_launches, server_rows
 
 
 def main() -> int:
@@ -499,7 +596,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 2
-    from nomad_tpu_torch.tpu import _build, exact_np, kernel, planner, problems
+    from nomad_tpu_torch.tpu import _build, exact_np, kernel, paging, planner, problems, wavefront
 
     dev = torch.device("cuda")
     card = card_line()
@@ -514,7 +611,8 @@ def main() -> int:
     for line in (lib_path.parent / _build.PTXAS_LOG).read_text().splitlines():
         log(f"  {line}")
 
-    errs = {"exact_scan": 0, "runs": 0, "windowed": 0}  # kernel vs plain, max abs
+    # kernel vs plain, max abs (float outputs as bits)
+    errs = {name: 0 for name in (*PLAN_EVAL_KERNELS, "wavefront", *PAGED_KERNELS)}
 
     # ---- 3. kernel vs plain version on the card, mid sizes ----------------
     mid = problems.pad_cluster(problems.build_cluster(2000, 1024, seed=11), 2048)
@@ -531,6 +629,59 @@ def main() -> int:
             fail(f"{label}: kernel differs from the plain version (max abs err {err})")
         errs["exact_scan"] = max(errs["exact_scan"], err)
         log(f"mid {label}: N=2048 A=1024 identical, placed {int((got >= 0).sum())}")
+
+    # the wavefront on the G=8 planes; its plain version runs on the CPU
+    # from the same inputs, and both must be the exact scan's
+    a_cpu, s_cpu = kernel.from_numpy(args, "cpu"), kernel.from_numpy(init, "cpu")
+    for top_m in (1, 3):
+        for window in (8, 32):
+            wavefront.configure(max_round=window, contention_top_m=top_m)
+            wf_state, wf, rounds = wavefront.plan_batch_wavefront(a, s, 2000)
+            torch.cuda.synchronize()
+            want_state, want, want_rounds = wavefront.plan_batch_wavefront_ref(
+                a_cpu, s_cpu, 2000, window, top_m, 1)
+            err = max_abs_err([(wf, want), *zip(wf_state, want_state)])
+            err += abs(int(rounds) - want_rounds)
+            if err:
+                fail(f"wavefront W={window} M={top_m}: kernel differs from the plain version "
+                     f"({err}; rounds {int(rounds)} vs {want_rounds})")
+            if max_abs_err([(wf, got), *zip(wf_state, got_state)]):
+                fail(f"wavefront W={window} M={top_m}: differs from the exact scan")
+            errs["wavefront"] = max(errs["wavefront"], err)
+            log(f"mid wavefront G=8 W={window} M={top_m}: N=2048 A=1024 identical to the plain "
+                f"version and the exact scan, rounds {want_rounds}")
+    wavefront.reset()
+
+    # the paged planner under a budget of half its planes, against the flat
+    # windowed kernel and the numpy oracle; every tile sweep against its
+    # plain version
+    seed, n_p, a_p = MID_PAGED
+    case = problems.paged_case(seed, n_p, a_p, limit=4)
+    paging.configure(tile_nodes=1024)
+    with recorded_sweeps() as sweeps:
+        got, rounds, stats = paging.plan_batch_paged(
+            *case, device=dev, budget_bytes=paging.plane_bytes(n_p, 4) // 2)
+    for name in PAGED_KERNELS:
+        errs[name] = sweeps_err([c for c in sweeps if c[0] == name])
+        if errs[name]:
+            fail(f"{name}: a tile sweep differs from its plain version ({errs[name]})")
+    paging.reset()
+    wargs = kernel.from_numpy(dict(
+        capacity=case[0], usable=case[1], feasible=case[2], perm=case[3], demand=case[4],
+        group_count=np.int32(case[5]), limit=np.int32(case[6]), n_allocs=np.int32(case[7])), dev)
+    flat, flat_rounds = kernel.plan_batch_windowed(wargs, *kernel.from_numpy(case[8:10], dev), n_p, a_p)
+    oracle, oracle_rounds = paging.plan_windowed_np(*case)
+    if not (np.array_equal(got, flat.cpu().numpy()) and rounds == int(flat_rounds)):
+        fail("paged planner differs from the flat windowed kernel")
+    if not (np.array_equal(got, oracle) and rounds == oracle_rounds):
+        fail("paged planner differs from the numpy oracle")
+    if stats["evictions"] < 1:
+        fail("the mid paged run evicted no tile")
+    log(f"mid paged: N={n_p} A={a_p} L=4 in {stats['tiles']} tiles of 1024, rounds {rounds}, "
+        f"identical to the flat windowed kernel and the numpy oracle; "
+        f"{sum(c[0] == 'tile_count' for c in sweeps)} count and "
+        f"{sum(c[0] == 'tile_window' for c in sweeps)} window sweeps identical to the plain "
+        f"versions; cache {stats}")
     mid = problems.pad_cluster(problems.build_cluster(4000, 8192, seed=12), 4096)
     rargs, rinit = kernel.from_numpy(problems.runs_problem(mid), dev)
     got, got_rounds = kernel.plan_batch_runs(rargs, rinit, 8192)
@@ -576,6 +727,69 @@ def main() -> int:
         log(f"main {mode}: {evals[mode]['a_real']} allocs x {evals[mode]['n_real']} nodes, "
             f"placed {placed}, rounds {stats['rounds']}, kernel {stats['kernel_s'] * 1e3:.2f} ms")
 
+    # the wavefront route: the 8-group eval with the stanza on, counted
+    wavefront.configure(enabled=True, max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
+    kernel.reset_launches()
+    wf_placements, wf_stats = planner.plan_eval(tenants, dev)
+    wf_launches = {"wavefront": kernel.LAUNCHES["wavefront"]}
+    log(f"main path, wavefront route launches: {wf_launches}")
+    if wf_stats["mode"] != "wavefront" or wf_launches["wavefront"] < 1:
+        fail(f"the wavefront route planned in mode {wf_stats['mode']}, launches {wf_launches}")
+    if not np.array_equal(wf_placements, results["exact-scan"][0]):
+        fail("the wavefront route placed differently from the exact-scan kernel")
+    samples = []
+    for _ in range(3):
+        t = time.perf_counter()
+        _, stats = planner.plan_eval(tenants, dev)
+        samples.append(((time.perf_counter() - t) * 1e3, stats["kernel_s"] * 1e3))
+    wavefront.reset()
+    placed = check_capacity(tenants, wf_placements, "wavefront")
+    log(f"main wavefront W={WAVEFRONT_W} M={WAVEFRONT_M}: {tenants['a_real']} allocs x "
+        f"{tenants['n_real']} nodes, placed {placed}, identical to the exact-scan kernel; rounds "
+        f"{wf_stats['rounds']} ({wf_stats['rounds'] / tenants['a_real']:.4f} per placement); "
+        f"(e2e ms, kernel ms): " + ", ".join(f"({e:.2f}, {k:.2f})" for e, k in samples))
+
+    # the paged route: bench_paged's 1M-node eval over an 8 MB budget, counted
+    pcase = problems.paged_case(PAGED_SEED, PAGED_NODES, PAGED_ALLOCS)
+    paged = problems.paged_eval_planes(pcase)
+    plane_bytes = paging.plane_bytes(planner.pad_planes(paged)["capacity"].shape[0], 4)
+    if plane_bytes <= PAGED_BUDGET_MB << 20:
+        fail(f"the paged eval's planes ({plane_bytes} bytes) fit the budget")
+    paging.configure(enabled=True, device_node_budget_mb=PAGED_BUDGET_MB, tile_nodes=PAGED_TILE)
+    kernel.reset_launches()
+    with recorded_sweeps() as big_sweeps:
+        t = time.perf_counter()
+        pg_placements, pg_stats = planner.plan_eval(paged, dev)
+        pg_e2e = (time.perf_counter() - t) * 1e3
+    paged_launches = {name: kernel.LAUNCHES[name] for name in PAGED_KERNELS}
+    samples = []
+    for _ in range(3):
+        t = time.perf_counter()
+        _, stats = planner.plan_eval(paged, dev)
+        samples.append(((time.perf_counter() - t) * 1e3, stats["kernel_s"] * 1e3))
+    paging.reset()
+    log(f"main path, paged route launches: {paged_launches}")
+    for name, n in paged_launches.items():
+        if n < 1:
+            fail(f"kernel {name} was not launched on the paged route")
+    if pg_stats["mode"] != "paged" or pg_stats["resident_peak_bytes"] > pg_stats["limit_bytes"]:
+        fail(f"paged route: {pg_stats}")
+    p = planner.pad_planes(paged)
+    wargs, wused, wcoll = planner.window_inputs(p, dev)
+    flat, flat_rounds = kernel.plan_batch_windowed(wargs, wused, wcoll, p["n_real"],
+                                                   p["demands"].shape[0])
+    if not (np.array_equal(pg_placements, flat[: p["a_real"]].cpu().numpy())
+            and pg_stats["rounds"] == int(flat_rounds)):
+        fail("the paged route differs from the flat windowed kernel on the same planes")
+    placed = check_capacity(paged, pg_placements, "paged")
+    log(f"main paged: {PAGED_ALLOCS} allocs x {PAGED_NODES} nodes, planes {plane_bytes} bytes "
+        f"over a {PAGED_BUDGET_MB} MB budget, placed {placed}, rounds {pg_stats['rounds']}, "
+        f"identical to the flat windowed kernel; first run e2e {pg_e2e:.2f} ms (plan_eval), "
+        f"planner {pg_stats['kernel_s'] * 1e3:.2f} ms; 3 more (e2e ms, planner ms): "
+        + ", ".join(f"({e:.2f}, {k:.2f})" for e, k in samples) + "; cache "
+        + json.dumps({k: v for k, v in pg_stats.items()
+                      if k not in ("mode", "kernel_s", "launches", "rounds")}))
+
     # timings of the headline eval through the entry point
     samples = []
     planner.plan_eval(spread, dev)  # warm-up
@@ -618,12 +832,14 @@ def main() -> int:
     if parity < 0.99:
         fail(f"exact scan vs host oracle parity {parity} < 0.99")
 
-    # each kernel at its main-path shape: time, plain version, bound
-    rows = []
+    # each kernel at its main-path shape: time, device time, plain version,
+    # bound
+    rows, planner_us = [], {}
     p = planner.pad_planes(spread)
     rargs, rinit = planner.runs_inputs(p, dev)
     A = p["demands"].shape[0]
     ms, (got, rounds) = cuda_ms(lambda: kernel.plan_batch_runs(rargs, rinit, A))
+    planner_us["runs"] = device_us(lambda: kernel.plan_batch_runs(rargs, rinit, A), calls=3)
     plain_ms, (want, want_rounds) = host_ms(lambda: kernel.plan_batch_runs_ref(rargs, rinit, A))
     errs["runs"] = max_abs_err([(got, want)]) + abs(int(rounds) - want_rounds)
     N, C = p["capacity"].shape
@@ -637,6 +853,8 @@ def main() -> int:
     wargs, wused, wcoll = planner.window_inputs(p, dev)
     A, (N, C) = p["demands"].shape[0], p["capacity"].shape
     ms, (got, rounds) = cuda_ms(lambda: kernel.plan_batch_windowed(wargs, wused, wcoll, p["n_real"], A))
+    planner_us["windowed"] = device_us(
+        lambda: kernel.plan_batch_windowed(wargs, wused, wcoll, p["n_real"], A), calls=3)
     plain_ms, (want, want_rounds) = host_ms(
         lambda: kernel.plan_batch_windowed_ref(wargs, wused, wcoll, p["n_real"], A))
     errs["windowed"] = max_abs_err([(got, want)]) + abs(int(rounds) - want_rounds)
@@ -650,6 +868,8 @@ def main() -> int:
     bargs, bstate = planner.exact_inputs(p, dev)
     A, (N, C) = p["demands"].shape[0], p["capacity"].shape
     ms, (got_state, got) = cuda_ms(lambda: kernel.plan_batch(bargs, bstate, p["n_real"]))
+    planner_us["exact_scan"] = device_us(lambda: kernel.plan_batch(bargs, bstate, p["n_real"]),
+                                         calls=3)
     plain_ms, (want_state, want) = host_ms(lambda: kernel.plan_batch_ref(bargs, bstate, p["n_real"]))
     errs["exact_scan"] = max(errs["exact_scan"],
                              max_abs_err([(got, want), *zip(got_state, want_state)]))
@@ -660,32 +880,121 @@ def main() -> int:
                           int(p["feasible"][p["groups"][: p["a_real"]]].sum()), C), p["a_real"],
                  f"N={N} A={A} G={EXACT_GROUPS}"))
 
+    # the wavefront at the same shape; its plain version runs on the card
+    wavefront.configure(max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
+
+    def wavefront_kernel():
+        return wavefront.plan_batch_wavefront(bargs, bstate, p["n_real"])
+
+    ms, (wf_state, wf, wf_rounds) = cuda_ms(wavefront_kernel)
+    planner_us["wavefront"] = device_us(wavefront_kernel, calls=3)
+    plain_ms, (pw_state, pw, pw_rounds) = host_ms(lambda: wavefront.plan_batch_wavefront_ref(
+        bargs, bstate, p["n_real"], WAVEFRONT_W, WAVEFRONT_M, 1))
+    wavefront.reset()
+    errs["wavefront"] = max(errs["wavefront"], max_abs_err([(wf, pw), *zip(wf_state, pw_state)])
+                            + abs(int(wf_rounds) - pw_rounds))
+    if max_abs_err([(wf, got), *zip(wf_state, got_state)]):
+        fail("wavefront: differs from the exact scan at the main-path shape")
+    wf_rounds = int(wf_rounds)
+    lanes_scored = int(p["feasible"][p["groups"][: p["a_real"]]].sum()) / p["a_real"]
+    wf_row = ("wavefront", "nomad_tpu_torch/tpu/csrc/wavefront.cu",
+              "nomad_tpu/tpu/wavefront.py:300", ms, plain_ms,
+              nbytes(bargs, bstate, wf, wf_state),
+              wf_rounds * WAVEFRONT_W * (N * C * FIT_OPS_PER_COL + lanes_scored * SCORE_OPS),
+              wf_rounds, f"N={N} A={A} G={EXACT_GROUPS} W={WAVEFRONT_W} M={WAVEFRONT_M}")
+
+    # the tile sweeps on the first tile of the paged eval's first round
+    _, cargs, _ = next(c for c in big_sweeps if c[0] == "tile_count")
+    _, targs, _ = next(c for c in big_sweeps if c[0] == "tile_window")
+    cap, feas, used, demand, t0_c, off_c, n_real_c = cargs
+    T, C = cap.shape
+    pos = t0_c + torch.arange(T, dtype=torch.int32, device=dev)
+
+    def count_kernel():
+        return paging.tile_count(*cargs)
+
+    def count_library():  # a mask and two sums
+        fit = feas & (used + demand[None, :] <= cap).all(dim=1) & (pos < n_real_c)
+        return torch.stack([fit.sum(dtype=torch.int32), (fit & (pos < off_c)).sum(dtype=torch.int32)])
+
+    ms, got_c = cuda_ms(count_kernel)
+    plain_ms, want_c = cuda_ms(lambda: paging.tile_count_ref(*cargs))
+    lib_ms, lib_c = cuda_ms(count_library)
+    errs["tile_count"] = max(errs["tile_count"], max_abs_err([(got_c, want_c), (got_c, lib_c)]))
+    n_fit = int(want_c[0])
+    sweep_rows = [("tile_count", "nomad_tpu_torch/tpu/csrc/paging.cu",
+                   "nomad_tpu/tpu/paging.py:344", ms, plain_ms, lib_ms,
+                   (device_us(count_kernel), device_us(count_library)),
+                   nbytes(cap, feas, used, demand) + 8, T * C * FIT_OPS_PER_COL + 2 * T,
+                   I32_OPS_PER_S, f"T={T} C={C} ({n_fit} feasible)")]
+
+    def window_kernel():
+        return paging.tile_window(*targs)
+
+    # the library composition: the segmented max / min alone (scatter_reduce
+    # amax and amin with their gathers) on the rows' scores and segments
+    seg_in = paging._tile_segments(*targs[:5], targs[6], *targs[7:])[:4]
+
+    def window_library():
+        return paging._segment_winners(*seg_in, targs[5])
+
+    ms, got_w = cuda_ms(window_kernel)
+    plain_ms, want_w = cuda_ms(lambda: paging.tile_window_ref(*targs))
+    lib_ms, lib_w = cuda_ms(window_library)
+    errs["tile_window"] = max(errs["tile_window"], max_abs_err(zip(got_w, want_w))
+                              + max_abs_err(zip(got_w[1:4], lib_w)))
+    sweep_rows.append(("tile_window", "nomad_tpu_torch/tpu/csrc/paging.cu",
+                       "nomad_tpu/tpu/paging.py:358", ms, plain_ms, lib_ms,
+                       (device_us(window_kernel), device_us(window_library)),
+                       nbytes(*targs[:7]) + 8 + 3 * (2 * T + 1) * 4 + 4,
+                       T * C * FIT_OPS_PER_COL + n_fit * SCORE_OPS, F32_OPS_PER_S,
+                       f"T={T} C={C} ({n_fit} feasible), window sweep of round 1"))
+
     for name, err in errs.items():
         if err:
             fail(f"{name}: kernel differs from its plain version at the main-path shape ({err})")
 
     kernels = []
-    for name, source, replaces, ms, plain_ms, moved, ops, rounds, shape in rows:
+    for name, source, replaces, ms, plain_ms, moved, ops, rounds, shape in (*rows, wf_row):
         bound_ms, bound_by = bound(moved, ops)
+        paths = ({"plan_eval_wavefront": wf_launches[name]} if name == "wavefront"
+                 else {"plan_eval": launches[name]})
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None, rounds=rounds, shape=shape,
-            paths={"plan_eval": launches[name]},
+            name=name, route="cuda", source=source, replaces=replaces, max_abs_err=errs[name],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            device_us=planner_us[name], rounds=rounds, shape=shape,
+            paths=paths,
         ))
+        us = planner_us[name]
         log(f"{name}: {ms:.3f} ms per launch (plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
-            f"by {bound_by}), rounds {rounds}, {shape}")
+            f"by {bound_by}), on the card by the profiler "
+            + ("not measured" if us is None else f"{us:.1f} us") + f", rounds {rounds}, {shape}")
+    for (name, source, replaces, ms, plain_ms, lib_ms, dev_us, moved, ops, rate,
+         shape) in sweep_rows:
+        bound_ms, bound_by = bound(moved, ops, rate)
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, max_abs_err=errs[name],
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            device_us=dev_us[0], library_device_us=dev_us[1], shape=shape,
+            paths={"plan_eval_paged": paged_launches[name]},
+        ))
+        us = ["not measured" if u is None else f"{u:.2f} us" for u in dev_us]
+        log(f"{name}: {ms:.4f} ms per launch (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
+            f"library {us[1]}; {shape}")
 
     # ---- 5. the server path -------------------------------------------------
-    server_launches, server_rows = server_path(dev)
-    for row in kernels:
-        n = server_launches.get(row["name"], 0)
-        row["launches"] += n
-        row["paths"]["server"] = n
+    server_launches, server_wf_launches, server_rows = server_path(dev)
     for row in server_rows:
-        row["launches"] = server_launches[row["name"]]
-        row["paths"] = {"server": row["launches"]}
+        row["paths"] = {}
         kernels.append(row)
+    for row in kernels:
+        name = row["name"]
+        if name in server_launches:
+            row["paths"]["server"] = server_launches[name]
+        if name in server_wf_launches:
+            row["paths"]["server_wavefront"] = server_wf_launches[name]
+        row["launches"] = sum(row["paths"].values())
 
     print(json.dumps({"kernels": kernels}))
     print(card)

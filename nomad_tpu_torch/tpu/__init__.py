@@ -19,7 +19,9 @@ nodes and one ulp changes a placement.
 
 Modules: ``problems`` (seeded synthetic clusters and drain batches),
 ``exact_np`` (the float64 host oracle), ``kernel`` (args, plain versions,
-kernel wrappers), ``planner`` (one eval's planner dispatch), ``columnar``
+kernel wrappers), ``planner`` (one eval's planner dispatch), ``wavefront``
+(the wavefront planner and its stanza), ``paging`` (the paged windowed
+planner, its tile cache, stanza and numpy oracle), ``columnar``
 (per-group planes), ``mirror`` (device-resident node planes and the
 dirty-row scatter), ``drain`` (the fused multi-eval drain batch and the
 per-eval usage bases) and ``_build`` (nvcc build of ``csrc/``). The

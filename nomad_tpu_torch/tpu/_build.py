@@ -32,6 +32,10 @@ _ENTRY_POINTS = {
     "ntt_used_bases": (5, 5),
     "ntt_scatter_rows": (5, 3),
     "ntt_verify_rows": (6, 3),
+    "ntt_wavefront": (35, 9),
+    "ntt_wavefront_grid": (1, 1),
+    "ntt_tile_count": (5, 5),
+    "ntt_tile_window": (15, 11),
 }
 
 _LIB = None

@@ -68,6 +68,9 @@ __device__ __forceinline__ void block_scan(const int (&x)[K], int (&excl)[K], in
 
 __device__ __forceinline__ int shfl_xor(int v, int m) { return __shfl_xor_sync(FULL_MASK, v, m); }
 __device__ __forceinline__ float shfl_xor(float v, int m) { return __shfl_xor_sync(FULL_MASK, v, m); }
+__device__ __forceinline__ unsigned long long shfl_xor(unsigned long long v, int m) {
+  return __shfl_xor_sync(FULL_MASK, v, m);
+}
 
 // Winner of a first-strict-max in visit order: the highest score, and
 // among equal scores (IEEE equality) the lowest visit rank. ``last`` is
@@ -107,6 +110,12 @@ struct MinI {
 };
 struct SumI {
   __device__ __forceinline__ int operator()(int a, int b) const { return a + b; }
+};
+struct MaxU64 {
+  __device__ __forceinline__ unsigned long long operator()(unsigned long long a,
+                                                           unsigned long long b) const {
+    return a > b ? a : b;
+  }
 };
 
 // Reduction whose result every thread receives; every thread's ``v`` takes

@@ -13,11 +13,15 @@ the sync point.
 The fused scan threads capacity through the evals in priority order, so
 the batch's plans never oversubscribe one another.
 
+With the wavefront stanza on (``wavefront.enabled()``) the fused batch
+runs the wavefront planner in the scan's place, as the JAX collector does;
+the usage bases read its placements the same way.
+
 The inputs are the numpy records that cross the JAX package's own
 host/device boundary: ``DrainPrep`` per eval (what
 ``batch_sched._prepare_drain`` builds) and the shared node planes. The
-JAX module's tracing, metrics, device ledger, mesh, wavefront route and
-paging fallback are not ported here.
+JAX module's tracing, metrics, device ledger, mesh and paging fallback
+are not ported here.
 """
 
 from __future__ import annotations
@@ -32,13 +36,16 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from . import kernel
+from . import kernel, wavefront
 from .columnar import R_COLS, GroupPlanes
 from .problems import bucket
 
 logger = logging.getLogger("nomad_tpu_torch.tpu.drain")
 
-#: stats of the most recent drain batch
+#: stats of the most recent drain batch; ``planner`` is ``exact`` or
+#: ``wavefront`` and ``rounds`` its round count (the lane count for the
+#: scan; a device scalar for the wavefront on the card, read after the
+#: batch's consumers synced)
 LAST_DRAIN_STATS: dict = {}
 
 #: cumulative drain accounting
@@ -437,8 +444,15 @@ class KernelBatchCollector:
         if dev.type == "cuda":
             events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
             events[0].record()
-        _, placements = kernel.plan_batch(args, init, n_real)
-        # same stream, no sync: the bases read the scan's output in place
+        n_allocs = sum(a_len for _, a_len in slices)
+        if wavefront.enabled():
+            planner = "wavefront"
+            _, placements, rounds = wavefront.plan_batch_wavefront(args, init, n_real)
+        else:
+            planner = "exact"
+            _, placements = kernel.plan_batch(args, init, n_real)
+            rounds = A  # one scan step per lane
+        # same stream, no sync: the bases read the planner's output in place
         bases = used_bases(init.used, placements, args.demands, eval_of, E, n_real)
         if events is not None:
             events[1].record()
@@ -453,7 +467,9 @@ class KernelBatchCollector:
         DRAIN_COUNTERS["evals"] += len(parked)
         LAST_DRAIN_STATS.update(
             n_evals=len(parked),
-            n_allocs=sum(a_len for _, a_len in slices),
+            n_allocs=n_allocs,
+            planner=planner,
+            rounds=rounds,
             n_nodes=n_real,
             build_s=t_build - t0,
             dispatch_s=t_disp - t_build,

@@ -576,10 +576,12 @@ def plan_batch_windowed_ref(args: WindowArgs, used0, collisions0, n_real: int, a
 # ---------------------------------------------------------------------------
 
 #: kernel launches per kernel since the last ``reset_launches`` (the
-#: server-path kernels' wrappers live in ``drain.py`` and ``mirror.py``)
+#: wrappers of the other kernels live in ``drain.py``, ``mirror.py``,
+#: ``wavefront.py`` and ``paging.py``)
 LAUNCHES = {
     "exact_scan": 0, "runs": 0, "windowed": 0,
     "used_bases": 0, "scatter_rows": 0, "verify_rows": 0,
+    "wavefront": 0, "tile_count": 0, "tile_window": 0,
 }
 
 

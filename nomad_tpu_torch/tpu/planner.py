@@ -1,12 +1,17 @@
 """Plan one eval's columnar planes: the port's device entry point.
 
-Counterpart of the flat planner dispatch in
+Counterpart of the planner dispatch in
 ``TPUBatchScheduler._kernel_placements`` (nomad_tpu/tpu/batch_sched.py,
 lines 686-960): pad the planes the way the scheduler pads them, pick the
 planner with the same predicates (``runs`` for one group with spread or
 affinity and an unbounded limit, ``windowed`` for one group with a bounded
 limit and neither, the exact scan for everything else), build that
-planner's args and launch it. There is no fallback: a kernel failure raises.
+planner's args and launch it. Two config stanzas reroute as the
+scheduler's do: a windowed eval whose node planes exceed the paging
+budget goes to the paged planner (``paging.should_page``, mode
+``paged``), and with the wavefront on the exact scan's place is taken by
+the wavefront planner (mode ``wavefront``). There is no fallback: a
+kernel failure raises.
 
 The planes are numpy arrays under the ``BatchArgs`` field names (G groups,
 E evals), plus ``used0`` [N,C], ``collisions0`` [G,N], ``counts0`` [G,V],
@@ -22,7 +27,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from . import kernel
+from . import kernel, paging, wavefront
 from .problems import bucket
 
 # fill value of each node-axis plane's pad rows (the scheduler's: a pad
@@ -68,19 +73,22 @@ def pad_planes(planes: dict) -> dict:
 
 
 def choose_mode(planes: dict) -> str:
-    """``runs``, ``windowed`` or ``exact-scan``, by the scheduler's
-    predicates (batch_sched.py:690 and :768)."""
+    """``runs``, ``windowed``, ``paged``, ``exact-scan`` or ``wavefront``, by
+    the scheduler's predicates (batch_sched.py:690, :768, :785 and :917)
+    on padded planes."""
     G = planes["feasible"].shape[0]
     E = planes["perm"].shape[0]
+    exact = "wavefront" if wavefront.enabled() else "exact-scan"
     if G != 1 or E != 1:
-        return "exact-scan"
+        return exact
     has_aff_or_spread = bool(planes["affinity_present"][0].any() or planes["spread_active"][0])
     limit, n_real, a_real = int(planes["limits"][0]), planes["n_real"], planes["a_real"]
     if has_aff_or_spread and a_real > 64 and limit >= n_real:
         return "runs"
     if not has_aff_or_spread and a_real > 0 and limit < n_real:
-        return "windowed"
-    return "exact-scan"
+        N, C = planes["capacity"].shape
+        return "paged" if paging.should_page(N, C) else "windowed"
+    return exact
 
 
 def exact_inputs(p: dict, device) -> tuple:
@@ -143,16 +151,29 @@ def _sync(device: torch.device) -> None:
 
 def plan_eval(planes: dict, device=None):
     """Plan one eval; returns (node id per real alloc, -1 = unplaced, as
-    numpy int32; stats ``{mode, rounds, kernel_s, launches}``). ``kernel_s``
-    is the planner call on the device, from launch to synchronized result;
-    ``launches`` counts the kernel launches it made (0 on the CPU)."""
+    numpy int32; stats ``{mode, rounds, kernel_s, launches}``, and for the
+    paged planner its tile cache's stats with ``tiles`` and ``tile_nodes``).
+    ``kernel_s`` is the planner call on the device, from
+    launch to synchronized result (for the paged planner the whole
+    host-driven tile stream); ``launches`` counts the kernel launches it
+    made (0 on the CPU)."""
     dev = resolve_device(device)
     p = pad_planes(planes)
     mode = choose_mode(p)
     n_real, a_real = p["n_real"], p["a_real"]
     A = p["demands"].shape[0]
     before = sum(kernel.LAUNCHES.values())
-    if mode == "runs":
+    extra = {}
+    if mode == "paged":
+        t0 = time.perf_counter()
+        placements, rounds, pstats = paging.plan_batch_paged(
+            p["capacity"], p["usable"], p["feasible"][0], p["perm"][0], p["demands"][0],
+            int(p["group_count"][0]), int(p["limits"][0]), a_real, p["used0"],
+            p["collisions0"][0], n_real, A, device=dev,
+        )
+        placements = torch.from_numpy(placements)
+        extra = {k: v for k, v in pstats.items() if k != "rounds"}
+    elif mode == "runs":
         args, init = runs_inputs(p, dev)
         _sync(dev)
         t0 = time.perf_counter()
@@ -162,6 +183,11 @@ def plan_eval(planes: dict, device=None):
         _sync(dev)
         t0 = time.perf_counter()
         placements, rounds = kernel.plan_batch_windowed(args, used0, coll0, n_real, A)
+    elif mode == "wavefront":
+        args, state = exact_inputs(p, dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        _, placements, rounds = wavefront.plan_batch_wavefront(args, state, n_real)
     else:
         args, state = exact_inputs(p, dev)
         _sync(dev)
@@ -175,5 +201,6 @@ def plan_eval(planes: dict, device=None):
         rounds=int(rounds),
         kernel_s=kernel_s,
         launches=sum(kernel.LAUNCHES.values()) - before,
+        **extra,
     )
     return placements[:a_real].cpu().numpy(), stats

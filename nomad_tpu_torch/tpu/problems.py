@@ -6,7 +6,9 @@ the same arrays from the same seed, returned as plain dicts keyed by the
 planner args' field names (``kernel.from_numpy`` turns them into tensors).
 ``eval_planes`` turns an exact-scan problem into the columnar planes that
 ``planner.plan_eval`` takes; ``drain_problem`` makes a batch of evals for
-the drain collector (``drain.KernelBatchCollector``).
+the drain collector (``drain.KernelBatchCollector``); ``paged_case`` makes
+the paged planner's arguments at up to a million nodes, and
+``paged_eval_planes`` the same eval as ``plan_eval``'s planes.
 """
 
 from __future__ import annotations
@@ -237,6 +239,47 @@ def window_problem(c, limit: int = 10):
         n_allocs=np.int32(c["n_allocs"]),
     )
     return args, c["reserved"].copy(), np.zeros(n_nodes, dtype=np.int32)
+
+
+def paged_case(seed: int, n: int, a: int, limit: int = 8, c: int = 4) -> tuple:
+    """The paged planner's arguments for an ``n``-node, ``a``-alloc windowed
+    eval (the JAX package's ``bench._paged_case``): random planes at node
+    counts no mock cluster reaches, in the shapes the scheduler builds.
+    Returns (capacity, usable, feasible, perm, demand, group_count, limit,
+    n_allocs, used0, collisions0, n_real, a_pad)."""
+    rng = np.random.default_rng(seed)
+    capacity = rng.integers(8, 64, size=(n, c)).astype(np.int32)
+    usable = np.maximum(capacity[:, :2].astype(np.float32), 1.0)
+    feasible = rng.random(n) < 0.9
+    demand = rng.integers(1, 4, size=c).astype(np.int32)
+    used0 = rng.integers(0, 4, size=(n, c)).astype(np.int32)
+    collisions0 = rng.integers(0, 2, size=n).astype(np.int32)
+    perm = rng.permutation(n).astype(np.int32)
+    return (capacity, usable, feasible, perm, demand, 1, int(limit),
+            int(a), used0, collisions0, int(n), int(a))
+
+
+def paged_eval_planes(case: tuple) -> dict:
+    """The columnar planes of a ``paged_case`` eval (``planner.plan_eval``'s
+    input): one group with no affinity or spread and the case's limit, so
+    that ``plan_eval`` routes it to the windowed planner, or to the paged
+    one when its planes exceed the paging budget."""
+    capacity, usable, feasible, perm, demand, group_count, limit, n_allocs, used0, collisions0, \
+        n_real, _ = case
+    n = capacity.shape[0]
+    return dict(
+        capacity=capacity, usable=usable, feasible=feasible[None],
+        affinity=np.zeros((1, n), np.float32), affinity_present=np.zeros((1, n), bool),
+        group_count=np.array([group_count], np.int32), group_eval=np.zeros(1, np.int32),
+        node_value=np.full((1, n), -1, np.int32), spread_desired=np.full((1, 1), -1.0, np.float32),
+        spread_implicit=np.full(1, -1.0, np.float32), spread_weight_frac=np.zeros(1, np.float32),
+        spread_even=np.zeros(1, bool), spread_active=np.zeros(1, bool), perm=perm[None],
+        ring=np.array([n_real], np.int32), demands=np.tile(demand, (n_allocs, 1)),
+        groups=np.zeros(n_allocs, np.int32), limits=np.full(n_allocs, limit, np.int32),
+        valid=np.ones(n_allocs, bool), used0=used0, collisions0=collisions0[None],
+        counts0=np.zeros((1, 1), np.int32), present0=np.zeros((1, 1), bool),
+        n_real=int(n_real), a_real=int(n_allocs),
+    )
 
 
 def eval_planes(args: dict, init: dict, n_real: int | None = None) -> dict:

@@ -22,11 +22,22 @@ from nomad_tpu.tpu import columnar as jcol
 from nomad_tpu.tpu import drain as jdrain
 from nomad_tpu.tpu import kernel as jk
 from nomad_tpu.tpu import mirror as jmirror
+from nomad_tpu.tpu import wavefront as jwf
 from nomad_tpu.tpu.batch_sched import TPUBatchScheduler
 from nomad_tpu_torch.tpu import drain as tdrain
 from nomad_tpu_torch.tpu import mirror as tmirror
 from nomad_tpu_torch.tpu import problems
+from nomad_tpu_torch.tpu import wavefront as twf
 from test_drain import simple_job
+
+
+@pytest.fixture(autouse=True)
+def _wavefront_reset():
+    for m in (jwf, twf):
+        m.reset()
+    yield
+    for m in (jwf, twf):
+        m.reset()
 
 
 def _np(x):
@@ -163,10 +174,15 @@ BATCHES = {
 }
 
 
+@pytest.mark.parametrize("planner", ["exact", "wavefront"])
 @pytest.mark.parametrize("route", ["host", "device-state"])
 @pytest.mark.parametrize("case", sorted(BATCHES))
-def test_fused_batch_matches_jax_collector(case, route):
+def test_fused_batch_matches_jax_collector(case, route, planner):
     n_nodes, n_evals, shape, seed = BATCHES[case]
+    # the wavefront stanza, in both packages, puts the wavefront planner in
+    # the fused scan's place
+    for m in (jwf, twf):
+        m.configure(enabled=planner == "wavefront", max_round=8)
     shared, preps = problems.drain_problem(problems.build_cluster(n_nodes, 1, seed=seed),
                                            n_evals, shape, seed=seed)
     # arrival order is not priority order; one eval leaves, one expires
@@ -186,7 +202,10 @@ def test_fused_batch_matches_jax_collector(case, route):
                                          evals=before["evals"] + n_evals - 2)
     assert tdrain.LAST_DRAIN_STATS["n_evals"] == n_evals - 2
     assert tdrain.LAST_DRAIN_STATS["device_state"] == (route == "device-state")
+    assert tdrain.LAST_DRAIN_STATS["planner"] == planner
     E, G, A, N, V = tdrain.LAST_DRAIN_STATS["padded"]
+    rounds = int(tdrain.LAST_DRAIN_STATS["rounds"])
+    assert rounds == A if planner == "exact" else 0 < rounds < A
     assert N > n_nodes and E == pad_evals > n_evals
     assert sorted(got) == sorted(want) and len(got) == n_evals - 1
     for eval_id, w in want.items():

@@ -17,7 +17,7 @@ import pytest
 from torch_for_tests import multi_eval_problem, runcap_problem, torch
 
 from nomad_tpu_torch.tpu import kernel as tk
-from nomad_tpu_torch.tpu import planner, problems
+from nomad_tpu_torch.tpu import paging, planner, problems, wavefront
 
 
 @pytest.fixture
@@ -25,6 +25,15 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _stanzas_reset():
+    for m in (wavefront, paging):
+        m.reset()
+    yield
+    for m in (wavefront, paging):
+        m.reset()
 
 
 def _same(got, want):
@@ -130,6 +139,125 @@ def test_plan_eval_on_card_matches_cpu(spread, limit, cuda_device):
     got, stats = planner.plan_eval(planes, device=cuda_device)
     assert stats["mode"] == want_stats["mode"]
     assert stats["launches"] == 1 and want_stats["launches"] == 0
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the wavefront planner and the paged planner's tile sweeps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [8, 32, 200])
+@pytest.mark.parametrize("top_m", [1, 3])
+@pytest.mark.parametrize("case", sorted(EXACT_CASES))
+def test_wavefront_kernel_matches_plain(case, top_m, window, cuda_device):
+    """W = 200 is more lanes than blocks the card holds at once, so blocks
+    loop over lanes; ``multi_eval`` has bounded limits, so lanes move their
+    eval's cursor and block later lanes of it."""
+    args, init = EXACT_CASES[case]()
+    wavefront.configure(max_round=window, contention_top_m=top_m)
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    n_real = int(args["ring"].max())
+    before = tk.LAUNCHES["wavefront"]
+    got_state, got, rounds = wavefront.plan_batch_wavefront(a, s, n_real)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["wavefront"] == before + 1
+    W = wavefront.window_for(len(args["groups"]))
+    want_state, want, want_rounds = wavefront.plan_batch_wavefront_ref(a, s, n_real, W, top_m, 1)
+    _same(got, want)
+    for g, w in zip(got_state, want_state):
+        _same(g, w)
+    assert int(rounds) == want_rounds
+    # and the sequential scan's placements and state
+    scan_state, scan = tk.plan_batch(a, s, n_real)
+    _same(got, scan)
+    for g, w in zip(got_state, scan_state):
+        _same(g, w)
+
+
+def _recorded_tile_calls(case, tile_nodes, budget_bytes):
+    """The paged planner on the CPU, with every sweep call's arguments and
+    outputs recorded."""
+    calls = []
+
+    def recorder(fn):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            saved = [x.clone() if isinstance(x, torch.Tensor) else x for x in args]
+            calls.append((fn, saved, [o.clone() for o in (out if isinstance(out, tuple) else (out,))]))
+            return out
+        return wrapper
+
+    paging.configure(tile_nodes=tile_nodes)
+    count, window = paging.tile_count, paging.tile_window
+    paging.tile_count, paging.tile_window = recorder(count), recorder(window)
+    try:
+        result = paging.plan_batch_paged(*case, device="cpu", budget_bytes=budget_bytes)
+    finally:
+        paging.tile_count, paging.tile_window = count, window
+    return result, calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,a,limit", [(797, 96, 6), (8192, 1024, 4), (5000, 3000, 1)])
+def test_tile_sweep_kernels_match_plain(n, a, limit, cuda_device):
+    case = problems.paged_case(3, n, a, limit=limit)
+    _, calls = _recorded_tile_calls(case, 1024, 0)
+    assert calls
+    for fn, args, want in calls:
+        on_card = [x.to(cuda_device) if isinstance(x, torch.Tensor) else x for x in args]
+        before = tk.LAUNCHES[fn.__name__]
+        got = fn(*on_card)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES[fn.__name__] == before + 1
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want):
+            _same(g.reshape(w.shape), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,a,limit,tile_nodes", [(797, 96, 6, 64), (8192, 1024, 4, 1024),
+                                                  (20000, 9000, 2, 4096)])
+def test_paged_on_card_matches_flat_windowed(n, a, limit, tile_nodes, cuda_device):
+    """The paged planner on the card, with a budget of two tiles (LRU
+    eviction every sweep), against the flat windowed kernel, the paged run
+    on the CPU and the numpy oracle."""
+    case = problems.paged_case(5, n, a, limit=limit)
+    paging.configure(tile_nodes=tile_nodes)
+    got, rounds, stats = paging.plan_batch_paged(*case, device=cuda_device, budget_bytes=0)
+    assert stats["budget_raised"] and stats["resident_peak_bytes"] <= stats["limit_bytes"]
+    want, want_rounds, want_stats = paging.plan_batch_paged(*case, device="cpu", budget_bytes=0)
+    np.testing.assert_array_equal(got, want)
+    assert rounds == want_rounds and stats == want_stats
+    capacity, usable, feasible, perm, demand, gc, limit, n_allocs, used0, coll0, n_real, a_pad = case
+    wargs = tk.from_numpy(dict(capacity=capacity, usable=usable, feasible=feasible, perm=perm,
+                               demand=demand, group_count=np.int32(gc), limit=np.int32(limit),
+                               n_allocs=np.int32(n_allocs)), cuda_device)
+    flat, flat_rounds = tk.plan_batch_windowed(wargs, *tk.from_numpy((used0, coll0), cuda_device),
+                                               n_real, a_pad)
+    np.testing.assert_array_equal(got, flat.cpu().numpy())
+    assert rounds == int(flat_rounds)
+    oracle, oracle_rounds = paging.plan_windowed_np(*case)
+    np.testing.assert_array_equal(got, oracle)
+    assert rounds == oracle_rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["wavefront", "paged"])
+def test_plan_eval_routes_on_card_match_cpu(route, cuda_device):
+    if route == "wavefront":
+        wavefront.configure(enabled=True)
+        c = problems.build_cluster(2000, 3000, seed=4)
+        planes = problems.eval_planes(*problems.wavefront_problem(c, n_groups=8))
+    else:
+        # 25,600 rows of 45 bytes exceed the least budget, 1 MB
+        paging.configure(enabled=True, device_node_budget_mb=1, tile_nodes=4096)
+        c = problems.build_cluster(25_000, 3000, seed=4)
+        planes = problems.eval_planes(*problems.exact_problem(c, spread=False))
+        planes["limits"][:] = 10
+    want, want_stats = planner.plan_eval(planes, device="cpu")
+    got, stats = planner.plan_eval(planes, device=cuda_device)
+    assert stats["mode"] == want_stats["mode"] == route
+    assert stats["rounds"] == want_stats["rounds"] and stats["launches"] > 0
     np.testing.assert_array_equal(got, want)
 
 
@@ -261,10 +389,12 @@ def test_verify_rows_kernel_matches_plain(kind, cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("planner_on", ["exact", "wavefront"])
 @pytest.mark.parametrize("shape,with_state", [("drain-tenant", True), ("drain-bench", False)])
-def test_drain_batch_on_card_matches_cpu(shape, with_state, cuda_device):
+def test_drain_batch_on_card_matches_cpu(shape, with_state, planner_on, cuda_device):
     from nomad_tpu_torch.tpu import drain, mirror
 
+    wavefront.configure(enabled=planner_on == "wavefront")
     c = problems.build_cluster(3000, 1, seed=9)
     shared, preps = problems.drain_problem(c, 12, shape, seed=9)
     out = {}
@@ -289,6 +419,7 @@ def test_drain_batch_on_card_matches_cpu(shape, with_state, cuda_device):
             t.join(timeout=120)
         assert not any(t.is_alive() for t in threads)
         out[str(dev)] = got
+        assert drain.LAST_DRAIN_STATS["planner"] == planner_on
     cpu, card = out["cpu"], out[str(cuda_device)]
     assert sorted(cpu) == sorted(card) and len(card) == len(preps)
     for eval_id, (placements, base) in cpu.items():

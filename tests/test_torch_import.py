@@ -12,7 +12,7 @@ from torch_for_tests import torch
 
 from nomad_tpu_torch import resolve_device
 from nomad_tpu_torch.core import plan_apply
-from nomad_tpu_torch.tpu import drain, mirror, planner, problems
+from nomad_tpu_torch.tpu import drain, mirror, paging, planner, problems
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "nomad_tpu_torch")
@@ -27,6 +27,8 @@ MODULES = [
     "nomad_tpu_torch.tpu.columnar",
     "nomad_tpu_torch.tpu.mirror",
     "nomad_tpu_torch.tpu.drain",
+    "nomad_tpu_torch.tpu.wavefront",
+    "nomad_tpu_torch.tpu.paging",
     "nomad_tpu_torch.core",
     "nomad_tpu_torch.core.plan_apply",
 ]
@@ -87,6 +89,14 @@ def test_entry_points_default_to_cuda():
         planner.plan_eval(planes)
     placements, stats = planner.plan_eval(planes, device="cpu")
     assert stats["mode"] == "exact-scan" and (placements >= 0).all()
+
+    # the paged planner and its tile cache
+    case = problems.paged_case(1, 100, 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paging.plan_batch_paged(*case)
+    assert (paging.plan_batch_paged(*case, device="cpu")[0] >= 0).all()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paging.TileCache(1 << 20, None, None)
 
     # the server path: the drain collector, the device planes, the verify
     shared = drain.SharedCluster(c["capacity"], c["usable"], c["reserved"])

@@ -8,6 +8,10 @@ replayed through the port's wrapper, which must return the same
 placements. A second run of the same eval under ``EXACT_ONLY`` records the
 unpermuted columnar planes; ``planner.plan_eval`` on those must pick the
 planner the scheduler picked and return the same placements.
+
+Each eval also runs with the wavefront stanza on (the exact scan's evals
+go to the wavefront planner) and with paging on under a budget below two
+tiles (the windowed evals go to the paged planner), in both packages.
 """
 
 import jax
@@ -26,10 +30,41 @@ from nomad_tpu.structs.model import (
     SpreadTarget,
 )
 from nomad_tpu.structs import compute_class
+from nomad_tpu.state import planes as state_planes
 from nomad_tpu.tpu import batch_sched
 from nomad_tpu.tpu import kernel as jk
+from nomad_tpu.tpu import paging as jpaging
+from nomad_tpu.tpu import wavefront as jwf
 from nomad_tpu_torch.tpu import kernel as tk
+from nomad_tpu_torch.tpu import paging as tpaging
 from nomad_tpu_torch.tpu import planner, problems
+from nomad_tpu_torch.tpu import wavefront as twf
+
+STANZAS = (jwf, twf, jpaging, tpaging)
+
+
+@pytest.fixture(autouse=True)
+def _stanzas_reset():
+    # the JAX paging stanza's tile_nodes also sets the planes' tile rows
+    tile_rows = state_planes.TILE_ROWS
+    for m in STANZAS:
+        m.reset()
+    yield
+    for m in STANZAS:
+        m.reset()
+    state_planes.TILE_ROWS = tile_rows
+
+
+def _route(route, monkeypatch):
+    """Turn a stanza on in both packages: ``wavefront``, or ``paged`` with a
+    budget below two 64-row tiles, so every windowed eval pages."""
+    if route == "wavefront":
+        for m in (jwf, twf):
+            m.configure(enabled=True)
+    elif route == "paged":
+        for m in (jpaging, tpaging):
+            m.configure(enabled=True, tile_nodes=64)
+            monkeypatch.setattr(m, "budget_mb", lambda: 0)
 
 
 def _dcs_spread(n):
@@ -115,13 +150,18 @@ def _record(monkeypatch, exact_only: bool) -> list:
 
     for name in ("plan_batch", "plan_batch_runs", "plan_batch_windowed"):
         monkeypatch.setattr(jk, name, recorder(name, getattr(jk, name)))
+    monkeypatch.setattr(jwf, "plan_batch_wavefront", recorder("plan_batch_wavefront",
+                                                              jwf.plan_batch_wavefront))
+    monkeypatch.setattr(jpaging, "plan_batch_paged", recorder("plan_batch_paged",
+                                                              jpaging.plan_batch_paged))
     monkeypatch.setattr(batch_sched, "SMALL_EVAL_ORACLE_MAX", 0)
     monkeypatch.setattr(batch_sched, "EXACT_ONLY", exact_only)
     return calls
 
 
-def _plan(shape, monkeypatch, exact_only: bool):
+def _plan(shape, monkeypatch, exact_only: bool, route: str):
     nodes, job = SHAPES[shape]()
+    _route(route, monkeypatch)
     calls = _record(monkeypatch, exact_only)
     with jk.deterministic_scope():
         if shape == "devices":
@@ -135,7 +175,10 @@ def _cpu(obj):
     return tk.from_numpy(obj, "cpu")
 
 
-MODE_OF = {"plan_batch": "exact-scan", "plan_batch_runs": "runs", "plan_batch_windowed": "windowed"}
+MODE_OF = {"plan_batch": "exact-scan", "plan_batch_runs": "runs", "plan_batch_windowed": "windowed",
+           "plan_batch_wavefront": "wavefront", "plan_batch_paged": "paged"}
+#: the mode each stanza puts in a planner's place
+ROUTED = {"flat": {}, "wavefront": {"exact-scan": "wavefront"}, "paged": {"windowed": "paged"}}
 #: the planner the scheduler picks for each shape (every planner is covered)
 EXPECTED_MODE = {
     "affinity": "exact-scan", "even_spread": "exact-scan", "exhaustion": "exact-scan",
@@ -145,13 +188,28 @@ EXPECTED_MODE = {
 }
 
 
+@pytest.mark.parametrize("route", sorted(ROUTED))
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-def test_recorded_evals_replay_through_the_port(shape, monkeypatch):
-    calls = _plan(shape, monkeypatch, exact_only=False)
+def test_recorded_evals_replay_through_the_port(shape, route, monkeypatch):
+    calls = _plan(shape, monkeypatch, exact_only=False, route=route)
     assert len(calls) == 1, f"expected one planner call, got {[c[0] for c in calls]}"
     name, args, out = calls[0]
-    assert MODE_OF[name] == EXPECTED_MODE[shape]
-    if name == "plan_batch":
+    mode = ROUTED[route].get(EXPECTED_MODE[shape], EXPECTED_MODE[shape])
+    assert MODE_OF[name] == mode
+    if name == "plan_batch_wavefront":
+        bargs, init, n_real = args
+        want_state, want, want_rounds = out
+        got_state, got, rounds = twf.plan_batch_wavefront(_cpu(bargs), _cpu(init), n_real)
+        for g, w in zip(got_state, want_state):
+            np.testing.assert_array_equal(g.numpy(), w)
+        assert rounds == int(want_rounds)
+    elif name == "plan_batch_paged":
+        want, want_rounds, want_stats = out
+        got, rounds, stats = tpaging.plan_batch_paged(*args, device="cpu")
+        got = torch.from_numpy(got)
+        assert rounds == want_rounds and stats == want_stats
+        assert stats["budget_raised"]
+    elif name == "plan_batch":
         bargs, init, n_real = args
         want_state, want = out
         got_state, got = tk.plan_batch(_cpu(bargs), _cpu(init), n_real)
@@ -169,12 +227,14 @@ def test_recorded_evals_replay_through_the_port(shape, monkeypatch):
 
     # the same eval's unpermuted planes, through the port's entry point
     monkeypatch.undo()
-    exact_calls = _plan(shape, monkeypatch, exact_only=True)
+    exact_calls = _plan(shape, monkeypatch, exact_only=True, route=route)
     (_, (bargs, init, n_real), _), = exact_calls
     planes = problems.eval_planes(bargs._asdict(), init._asdict(), n_real)
     placements, stats = planner.plan_eval(planes, device="cpu")
     assert stats["mode"] == MODE_OF[name]
     assert stats["launches"] == 0
+    if name == "plan_batch_paged":
+        assert stats["tiles"] == want_stats["tiles"] and stats["tile_nodes"] == 64
     np.testing.assert_array_equal(placements, np.asarray(want)[: planes["a_real"]])
 
 
