@@ -63,6 +63,7 @@ import subprocess
 import sys
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -658,9 +659,10 @@ def main() -> int:
     seed, n_p, a_p = MID_PAGED
     case = problems.paged_case(seed, n_p, a_p, limit=4)
     paging.configure(tile_nodes=1024)
-    with recorded_sweeps() as sweeps:
-        got, rounds, stats = paging.plan_batch_paged(
-            *case, device=dev, budget_bytes=paging.plane_bytes(n_p, 4) // 2)
+    # half the planes is under the stanza's least budget, 1 MB
+    half_mb = paging.plane_bytes(n_p, 4) / 2 / (1 << 20)
+    with recorded_sweeps() as sweeps, mock.patch.object(paging, "budget_mb", lambda: half_mb):
+        got, rounds, stats = paging.plan_batch_paged(*case, device=dev)
     for name in PAGED_KERNELS:
         errs[name] = sweeps_err([c for c in sweeps if c[0] == name])
         if errs[name]:
@@ -873,11 +875,11 @@ def main() -> int:
     plain_ms, (want_state, want) = host_ms(lambda: kernel.plan_batch_ref(bargs, bstate, p["n_real"]))
     errs["exact_scan"] = max(errs["exact_scan"],
                              max_abs_err([(got, want), *zip(got_state, want_state)]))
+    scan_work = scan_ops(p["a_real"] * p["n_real"],
+                         int(p["feasible"][p["groups"][: p["a_real"]]].sum()), C)
     rows.append(("exact_scan", "nomad_tpu_torch/tpu/csrc/exact_scan.cu",
                  "nomad_tpu/tpu/kernel.py:361", ms, plain_ms,
-                 nbytes(bargs, bstate, got, got_state),
-                 scan_ops(p["a_real"] * p["n_real"],
-                          int(p["feasible"][p["groups"][: p["a_real"]]].sum()), C), p["a_real"],
+                 nbytes(bargs, bstate, got, got_state), scan_work, p["a_real"],
                  f"N={N} A={A} G={EXACT_GROUPS}"))
 
     # the wavefront at the same shape; its plain version runs on the card
@@ -896,12 +898,18 @@ def main() -> int:
     if max_abs_err([(wf, got), *zip(wf_state, got_state)]):
         fail("wavefront: differs from the exact scan at the main-path shape")
     wf_rounds = int(wf_rounds)
-    lanes_scored = int(p["feasible"][p["groups"][: p["a_real"]]].sum()) / p["a_real"]
+    # the work the result needs: one selection per real lane, as the exact
+    # scan (a blocked lane's selection is never read: the conflict rule
+    # tests the earlier lanes' candidates against the later lane's group),
+    # plus the conflict tests, counted as at most W - 1 earlier lanes' M
+    # candidates and eval for each committed lane and one blocked lane a
+    # round. The kernel itself selects W lanes a round.
+    conflict_ops = (p["a_real"] + wf_rounds) * (WAVEFRONT_W - 1) * (WAVEFRONT_M + 1)
     wf_row = ("wavefront", "nomad_tpu_torch/tpu/csrc/wavefront.cu",
               "nomad_tpu/tpu/wavefront.py:300", ms, plain_ms,
-              nbytes(bargs, bstate, wf, wf_state),
-              wf_rounds * WAVEFRONT_W * (N * C * FIT_OPS_PER_COL + lanes_scored * SCORE_OPS),
-              wf_rounds, f"N={N} A={A} G={EXACT_GROUPS} W={WAVEFRONT_W} M={WAVEFRONT_M}")
+              nbytes(bargs, bstate, wf, wf_state), scan_work + conflict_ops, wf_rounds,
+              f"N={N} A={A} G={EXACT_GROUPS} W={WAVEFRONT_W} M={WAVEFRONT_M}, "
+              f"{wf_rounds * WAVEFRONT_W} lane selections for {p['a_real']} placements")
 
     # the tile sweeps on the first tile of the paged eval's first round
     _, cargs, _ = next(c for c in big_sweeps if c[0] == "tile_count")

@@ -442,13 +442,12 @@ def _host_plane(shape, dtype, pinned: bool) -> np.ndarray:
 
 
 def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limit, n_allocs,
-                     used0, collisions0, n_real: int, a_pad: int, device=None,
-                     budget_bytes: int | None = None):
+                     used0, collisions0, n_real: int, a_pad: int, device=None):
     """Windowed placement with the node axis streamed in tiles. Same inputs
     as the flat windowed planner (host numpy planes in node-id space and the
     ring permutation); returns ``(placements i32[a_pad], rounds, stats)``
-    with the flat planner's placements and rounds. ``budget_bytes``
-    overrides the stanza's budget (``budget_mb()`` MB)."""
+    with the flat planner's placements and rounds, under the stanza's
+    budget (``budget_mb()`` MB)."""
     dev = resolve_device(device)
     pinned = dev.type == "cuda"
     capacity = np.asarray(capacity, dtype=np.int32)
@@ -492,8 +491,7 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
         sl = slice(t * tn, (t + 1) * tn)
         return (used_r[sl], coll_r[sl])
 
-    budget = budget_mb() * (1 << 20) if budget_bytes is None else int(budget_bytes)
-    cache = TileCache(budget, build_static, build_dynamic, dev)
+    cache = TileCache(budget_mb() * (1 << 20), build_static, build_dynamic, dev)
     demand_np = np.asarray(demand, dtype=np.int32)
     demand_d = torch.from_numpy(demand_np.copy()).to(dev)
     a = int(n_allocs)

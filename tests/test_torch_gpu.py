@@ -175,7 +175,13 @@ def test_wavefront_kernel_matches_plain(case, top_m, window, cuda_device):
         _same(g, w)
 
 
-def _recorded_tile_calls(case, tile_nodes, budget_bytes):
+def _two_tile_budget(monkeypatch):
+    """A budget below two tiles: the cache floors it at two tiles and
+    evicts by LRU on every sweep."""
+    monkeypatch.setattr(paging, "budget_mb", lambda: 0)
+
+
+def _recorded_tile_calls(case, tile_nodes):
     """The paged planner on the CPU, with every sweep call's arguments and
     outputs recorded."""
     calls = []
@@ -192,7 +198,7 @@ def _recorded_tile_calls(case, tile_nodes, budget_bytes):
     count, window = paging.tile_count, paging.tile_window
     paging.tile_count, paging.tile_window = recorder(count), recorder(window)
     try:
-        result = paging.plan_batch_paged(*case, device="cpu", budget_bytes=budget_bytes)
+        result = paging.plan_batch_paged(*case, device="cpu")
     finally:
         paging.tile_count, paging.tile_window = count, window
     return result, calls
@@ -200,9 +206,10 @@ def _recorded_tile_calls(case, tile_nodes, budget_bytes):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,a,limit", [(797, 96, 6), (8192, 1024, 4), (5000, 3000, 1)])
-def test_tile_sweep_kernels_match_plain(n, a, limit, cuda_device):
+def test_tile_sweep_kernels_match_plain(n, a, limit, cuda_device, monkeypatch):
+    _two_tile_budget(monkeypatch)
     case = problems.paged_case(3, n, a, limit=limit)
-    _, calls = _recorded_tile_calls(case, 1024, 0)
+    _, calls = _recorded_tile_calls(case, 1024)
     assert calls
     for fn, args, want in calls:
         on_card = [x.to(cuda_device) if isinstance(x, torch.Tensor) else x for x in args]
@@ -217,15 +224,16 @@ def test_tile_sweep_kernels_match_plain(n, a, limit, cuda_device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,a,limit,tile_nodes", [(797, 96, 6, 64), (8192, 1024, 4, 1024),
                                                   (20000, 9000, 2, 4096)])
-def test_paged_on_card_matches_flat_windowed(n, a, limit, tile_nodes, cuda_device):
+def test_paged_on_card_matches_flat_windowed(n, a, limit, tile_nodes, cuda_device, monkeypatch):
     """The paged planner on the card, with a budget of two tiles (LRU
     eviction every sweep), against the flat windowed kernel, the paged run
     on the CPU and the numpy oracle."""
+    _two_tile_budget(monkeypatch)
     case = problems.paged_case(5, n, a, limit=limit)
     paging.configure(tile_nodes=tile_nodes)
-    got, rounds, stats = paging.plan_batch_paged(*case, device=cuda_device, budget_bytes=0)
+    got, rounds, stats = paging.plan_batch_paged(*case, device=cuda_device)
     assert stats["budget_raised"] and stats["resident_peak_bytes"] <= stats["limit_bytes"]
-    want, want_rounds, want_stats = paging.plan_batch_paged(*case, device="cpu", budget_bytes=0)
+    want, want_rounds, want_stats = paging.plan_batch_paged(*case, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert rounds == want_rounds and stats == want_stats
     capacity, usable, feasible, perm, demand, gc, limit, n_allocs, used0, coll0, n_real, a_pad = case
