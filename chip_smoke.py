@@ -31,7 +31,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    capacity), timings, parity of the run and windowed planners against the
    exact-scan kernel on the same planes, the exact scan against the float64
    host oracle on a small eval, and each kernel against its plain version
-   at the main-path shape;
+   at the main-path shape (the exact scan's bound from the ring positions
+   its result needs, with the positions it walks beside them; each
+   one-shot wrapper's host microseconds beside its event and device time);
 5. the server path: a fused drain batch of 8 evals and 1,024 lanes on
    the card against the same batch through the plain versions on the
    CPU; then, with every launch counter set to 0 before and read after,
@@ -48,9 +50,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CPU; timings of each batch, repeated on the planes of its first run;
    both batches again on those planes with the wavefront stanza on,
    counted on their own, whose placements and bases must be the exact
-   route's; and the usage-base, dirty-row scatter and dense-verify kernels
-   against their plain versions and the nearest PyTorch calls at the
-   main-path shapes;
+   route's; the exact scan at the drain-bench batch's shape (limit 14)
+   against its plain version; and the usage-base, dirty-row scatter and
+   dense-verify kernels against their plain versions and the nearest
+   PyTorch calls at the main-path shapes;
 6. one JSON line of per-kernel numbers, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -155,6 +158,76 @@ def host_ms(fn) -> tuple:
     out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
+
+
+def wrapper_host_us(fn, calls: int = 20) -> float:
+    """Host microseconds one wrapper call holds the calling thread (its
+    checks, allocations, the ctypes call and the launches it enqueues),
+    without a synchronize: median of ``calls`` after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
+
+
+def scan_positions(bargs, bstate, n_real: int) -> dict:
+    """The ring positions the exact scan's result needs, over its valid
+    lanes: each step's consumed prefix (the positions through the
+    limit-th returned option), or the whole ring where the window does not
+    fill. A limit of the ring or more fills it only with the whole ring;
+    otherwise the plain version runs lane by lane on the CPU and each
+    step's cursor advance gives its prefix. Also the statically feasible
+    positions among them (the ones scored) and the positions the kernel
+    walks: its chunks through the one that fills the window, cut at the
+    ring's end (the kernel library's own rule)."""
+    from nomad_tpu_torch.tpu import _build, kernel
+
+    walk = _build.library().ntt_exact_scan_walked
+    a = kernel.BatchArgs(*(t.cpu() for t in bargs))
+    valid = a.valid.numpy()
+    groups = a.groups.numpy()
+    evals = a.group_eval.numpy()[groups]
+    rings = a.ring.numpy()[evals]
+    limits = a.limits.numpy()
+    perm, feasible = a.perm.numpy(), a.feasible.numpy()
+    lanes = np.flatnonzero(valid)
+    offsets = np.zeros(len(groups), np.int64)  # a whole ring's positions from any start
+    if (limits[lanes] >= rings[lanes]).all():
+        needed = rings.astype(np.int64)
+    else:
+        needed = np.zeros(len(groups), np.int64)
+        state = kernel.BatchState(*(t.cpu() for t in bstate))
+        for i in lanes:
+            one = a._replace(demands=a.demands[i:i + 1], groups=a.groups[i:i + 1],
+                             limits=a.limits[i:i + 1], valid=a.valid[i:i + 1])
+            off = int(state.offset[evals[i]])
+            state, _ = kernel.plan_batch_ref(one, state, n_real)
+            offsets[i] = off
+            needed[i] = (int(state.offset[evals[i]]) - off) % max(int(rings[i]), 1) or rings[i]
+    scored = 0
+    for i in lanes:
+        e, ring = evals[i], int(rings[i])
+        ring_pos = (offsets[i] + np.arange(needed[i])) % max(ring, 1)
+        scored += int(feasible[groups[i]][perm[e][ring_pos]].sum())
+    walked = sum(walk(int(needed[i]), int(rings[i]), int(limits[i])) for i in lanes)
+    return dict(needed=int(needed[lanes].sum()), walked=walked, scored=scored, lanes=len(lanes))
+
+
+def scan_bound(pos: dict, bargs, bstate, cols: int) -> tuple:
+    """(bytes, operations) the exact scan's result needs: per needed
+    position its ring entry and its node's planes (8C + 26 bytes), no more
+    than every input once, plus per lane its inputs (4C + 9 bytes) and
+    outputs (the placement, the winner's used row and collision: 4C + 8);
+    a fit check per needed position and a score per scored one."""
+    lanes = bargs.valid.numel()
+    per_position = 8 * cols + 26
+    moved = min(nbytes(bargs, bstate), pos["needed"] * per_position) + lanes * (8 * cols + 17)
+    return moved, scan_ops(pos["needed"], pos["scored"], cols)
 
 
 def nbytes(*trees) -> int:
@@ -490,6 +563,38 @@ def server_path(dev) -> tuple:
             f"({samples[0][2] / lanes:.4f} per lane); (e2e ms, kernel ms): "
             + ", ".join(f"({e:.3f}, {k:.3f})" for e, k, _ in samples))
 
+    # ---- K5 at the drain-bench batch's shape (limit 14 on every lane) -------
+    order = [drain.DrainPrep.from_dict(d) for d in batch_order(bench)]
+    shape = drain.batch_shape(order, NODES, DRAIN_EVALS)
+    args_np, state_np, _ = drain.assemble(order, NODES, shape)
+    bargs, init = drain.batch_inputs(planes_b, args_np, state_np, dev)
+
+    def scan_kernel():
+        return kernel.plan_batch(bargs, init, NODES)
+
+    ms, (got_state, got) = cuda_ms(scan_kernel)
+    plain_ms, (want_state, want) = host_ms(lambda: kernel.plan_batch_ref(bargs, init, NODES))
+    err = max_abs_err([(got, want), *zip(got_state, want_state)])
+    fused = np.concatenate([out_b[p.eval_id][0] for p in order])
+    if err or not np.array_equal(got[: len(fused)].cpu().numpy(), fused):
+        fail(f"drain-bench: the exact scan of the assembled batch differs from its plain "
+             f"version or the collector's ({err})")
+    pos = scan_positions(bargs, init, NODES)
+    moved, ops = scan_bound(pos, bargs, init, 4)
+    bound_ms, bound_by = bound(moved, ops)
+    E, G, A, N_b, _ = shape
+    scan_bench = dict(ms=ms, device_us=device_us(scan_kernel, calls=3), plain_ms=plain_ms,
+                      max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                      positions_needed=pos["needed"], positions_walked=pos["walked"],
+                      lanes=pos["lanes"], shape=f"E={E} G={G} A={A} N={N_b}, limits "
+                      f"{sorted(set(args_np['limits'][args_np['valid']].tolist()))}")
+    us = scan_bench["device_us"]
+    log(f"exact_scan at the drain-bench batch: {ms:.4f} ms per launch (plain {plain_ms:.1f} ms, "
+        f"bound {bound_ms:.5f} ms by {bound_by}), on the card by the profiler "
+        + ("not measured" if us is None else f"{us:.2f} us")
+        + f"; {pos['lanes']} lanes, {pos['needed']} ring positions needed, {pos['walked']} "
+        f"walked; {scan_bench['shape']}")
+
     # ---- the server kernels at the main-path shapes -------------------------
     rows_out = []
     C = 4
@@ -511,7 +616,8 @@ def server_path(dev) -> tuple:
     R = len(r_np)
     rows_out.append(("scatter_rows", "nomad_tpu_torch/tpu/csrc/scatter.cu",
                      "nomad_tpu/tpu/mirror.py:251", err, ms, plain_ms, lib_ms,
-                     (device_us(scatter_kernel), device_us(scatter_library)),
+                     (device_us(scatter_kernel), device_us(scatter_library),
+                      wrapper_host_us(scatter_kernel)),
                      2 * N * C * 4 + R * 4 + R * C * 4, 0, f"N={N} R={R} ({DIRTY_ROWS} dirty)"))
 
     # K9: the multi-tenant batch's usage bases, from its scan's placements
@@ -548,7 +654,8 @@ def server_path(dev) -> tuple:
     n_valid = int(valid.sum())
     rows_out.append(("used_bases", "nomad_tpu_torch/tpu/csrc/bases.cu",
                      "nomad_tpu/tpu/drain.py:181", err, ms, plain_ms, lib_ms,
-                     (device_us(bases_kernel), device_us(library_bases)),
+                     (device_us(bases_kernel), device_us(library_bases),
+                      wrapper_host_us(bases_kernel)),
                      N * C * 4 + A * 4 + A * C * 4 + A * 4 + E * N * C * 4,
                      n_valid * C + E * N * C, f"E={E} N={N} A={A} ({n_valid} placed)"))
 
@@ -571,7 +678,8 @@ def server_path(dev) -> tuple:
     R, k = len(p_np), len(rows_t)
     rows_out.append(("verify_rows", "nomad_tpu_torch/tpu/csrc/verify.cu",
                      "nomad_tpu/tpu/kernel.py:1061", err, ms, plain_ms, lib_ms,
-                     (device_us(verify_kernel), device_us(verify_library)),
+                     (device_us(verify_kernel), device_us(verify_library),
+                      wrapper_host_us(verify_kernel)),
                      k * C * 4 * 2 + R * 4 + R * C * 4 + R, R * C * FIT_OPS_PER_COL,
                      f"N={N} R={R} ({k} rows)"))
 
@@ -583,13 +691,13 @@ def server_path(dev) -> tuple:
         server_rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-            device_us=dev_us[0], library_device_us=dev_us[1], shape=shape,
+            device_us=dev_us[0], library_device_us=dev_us[1], host_us=dev_us[2], shape=shape,
         ))
-        us = ["not measured" if u is None else f"{u:.2f} us" for u in dev_us]
+        us = ["not measured" if u is None else f"{u:.2f} us" for u in dev_us[:2]]
         log(f"{name}: {ms:.4f} ms per launch (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
             f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
-            f"library {us[1]}; {shape}")
-    return launches, wf_launches, server_rows
+            f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us; {shape}")
+    return launches, wf_launches, server_rows, scan_bench
 
 
 def main() -> int:
@@ -875,12 +983,12 @@ def main() -> int:
     plain_ms, (want_state, want) = host_ms(lambda: kernel.plan_batch_ref(bargs, bstate, p["n_real"]))
     errs["exact_scan"] = max(errs["exact_scan"],
                              max_abs_err([(got, want), *zip(got_state, want_state)]))
-    scan_work = scan_ops(p["a_real"] * p["n_real"],
-                         int(p["feasible"][p["groups"][: p["a_real"]]].sum()), C)
+    scan_pos = scan_positions(bargs, bstate, p["n_real"])
+    scan_moved, scan_work = scan_bound(scan_pos, bargs, bstate, C)
     rows.append(("exact_scan", "nomad_tpu_torch/tpu/csrc/exact_scan.cu",
-                 "nomad_tpu/tpu/kernel.py:361", ms, plain_ms,
-                 nbytes(bargs, bstate, got, got_state), scan_work, p["a_real"],
-                 f"N={N} A={A} G={EXACT_GROUPS}"))
+                 "nomad_tpu/tpu/kernel.py:361", ms, plain_ms, scan_moved, scan_work, p["a_real"],
+                 f"N={N} A={A} G={EXACT_GROUPS}, {scan_pos['needed']} ring positions needed, "
+                 f"{scan_pos['walked']} walked"))
 
     # the wavefront at the same shape; its plain version runs on the card
     wavefront.configure(max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
@@ -932,7 +1040,8 @@ def main() -> int:
     n_fit = int(want_c[0])
     sweep_rows = [("tile_count", "nomad_tpu_torch/tpu/csrc/paging.cu",
                    "nomad_tpu/tpu/paging.py:344", ms, plain_ms, lib_ms,
-                   (device_us(count_kernel), device_us(count_library)),
+                   (device_us(count_kernel), device_us(count_library),
+                    wrapper_host_us(count_kernel)),
                    nbytes(cap, feas, used, demand) + 8, T * C * FIT_OPS_PER_COL + 2 * T,
                    I32_OPS_PER_S, f"T={T} C={C} ({n_fit} feasible)")]
 
@@ -953,7 +1062,8 @@ def main() -> int:
                               + max_abs_err(zip(got_w[1:4], lib_w)))
     sweep_rows.append(("tile_window", "nomad_tpu_torch/tpu/csrc/paging.cu",
                        "nomad_tpu/tpu/paging.py:358", ms, plain_ms, lib_ms,
-                       (device_us(window_kernel), device_us(window_library)),
+                       (device_us(window_kernel), device_us(window_library),
+                        wrapper_host_us(window_kernel)),
                        nbytes(*targs[:7]) + 8 + 3 * (2 * T + 1) * 4 + 4,
                        T * C * FIT_OPS_PER_COL + n_fit * SCORE_OPS, F32_OPS_PER_S,
                        f"T={T} C={C} ({n_fit} feasible), window sweep of round 1"))
@@ -977,22 +1087,25 @@ def main() -> int:
         log(f"{name}: {ms:.3f} ms per launch (plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
             f"by {bound_by}), on the card by the profiler "
             + ("not measured" if us is None else f"{us:.1f} us") + f", rounds {rounds}, {shape}")
+    scan_row = next(row for row in kernels if row["name"] == "exact_scan")
+    scan_row.update(positions_needed=scan_pos["needed"], positions_walked=scan_pos["walked"])
     for (name, source, replaces, ms, plain_ms, lib_ms, dev_us, moved, ops, rate,
          shape) in sweep_rows:
         bound_ms, bound_by = bound(moved, ops, rate)
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, max_abs_err=errs[name],
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-            device_us=dev_us[0], library_device_us=dev_us[1], shape=shape,
+            device_us=dev_us[0], library_device_us=dev_us[1], host_us=dev_us[2], shape=shape,
             paths={"plan_eval_paged": paged_launches[name]},
         ))
-        us = ["not measured" if u is None else f"{u:.2f} us" for u in dev_us]
+        us = ["not measured" if u is None else f"{u:.2f} us" for u in dev_us[:2]]
         log(f"{name}: {ms:.4f} ms per launch (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
             f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
-            f"library {us[1]}; {shape}")
+            f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us; {shape}")
 
     # ---- 5. the server path -------------------------------------------------
-    server_launches, server_wf_launches, server_rows = server_path(dev)
+    server_launches, server_wf_launches, server_rows, scan_bench = server_path(dev)
+    next(row for row in kernels if row["name"] == "exact_scan")["drain_bench"] = scan_bench
     for row in server_rows:
         row["paths"] = {}
         kernels.append(row)

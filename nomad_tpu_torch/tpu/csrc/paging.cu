@@ -15,15 +15,28 @@
 // (positions at or past the cursor rank low, wrapped positions high, each
 // with its own base window), plus the last consumed ring position. What
 // bounds it: bytes (the tile's planes in, 3 x (2T+1) segment values out;
-// the score is some 100 float operations a row). Design: ONE block of 1024
-// threads owns the tile (64 rows a thread at T = 65,536): a block scan gives
-// each feasible row its rank, min-reductions give the two base windows
-// before any segment index is formed, and each window's winner is one
-// 64-bit atomicMax per row on (order(score) << 32 | ~rank), which orders by
-// score, then by the least rank, as the JAX segment_max / segment_min pair
-// does; the winning row then writes its segment. Segments no row reaches
-// keep JAX's fill values (-inf, INT32_MAX, INT32_MIN), and segment 2T, where
-// JAX gathers the inactive rows, gets (-1e30, 2^30, -1) when one exists.
+// the score is some 100 float operations a row). Design: three short
+// launches of a grid of 1024-thread blocks, one row a thread, neighbouring
+// threads on neighbouring rows (a 4-column row is one 16-byte load):
+//   1. score: each row's fit and score, each block's count of fit rows and
+//      of fit rows before the cursor; the segments' fill values (JAX's -inf,
+//      INT32_MAX, INT32_MIN) and the zeroed bids as grid-stride writes.
+//   2. bid: each block sums the counts of the blocks before it (a short
+//      loop over at most T/1024 integers), so a block scan gives each row
+//      its feasible rank. The base windows need no pass of their own: the
+//      tile's wrapped rows (pos < offset) precede its other rows, so the
+//      first wrapped feasible row has rank total - x0 + flat_base and the
+//      first other one flat_base + before - x0, where ``before`` is the
+//      tile's count before the cursor; each base is that rank's window
+//      where such a row exists and the window is active. Each active row
+//      then bids for its window's segment with one 64-bit atomicMax on
+//      (order(score) << 32 | ~rank), which orders by score, then by the
+//      least rank, as the JAX segment_max / segment_min pair does; the
+//      watermark is a block max and one atomicMax.
+//   3. winner: after every bid has landed, the row whose bid won writes
+//      its segment's score, rank and node.
+// Segment 2T, where JAX gathers the inactive rows, gets (-1e30, 2^30, -1)
+// when one exists.
 #include <cuda_runtime.h>
 
 #include "block.cuh"
@@ -75,112 +88,143 @@ struct WindowParams {
   float* score_s;                 // [T] scratch
   int* rank_s;                    // [T] feasible rank, -1 when not feasible
   unsigned long long* win_s;      // [2T] per-segment best key
+  int* block_s;                   // [T/1024] per block: fit rows | fit rows before the cursor << 16
   int T, C, group_count, limit, t0, offset, n_real, flat_base, x0, total, w_use;
+  bool rows4;                     // C == 4 and both row planes 16-byte aligned
 };
 
 __device__ __forceinline__ unsigned long long bid(float score, int rank) {
   return ((unsigned long long)float_order(score) << 32) | (unsigned long long)(0xffffffffu - (unsigned)rank);
 }
 
-__global__ void __launch_bounds__(THREADS) tile_window_kernel(WindowParams P) {
-  const int tid = threadIdx.x;
-  const int T = P.T, C = P.C;
-  const int S = 2 * T + 1;
-  const int Lm = max(P.limit, 1);
-  const float count_f = __int2float_rn(P.group_count);
+// row q's fit, and its used cpu and memory (the score's inputs)
+__device__ __forceinline__ bool window_fit(const WindowParams& P, int q, int& u0, int& u1) {
   const int* dem = P.demand;
-  const ChunkRange own = chunk_of(T);
-
-  for (int q = tid; q < S; q += THREADS) {
-    P.seg_score[q] = -__int_as_float(0x7f800000);
-    P.seg_rank[q] = INT_MAX;
-    P.seg_node[q] = INT_MIN;
+  if (P.rows4) {
+    const int4 c4 = __ldg(reinterpret_cast<const int4*>(P.cap) + q);
+    const int4 u4 = __ldg(reinterpret_cast<const int4*>(P.used) + q);
+    u0 = u4.x;
+    u1 = u4.y;
+    return P.t0 + q < P.n_real && P.feas[q] && u4.x + dem[0] <= c4.x && u4.y + dem[1] <= c4.y &&
+           u4.z + dem[2] <= c4.z && u4.w + dem[3] <= c4.w;
   }
-  for (int q = tid; q < 2 * T; q += THREADS) P.win_s[q] = 0ull;
+  u0 = P.used[(size_t)q * P.C];
+  u1 = P.used[(size_t)q * P.C + 1];
+  return tile_fit(P.cap, P.feas, P.used, dem, q, P.C, P.t0 + q, P.n_real);
+}
 
-  // fit and score per row (binpack + anti-affinity over fired planes)
-  int cnt[1] = {0};
-  for (int q = own.p0; q < own.p1; ++q) {
-    const bool fit = tile_fit(P.cap, P.feas, P.used, dem, q, C, P.t0 + q, P.n_real);
+// the straddle group's segment of window w
+__device__ __forceinline__ int window_segment(int T, int w, bool wrapped, int lo, int hi) {
+  return wrapped ? T + min(max(w - hi, 0), T - 1) : min(max(w - lo, 0), T - 1);
+}
+
+__global__ void __launch_bounds__(THREADS) tile_score_kernel(WindowParams P) {
+  const int T = P.T, S = 2 * T + 1;
+  const int q = blockIdx.x * THREADS + threadIdx.x;
+  const int stride = gridDim.x * THREADS;
+  for (int k = q; k < S; k += stride) {
+    P.seg_score[k] = -__int_as_float(0x7f800000);
+    P.seg_rank[k] = INT_MAX;
+    P.seg_node[k] = INT_MIN;
+  }
+  for (int k = q; k < 2 * T; k += stride) P.win_s[k] = 0ull;
+  if (q == 0) *P.last = -1;
+
+  bool fit = false;
+  if (q < T) {
+    int u0, u1;
+    fit = window_fit(P, q, u0, u1);
     float sc = 0.0f;
     if (fit) {
-      const int* u = P.used + (size_t)q * C;
+      // binpack + anti-affinity over fired planes
       const int cl = P.coll[q];
       const bool ap = cl > 0;
-      const float bp = binpack_f32(free_frac(u[0] + dem[0], P.usable[2 * q]),
-                                   free_frac(u[1] + dem[1], P.usable[2 * q + 1]));
-      sc = __fdiv_rn(__fadd_rn(bp, anti_affinity(__int2float_rn(cl), ap, count_f)),
+      const float bp = binpack_f32(free_frac(u0 + P.demand[0], P.usable[2 * q]),
+                                   free_frac(u1 + P.demand[1], P.usable[2 * q + 1]));
+      sc = __fdiv_rn(__fadd_rn(bp, anti_affinity(__int2float_rn(cl), ap,
+                                                 __int2float_rn(P.group_count))),
                      ap ? 2.0f : 1.0f);
     }
     P.score_s[q] = sc;
     P.rank_s[q] = fit ? 0 : -1;
-    cnt[0] += fit;
   }
-  int excl[1], tot[1];
-  block_scan<1, 52>(cnt, excl, tot);
+  const int packed = (int)fit | ((int)(fit && P.t0 + q < P.offset) << 16);
+  const int counts = block_allreduce<60>(packed, SumI());
+  if (threadIdx.x == 0) P.block_s[blockIdx.x] = counts;
+}
 
-  // feasible ranks, the straddle groups' base windows, the watermark
-  int lo = BIG, hi = BIG, last = -1, inactive = 0;
-  int run = P.flat_base + excl[0];  // exclusive count of feasible rows before q
-  for (int q = own.p0; q < own.p1; ++q) {
-    if (P.rank_s[q] < 0) {
-      ++inactive;
-      continue;
-    }
-    const int pos = P.t0 + q;
-    const bool wrapped = pos < P.offset;
-    const int rank = wrapped ? P.total - P.x0 + run : run - P.x0;
-    ++run;
+__global__ void __launch_bounds__(THREADS) tile_bid_kernel(WindowParams P) {
+  const int T = P.T, tid = threadIdx.x, b = blockIdx.x;
+  const int q = b * THREADS + tid;
+  const int lm = max(P.limit, 1);
+
+  // the tile's counts, and its fit rows in the blocks before this one
+  int before_blocks = 0, cnt = 0, before = 0;
+  for (int k = tid; k < (int)gridDim.x; k += THREADS) {
+    const int c = P.block_s[k];
+    cnt += c & 0xffff;
+    before += c >> 16;
+    if (k < b) before_blocks += c & 0xffff;
+  }
+  cnt = block_allreduce<61>(cnt, SumI());
+  before = block_allreduce<62>(before, SumI());
+  before_blocks = block_allreduce<63>(before_blocks, SumI());
+  // base windows in closed form (see the note at the top)
+  int lo = BIG, hi = BIG;
+  if (before > 0) {
+    const int w = (P.total - P.x0 + P.flat_base) / lm;
+    if (w < P.w_use) hi = w;
+  }
+  if (cnt > before) {
+    const int w = (P.flat_base + before - P.x0) / lm;
+    if (w < P.w_use) lo = w;
+  }
+
+  const bool fit = q < T && P.rank_s[q] >= 0;
+  int x[1] = {(int)fit}, excl[1], tot[1];
+  block_scan<1, 64>(x, excl, tot);
+  const int pos = P.t0 + q;
+  const bool wrapped = pos < P.offset;
+  const int xex = P.flat_base + before_blocks + excl[0];
+  const int rank = wrapped ? P.total - P.x0 + xex : xex - P.x0;
+  const int w = rank / lm;
+  const bool active = fit && w < P.w_use;
+  int last = -1;
+  if (fit) {
     P.rank_s[q] = rank;
-    if (rank < P.w_use * P.limit)
-      last = max(last, wrapped ? P.n_real - P.offset + pos : pos - P.offset);
-    const int w = rank / Lm;
-    if (w >= P.w_use) {
-      ++inactive;
-      continue;
-    }
-    if (wrapped)
-      hi = min(hi, w);
-    else
-      lo = min(lo, w);
+    if (rank < P.w_use * P.limit) last = wrapped ? P.n_real - P.offset + pos : pos - P.offset;
   }
-  lo = block_allreduce<53>(lo, MinI());
-  hi = block_allreduce<54>(hi, MinI());
-  last = block_allreduce<55>(last, MaxI());
-  inactive = block_allreduce<56>(inactive, SumI());  // also orders the fills before the bids
+  if (active)
+    atomicMax(&P.win_s[window_segment(T, w, wrapped, lo, hi)], bid(P.score_s[q], rank));
+  last = block_allreduce<65>(last, MaxI());
+  const bool any_inactive = __syncthreads_or(q < T && !active);
   if (tid == 0) {
-    P.bases[0] = lo;
-    P.bases[1] = hi;
-    *P.last = last;
-    if (inactive > 0) {
-      P.seg_score[S - 1] = neg_inf();
-      P.seg_rank[S - 1] = BIG;
-      P.seg_node[S - 1] = -1;
+    if (last >= 0) atomicMax(P.last, last);
+    if (any_inactive) {
+      P.seg_score[2 * T] = neg_inf();
+      P.seg_rank[2 * T] = BIG;
+      P.seg_node[2 * T] = -1;
+    }
+    if (b == 0) {
+      P.bases[0] = lo;
+      P.bases[1] = hi;
     }
   }
+}
 
-  // window bids, then each window's winning row writes its segment
-  for (int q = own.p0; q < own.p1; ++q) {
-    const int rank = P.rank_s[q];
-    if (rank < 0 || rank / Lm >= P.w_use) continue;
-    const bool wrapped = P.t0 + q < P.offset;
-    const int w = rank / Lm;
-    const int seg = wrapped ? T + min(max(w - hi, 0), T - 1) : min(max(w - lo, 0), T - 1);
-    atomicMax(&P.win_s[seg], bid(P.score_s[q], rank));
-  }
-  __syncthreads();
-  for (int q = own.p0; q < own.p1; ++q) {
-    const int rank = P.rank_s[q];
-    if (rank < 0 || rank / Lm >= P.w_use) continue;
-    const bool wrapped = P.t0 + q < P.offset;
-    const int w = rank / Lm;
-    const int seg = wrapped ? T + min(max(w - hi, 0), T - 1) : min(max(w - lo, 0), T - 1);
-    const float sc = P.score_s[q];
-    if (__ldcg(&P.win_s[seg]) != bid(sc, rank)) continue;
-    P.seg_score[seg] = sc;
-    P.seg_rank[seg] = rank;
-    P.seg_node[seg] = P.nodes[q];
-  }
+__global__ void __launch_bounds__(THREADS) tile_winner_kernel(WindowParams P) {
+  const int T = P.T;
+  const int q = blockIdx.x * THREADS + threadIdx.x;
+  if (q >= T) return;
+  const int rank = P.rank_s[q];
+  const int w = rank / max(P.limit, 1);
+  if (rank < 0 || w >= P.w_use) return;
+  const int seg = window_segment(T, w, P.t0 + q < P.offset, P.bases[0], P.bases[1]);
+  const float sc = P.score_s[q];
+  if (P.win_s[seg] != bid(sc, rank)) return;
+  P.seg_score[seg] = sc;
+  P.seg_rank[seg] = rank;
+  P.seg_node[seg] = P.nodes[q];
 }
 
 }  // namespace
@@ -202,9 +246,12 @@ extern "C" int ntt_tile_window(const void* cap, const void* usable, const void* 
                                const void* used, const void* coll, const void* nodes,
                                const void* demand, void* bases, void* seg_score, void* seg_rank,
                                void* seg_node, void* last, void* score_s, void* rank_s,
-                               void* win_s, int T, int C, int group_count, int limit, int t0,
-                               int offset, int n_real, int flat_base, int x0, int total,
-                               int w_use, void* stream) {
+                               void* win_s, void* block_s, int T, int C, int group_count,
+                               int limit, int t0, int offset, int n_real, int flat_base, int x0,
+                               int total, int w_use, void* stream) {
+  if (T < 1 || C < 2) return (int)cudaErrorInvalidValue;
+  const bool rows4 =
+      C == 4 && (((uintptr_t)cap | (uintptr_t)used) & 15) == 0;
   WindowParams P{(const int*)cap,
                  (const float*)usable,
                  (const unsigned char*)feas,
@@ -220,6 +267,7 @@ extern "C" int ntt_tile_window(const void* cap, const void* usable, const void* 
                  (float*)score_s,
                  (int*)rank_s,
                  (unsigned long long*)win_s,
+                 (int*)block_s,
                  T,
                  C,
                  group_count,
@@ -230,7 +278,16 @@ extern "C" int ntt_tile_window(const void* cap, const void* usable, const void* 
                  flat_base,
                  x0,
                  total,
-                 w_use};
-  tile_window_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(P);
+                 w_use,
+                 rows4};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = (T + THREADS - 1) / THREADS;
+  tile_score_kernel<<<blocks, THREADS, 0, s>>>(P);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tile_bid_kernel<<<blocks, THREADS, 0, s>>>(P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tile_winner_kernel<<<blocks, THREADS, 0, s>>>(P);
   return (int)cudaGetLastError();
 }

@@ -73,14 +73,41 @@ __device__ __forceinline__ float anti_affinity(float coll_f, bool present, float
   return present ? __fdiv_rn(-__fadd_rn(coll_f, 1.0f), count_f) : 0.0f;
 }
 
-// Spread boost per value class, plus the missing-value class at index V
+// Spread boost of one value class with ``cf`` placements, given the
+// group's spread settings and the min/max count over the present classes
 // (spread.go:110-227: target mode boosts (desired - used)/desired weighted,
-// even mode boosts below-min classes). One thread computes it.
+// even mode boosts below-min classes).
+__device__ __forceinline__ float class_boost(float cf, float desired_c, float implicit,
+                                             float weight_frac, bool even_flag, bool active_flag,
+                                             bool any_present, float min_count, float max_count) {
+  const float eps = f32(0x3089705fu);  // 1e-9
+  const float used_count = __fadd_rn(cf, 1.0f);
+  const float de = desired_c >= 0.0f ? desired_c : implicit;
+  const float target =
+      de >= 0.0f ? __fmul_rn(__fdiv_rn(__fsub_rn(de, used_count), fmaxf(de, eps)), weight_frac)
+                 : -1.0f;
+  float even;
+  if (!any_present) {
+    even = 0.0f;
+  } else if (cf != min_count) {
+    even = min_count == 0.0f ? -1.0f : __fdiv_rn(__fsub_rn(min_count, cf), fmaxf(min_count, eps));
+  } else if (min_count == max_count) {
+    even = -1.0f;
+  } else if (min_count == 0.0f) {
+    even = 1.0f;
+  } else {
+    even = __fdiv_rn(__fsub_rn(max_count, min_count), fmaxf(min_count, eps));
+  }
+  const float per_class = even_flag ? even : target;
+  return active_flag ? per_class : 0.0f;
+}
+
+// Spread boost per value class, plus the missing-value class at index V.
+// One thread computes it.
 __device__ inline void class_boosts(const int* counts, const unsigned char* present,
                                     const float* desired, float implicit,
                                     float weight_frac, bool even_flag,
                                     bool active_flag, int V, float* out) {
-  const float eps = f32(0x3089705fu);  // 1e-9
   const float big = f32(0x4e800000u);  // 2**30
   bool any_present = false;
   float min_c = big, max_c = -big;
@@ -94,31 +121,46 @@ __device__ inline void class_boosts(const int* counts, const unsigned char* pres
   }
   const float min_count = any_present ? min_c : 0.0f;
   const float max_count = any_present ? max_c : 0.0f;
-  for (int c = 0; c < V; ++c) {
-    const float cf = __int2float_rn(counts[c]);
-    const float used_count = __fadd_rn(cf, 1.0f);
-    const float de = desired[c] >= 0.0f ? desired[c] : implicit;
-    const float target =
-        de >= 0.0f
-            ? __fmul_rn(__fdiv_rn(__fsub_rn(de, used_count), fmaxf(de, eps)), weight_frac)
-            : -1.0f;
-    float even;
-    if (!any_present) {
-      even = 0.0f;
-    } else if (cf != min_count) {
-      even = min_count == 0.0f ? -1.0f
-                               : __fdiv_rn(__fsub_rn(min_count, cf), fmaxf(min_count, eps));
-    } else if (min_count == max_count) {
-      even = -1.0f;
-    } else if (min_count == 0.0f) {
-      even = 1.0f;
-    } else {
-      even = __fdiv_rn(__fsub_rn(max_count, min_count), fmaxf(min_count, eps));
-    }
-    const float per_class = even_flag ? even : target;
-    out[c] = active_flag ? per_class : 0.0f;
-  }
+  for (int c = 0; c < V; ++c)
+    out[c] = class_boost(__int2float_rn(counts[c]), desired[c], implicit, weight_frac, even_flag,
+                         active_flag, any_present, min_count, max_count);
   out[V] = active_flag ? -1.0f : 0.0f;
+}
+
+// The same boosts from one warp: lane l takes classes l, l+32, ...; the
+// min and max are exact in any order, so the values are class_boosts'.
+// ``counts`` and ``present`` are read from L2 (another SM may have written
+// them), with one more placement in class ``bump`` (-1: none) that is not
+// written yet.
+__device__ inline void class_boosts_warp(const int* counts, const unsigned char* present,
+                                         const float* desired, float implicit,
+                                         float weight_frac, bool even_flag, bool active_flag,
+                                         int V, int bump, float* out) {
+  const float big = f32(0x4e800000u);  // 2**30
+  const int lane = threadIdx.x & 31;
+  bool any = false;
+  float min_c = big, max_c = -big;
+  for (int c = lane; c < V; c += 32) {
+    if (__ldcg(present + c) || c == bump) {
+      any = true;
+      const float cf = __int2float_rn(__ldcg(counts + c) + (c == bump));
+      min_c = fminf(min_c, cf);
+      max_c = fmaxf(max_c, cf);
+    }
+  }
+  const bool any_present = __any_sync(0xffffffffu, any);
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+    min_c = fminf(min_c, __shfl_xor_sync(0xffffffffu, min_c, m));
+    max_c = fmaxf(max_c, __shfl_xor_sync(0xffffffffu, max_c, m));
+  }
+  const float min_count = any_present ? min_c : 0.0f;
+  const float max_count = any_present ? max_c : 0.0f;
+  for (int c = lane; c < V; c += 32)
+    out[c] = class_boost(__int2float_rn(__ldcg(counts + c) + (c == bump)), __ldg(desired + c),
+                         implicit, weight_frac, even_flag, active_flag, any_present, min_count,
+                         max_count);
+  if (lane == 0) out[V] = active_flag ? -1.0f : 0.0f;
 }
 
 // Final score of one node for one placement: binpack, anti-affinity,

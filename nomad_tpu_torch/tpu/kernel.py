@@ -666,9 +666,14 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+#: resource columns the exact-scan kernel keeps in registers
+SCAN_MAX_COLS = 6
+
+
 def plan_batch(args: BatchArgs, init: BatchState, n_real: int):
     """Run the exact placement scan; returns (final state, node index per
-    alloc or -1)."""
+    alloc or -1). On the card it is one launch of one thread block cluster
+    (``csrc/exact_scan.cu``); a card that cannot hold the cluster raises."""
     device = args.capacity.device
     if device.type == "cpu":
         return plan_batch_ref(args, init, n_real)
@@ -679,18 +684,17 @@ def plan_batch(args: BatchArgs, init: BatchState, n_real: int):
     _check_index(args.perm, N, "perm")
     _check_index(args.groups, G, "groups")
     _check_index(args.group_eval, E, "group_eval")
+    if not 2 <= C <= SCAN_MAX_COLS:
+        raise ValueError(f"the exact scan takes 2 to {SCAN_MAX_COLS} resource columns, not {C}")
     state = BatchState(*(t.clone() for t in init))
     placements = torch.empty(A, dtype=torch.int32, device=device)
-    score_s = torch.empty(N, dtype=torch.float32, device=device)
-    flag_s = torch.empty(N, dtype=torch.uint8, device=device)
-    boosts_s = torch.empty(V + 1, dtype=torch.float32, device=device)
     lib = _build.library()
     _launch(
         "exact_scan",
         lib.ntt_exact_scan,
         *(_ptr(t) for t in args),
         *(_ptr(t) for t in state),
-        _ptr(placements), _ptr(score_s), _ptr(flag_s), _ptr(boosts_s),
+        _ptr(placements),
         N, C, G, V, E, A,
         _stream(device),
     )

@@ -397,7 +397,8 @@ def tile_window(cap, usable, feas, used, coll, nodes, demand, group_count: int, 
                 t0: int, offset: int, n_real: int, flat_base: int, x0: int, total: int,
                 w_use: int):
     """Sweep 2 over one tile; the outputs of ``tile_window_ref`` as device
-    tensors. Does not wait for the card."""
+    tensors. On the card, three short launches of a grid over the tile's
+    rows (score, bid, winner). Does not wait for the card."""
     scalars = (group_count, limit, t0, offset, n_real, flat_base, x0, total, w_use)
     if cap.device.type == "cpu":
         return tile_window_ref(cap, usable, feas, used, coll, nodes, demand, *scalars)
@@ -417,6 +418,7 @@ def tile_window(cap, usable, feas, used, coll, nodes, demand, group_count: int, 
         torch.empty(T, dtype=torch.float32, device=device),  # score
         torch.empty(T, **i32),  # feasible rank, -1 when not feasible
         torch.empty(2 * T, dtype=torch.int64, device=device),  # per-segment best key
+        torch.empty(-(-T // 1024), **i32),  # per block of rows: fit counts
     )
     kernel._launch(
         "tile_window", _build.library().ntt_tile_window,

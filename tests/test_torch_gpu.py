@@ -78,6 +78,100 @@ def test_exact_scan_kernel_matches_plain(case, cuda_device):
         _same(g, w)
 
 
+def _drain_scan(limit, n=3000, shape="drain-bench", seed=31):
+    """(args, init) of a fused drain batch's exact scan over ``n`` nodes
+    (padded to its bucket), every lane's limit set to ``limit`` when given:
+    several evals with rings over 1-4 datacenters, rings shorter than N,
+    invalid padding lanes."""
+    from nomad_tpu_torch.tpu import drain
+
+    c = problems.build_cluster(n, 1, seed=seed)
+    shared, preps = problems.drain_problem(c, 12, shape, seed=seed)
+    order = [drain.DrainPrep.from_dict(d) for d in preps]
+    shape_ = drain.batch_shape(order, n, 16)
+    args, state, _ = drain.assemble(order, n, shape_)
+    N, k = shape_[3], shape_[3] - n
+    if limit is not None:
+        args["limits"] = np.full_like(args["limits"], limit)
+    cap = np.concatenate([shared["capacity"], np.zeros((k, 4), np.int32)])
+    usable = np.concatenate([shared["usable"], np.ones((k, 2), np.float32)])
+    used = np.concatenate([shared["used0"], np.full((k, 4), 2**30, np.int32)])
+    return dict(capacity=cap, usable=usable, **args), dict(used=used, **state)
+
+
+def _nonpositive_heavy(n=3000, a=600, seed=32):
+    """Scores at or below zero on most nodes (a group count of 1 and a prior
+    alloc of the group on 90% of the nodes), random limits: every step
+    defers three options, and steps whose ring runs out replay them."""
+    rng = np.random.default_rng(seed)
+    args, init = problems.exact_problem(problems.build_cluster(n, a, seed=seed), spread=False)
+    args.update(group_count=np.ones(1, np.int32),
+                limits=rng.integers(1, n + 1, a).astype(np.int32))
+    init["collisions"] = (rng.random((1, n)) < 0.9).astype(np.int32)
+    return args, init
+
+
+def _few_feasible(n=3000, a=40, seed=33):
+    """Five feasible nodes, all nonpositive, limit 4: two are returned, and
+    the ring runs out, so two of the three deferred ones are replayed."""
+    args, init = _nonpositive_heavy(n, a, seed)
+    feasible = np.zeros((1, n), bool)
+    feasible[0, args["perm"][0, [7, 500, 1499, 2000, 2999]]] = True
+    init["collisions"][:] = 1
+    return dict(args, feasible=feasible, limits=np.full(a, 4, np.int32)), init
+
+
+def _many_chunks(n=40_000, a=300, seed=34):
+    """A ring longer than two of the cluster's chunks: full-ring limits walk
+    it all, limit-14 lanes stop within the first chunk."""
+    args, init = problems.exact_problem(problems.build_cluster(n, a, seed=seed))
+    args["limits"] = np.where(np.arange(a) % 2 == 0, n, 14).astype(np.int32)
+    return args, init
+
+
+def _invalid_lanes(seed=35):
+    """Invalid lanes scattered through a multi-group batch."""
+    rng = np.random.default_rng(seed)
+    args, init = problems.wavefront_problem(problems.build_cluster(3000, 500, seed=seed),
+                                            n_groups=4)
+    args.update(valid=rng.random(500) < 0.7,
+                limits=np.where(rng.random(500) < 0.5, 14, 3000).astype(np.int32))
+    return args, init
+
+
+#: the windowed walk's cases: limits that stop within a chunk, replay after
+#: an exhausted ring, rings of several chunks or of no whole chunk
+SCAN_WALK_CASES = {
+    "drain_limit2": lambda: _drain_scan(2),
+    "drain_limit14": lambda: _drain_scan(14),
+    "drain_tenant": lambda: _drain_scan(None, shape="drain-tenant"),
+    "nonpositive_heavy": _nonpositive_heavy,
+    "few_feasible_replay": _few_feasible,
+    "ring_40000": _many_chunks,
+    "ring_3000": lambda: problems.exact_problem(problems.build_cluster(3000, 400, seed=36)),
+    "ring_10000_padded": lambda: problems.exact_problem(
+        problems.pad_cluster(problems.build_cluster(10_000, 200, seed=37), 10_240)),
+    "invalid_lanes": _invalid_lanes,
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SCAN_WALK_CASES))
+def test_exact_scan_walk_matches_plain(case, cuda_device):
+    args, init = SCAN_WALK_CASES[case]()
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    n_real = int(args["ring"].max())
+    before = tk.LAUNCHES["exact_scan"]
+    got_state, got = tk.plan_batch(a, s, n_real)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["exact_scan"] == before + 1
+    want_state, want = tk.plan_batch_ref(a, s, n_real)
+    _same(got, want)
+    for g, w in zip(got_state, want_state):
+        _same(g, w)
+    assert (want.cpu() >= 0).any()
+
+
 def _runs_case(affinity=True, spread=True, n=96, a=700, seed=4):
     return problems.runs_problem(problems.build_cluster(n, a, seed=seed), affinity=affinity, spread=spread)
 
@@ -218,6 +312,73 @@ def test_tile_sweep_kernels_match_plain(n, a, limit, cuda_device, monkeypatch):
         torch.cuda.synchronize()
         assert tk.LAUNCHES[fn.__name__] == before + 1
         for g, w in zip(got if isinstance(got, tuple) else (got,), want):
+            _same(g.reshape(w.shape), w)
+
+
+def _tile_round(T, offset, w_use_div, c=4, dead_tile=None, n=4_700, limit=5, seed=38):
+    """Every tile of one round of the paged planner over an ``n``-row ring
+    in ``T``-row tiles, as tile_window's arguments: the counts, flat bases,
+    x0, total and w_use of a round with the cursor at ``offset``; w_use is
+    the round's windows divided by ``w_use_div``; tile ``dead_tile`` has no
+    feasible row."""
+    capacity, usable, feasible, perm, demand, gc, _, _, used0, coll0, _, _ = problems.paged_case(
+        seed, n, 100, limit=limit, c=c)
+    n_tiles = -(-n // T)
+    rows = n_tiles * T
+    ring = np.arange(rows)
+    real = ring < n
+
+    def gathered(plane, fill):
+        out = np.full((rows, *plane.shape[1:]), fill, plane.dtype)
+        out[real] = plane[perm]
+        return out
+
+    cap_r, usable_r = gathered(capacity, 0), gathered(usable, 1.0)
+    feas_r, used_r, coll_r = gathered(feasible, False), gathered(used0, 2**30), gathered(coll0, 0)
+    nodes_r = np.where(real, np.concatenate([perm, np.zeros(rows - n, np.int32)]), 0)
+    if dead_tile is not None:
+        feas_r[dead_tile * T:(dead_tile + 1) * T] = False
+    tiles = []
+    for t in range(n_tiles):
+        sl = slice(t * T, (t + 1) * T)
+        tiles.append(tuple(torch.from_numpy(np.ascontiguousarray(x[sl])) for x in
+                           (cap_r, usable_r, feas_r, used_r, coll_r, nodes_r.astype(np.int32))))
+    dem = torch.from_numpy(demand)
+    counts = np.array([paging.tile_count_ref(cp, f, u, dem, t * T, offset, n).numpy()
+                       for t, (cp, _, f, u, _, _) in enumerate(tiles)], np.int64)
+    total, x0 = int(counts[:, 0].sum()), int(counts[:, 1].sum())
+    flat_base = np.concatenate([[0], np.cumsum(counts[:, 0])[:-1]])
+    w_use = max(total // max(limit, 1) // w_use_div, 1)
+    return [(*tiles[t], dem, int(gc), limit, t * T, offset, n, int(flat_base[t]), x0, total,
+             w_use) for t in range(n_tiles)]
+
+
+#: cursor (0: no row wrapped; 3,100: tiles 0-2 all wrapped, tile 3
+#: straddles; the ring's end: every row wrapped), w_use (every window, or a
+#: third of them: the last window ends inside a tile), columns, dead tile
+TILE_EDGE_CASES = {
+    "none_wrapped": (0, 1, 4, None),
+    "straddle_all_windows": (3_100, 1, 4, 2),
+    "straddle_third_windows": (3_100, 3, 4, 1),
+    "all_wrapped": (4_699, 1, 4, None),
+    "five_columns": (2_500, 2, 5, 4),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(TILE_EDGE_CASES))
+def test_tile_window_kernel_edge_tiles(case, cuda_device):
+    """The window sweep on every tile of a round of 1,000-row tiles (not a
+    multiple of the kernel's 1,024-row blocks), against its plain version."""
+    offset, w_use_div, c, dead = TILE_EDGE_CASES[case]
+    for args in _tile_round(1_000, offset, w_use_div, c=c, dead_tile=dead):
+        on_card = [x.to(cuda_device) if isinstance(x, torch.Tensor) else x for x in args]
+        before = tk.LAUNCHES["tile_window"]
+        got = paging.tile_window(*on_card)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["tile_window"] == before + 1
+        want = paging.tile_window_ref(*args)
+        for g, w in zip(got, want):
             _same(g.reshape(w.shape), w)
 
 
