@@ -32,8 +32,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    exact-scan kernel on the same planes, the exact scan against the float64
    host oracle on a small eval, and each kernel against its plain version
    at the main-path shape (the exact scan's bound from the ring positions
-   its result needs, with the positions it walks beside them; each
-   one-shot wrapper's host microseconds beside its event and device time);
+   its result needs, with the positions the kernel counts itself walking
+   beside them; each one-shot wrapper's host microseconds beside its event
+   and device time);
 5. the server path: a fused drain batch of 8 evals and 1,024 lanes on
    the card against the same batch through the plain versions on the
    CPU; then, with every launch counter set to 0 before and read after,
@@ -182,12 +183,9 @@ def scan_positions(bargs, bstate, n_real: int) -> dict:
     fill. A limit of the ring or more fills it only with the whole ring;
     otherwise the plain version runs lane by lane on the CPU and each
     step's cursor advance gives its prefix. Also the statically feasible
-    positions among them (the ones scored) and the positions the kernel
-    walks: its chunks through the one that fills the window, cut at the
-    ring's end (the kernel library's own rule)."""
-    from nomad_tpu_torch.tpu import _build, kernel
+    positions among them (the ones scored)."""
+    from nomad_tpu_torch.tpu import kernel
 
-    walk = _build.library().ntt_exact_scan_walked
     a = kernel.BatchArgs(*(t.cpu() for t in bargs))
     valid = a.valid.numpy()
     groups = a.groups.numpy()
@@ -214,8 +212,22 @@ def scan_positions(bargs, bstate, n_real: int) -> dict:
         e, ring = evals[i], int(rings[i])
         ring_pos = (offsets[i] + np.arange(needed[i])) % max(ring, 1)
         scored += int(feasible[groups[i]][perm[e][ring_pos]].sum())
-    walked = sum(walk(int(needed[i]), int(rings[i]), int(limits[i])) for i in lanes)
-    return dict(needed=int(needed[lanes].sum()), walked=walked, scored=scored, lanes=len(lanes))
+    return dict(needed=int(needed[lanes].sum()), scored=scored, lanes=len(lanes))
+
+
+def scan_walked(bargs, bstate, n_real: int, needed: int) -> int:
+    """The ring positions the exact-scan kernel counts itself walking in
+    one more call on these inputs (each chunk's positions, cut at the
+    ring's end), which must hold the ``needed`` positions."""
+    from nomad_tpu_torch.tpu import kernel
+
+    walked = torch.zeros(1, dtype=torch.int64, device=bargs.capacity.device)
+    kernel.plan_batch(bargs, bstate, n_real, walked=walked)
+    walked = int(walked.item())
+    if walked < needed:
+        fail(f"exact_scan: the kernel walked {walked} ring positions, fewer than the "
+             f"{needed} its result needs")
+    return walked
 
 
 def scan_bound(pos: dict, bargs, bstate, cols: int) -> tuple:
@@ -580,6 +592,7 @@ def server_path(dev) -> tuple:
         fail(f"drain-bench: the exact scan of the assembled batch differs from its plain "
              f"version or the collector's ({err})")
     pos = scan_positions(bargs, init, NODES)
+    pos["walked"] = scan_walked(bargs, init, NODES, pos["needed"])
     moved, ops = scan_bound(pos, bargs, init, 4)
     bound_ms, bound_by = bound(moved, ops)
     E, G, A, N_b, _ = shape
@@ -984,6 +997,7 @@ def main() -> int:
     errs["exact_scan"] = max(errs["exact_scan"],
                              max_abs_err([(got, want), *zip(got_state, want_state)]))
     scan_pos = scan_positions(bargs, bstate, p["n_real"])
+    scan_pos["walked"] = scan_walked(bargs, bstate, p["n_real"], scan_pos["needed"])
     scan_moved, scan_work = scan_bound(scan_pos, bargs, bstate, C)
     rows.append(("exact_scan", "nomad_tpu_torch/tpu/csrc/exact_scan.cu",
                  "nomad_tpu/tpu/kernel.py:361", ms, plain_ms, scan_moved, scan_work, p["a_real"],

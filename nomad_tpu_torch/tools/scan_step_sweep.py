@@ -2,7 +2,7 @@
 """Where an exact-scan step's time goes: the kernel's time per step against
 the ring's length and the step's limit, on one CUDA card.
 
-    python3 scripts/scan_step_sweep.py
+    python3 nomad_tpu_torch/tools/scan_step_sweep.py
 
 Each problem is one group of 2,048 identical allocs over an N-node ring of
 roomy nodes, all feasible (``problems.build_cluster``'s planes with every
@@ -10,8 +10,9 @@ node feasible and capacity to spare), no spread unless noted. With a
 full-ring limit a step walks and scores all N positions, in chunks of the
 cluster's 16 x 1,024; with limit 1 it stops after its first chunk (4,096
 positions) whatever N is. Each time is ``kernel.plan_batch`` between CUDA
-events (median of 3 after a warm-up) over the 2,048 steps. Prints the
-card's name and power limit, then one JSON line of microseconds per step.
+events (median of 3 after a warm-up) over the 2,048 steps, and the ring
+positions the kernel counts itself walking a step. Prints the card's name
+and power limit, then one JSON line of microseconds per step.
 """
 
 import json
@@ -21,11 +22,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from nomad_tpu_torch.tpu import _build, kernel, problems  # noqa: E402
+from nomad_tpu_torch.tpu import kernel, problems  # noqa: E402
 
 STEPS = 2048
 RINGS = (32, 1024, 4096, 16384, 16385, 32768, 65536)
@@ -47,7 +48,6 @@ def main() -> int:
         print("scan_step_sweep: no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    walk = _build.library().ntt_exact_scan_walked
     rows = []
     cases = [(n, None, False) for n in RINGS] + [(n, 1, False) for n in RINGS]
     cases += [(n, None, True) for n in (1024, 16384)]
@@ -56,8 +56,10 @@ def main() -> int:
         ms, (_, placements) = chip_smoke.cuda_ms(lambda: kernel.plan_batch(args, init, n))
         if int((placements >= 0).sum()) != STEPS:
             raise SystemExit(f"scan_step_sweep: N={n} placed {int((placements >= 0).sum())}")
+        walked = torch.zeros(1, dtype=torch.int64, device=dev)
+        kernel.plan_batch(args, init, n, walked=walked)
         rows.append(dict(ring=n, limit="ring" if limit is None else limit, spread=spread,
-                         walked_per_step=walk(n if limit is None else 1, n, limit or n),
+                         walked_per_step=int(walked.item()) / STEPS,
                          us_per_step=ms * 1e3 / STEPS))
         print(f"N={n} limit={rows[-1]['limit']} spread={spread}: "
               f"{rows[-1]['us_per_step']:.3f} us a step", flush=True)

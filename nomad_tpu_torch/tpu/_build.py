@@ -26,7 +26,7 @@ NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
 # C entry points: (pointer arguments, int arguments); every one ends with
 # the CUDA stream and returns the launch status
 _ENTRY_POINTS = {
-    "ntt_exact_scan": (25, 6),
+    "ntt_exact_scan": (26, 6),
     "ntt_runs": (30, 5),
     "ntt_windowed": (15, 4),
     "ntt_used_bases": (5, 5),
@@ -63,11 +63,10 @@ def _source_hash(sources) -> str:
     return h.hexdigest()[:16]
 
 
-def build(csrc: Path = CSRC, root: Path = BUILD_ROOT) -> Path:
-    """Compile the sources in ``csrc`` (when they changed) and return the
-    library's path under ``root``."""
-    units = sorted(csrc.glob("*.cu"))
-    out_dir = root / _source_hash(units + sorted(csrc.glob("*.cuh")))
+def build() -> Path:
+    """Compile (when the sources changed) and return the library's path."""
+    units = sorted(CSRC.glob("*.cu"))
+    out_dir = BUILD_ROOT / _source_hash(units + sorted(CSRC.glob("*.cuh")))
     lib = out_dir / "libnomad_tpu_torch.so"
     if lib.exists():
         return lib
@@ -102,23 +101,16 @@ def build(csrc: Path = CSRC, root: Path = BUILD_ROOT) -> Path:
     return lib
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """A built library with its C entry points' argument types set."""
-    lib = ctypes.CDLL(str(path))
-    for name, (n_ptr, n_int) in _ENTRY_POINTS.items():
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.ntt_error_string.argtypes = [ctypes.c_int]
-    lib.ntt_error_string.restype = ctypes.c_char_p
-    lib.ntt_exact_scan_walked.argtypes = [ctypes.c_int] * 3
-    lib.ntt_exact_scan_walked.restype = ctypes.c_int
-    return lib
-
-
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _LIB
     if _LIB is None:
-        _LIB = load(build())
+        lib = ctypes.CDLL(str(build()))
+        for name, (n_ptr, n_int) in _ENTRY_POINTS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.ntt_error_string.argtypes = [ctypes.c_int]
+        lib.ntt_error_string.restype = ctypes.c_char_p
+        _LIB = lib
     return _LIB

@@ -65,10 +65,14 @@
 // (V+1 values) are computed by warp 0 of every block into its own shared
 // memory, behind the first chunk's loads.
 //
-// Measured (PERF.md, scripts/scan_step_sweep.py): a step costs a fixed
-// latency of barriers and dependent loads plus the gather and scoring of
-// its chunk; the cluster of 16 beats the portable 8 where a ring needs two
-// chunks of 8 (scripts/scan_cluster_size.py).
+// Block 0's thread 0 counts the positions of every chunk walked and, when
+// given a counter, adds them to it.
+//
+// Measured (PERF.md, nomad_tpu_torch/tools/scan_step_sweep.py): a step
+// costs a fixed latency of barriers and dependent loads plus the gather and
+// scoring of its chunk. nomad_tpu_torch/tools/scan_variants.py times this
+// kernel against a cluster of 8, an immediate placement write with a third
+// barrier, and no short first chunk: each is slower where it applies.
 //
 // Integer counts and the max with an index tie-break combine in any order,
 // so the result is bit-identical to the one-block scan and the plain
@@ -92,11 +96,14 @@ constexpr int CHUNK = SCAN_CLUSTER * THREADS;
 // fills there, and it gathers and scores a quarter of a chunk
 constexpr int SMALL_CHUNK = 4096;
 
-__host__ __device__ constexpr int first_chunk(int limit) {
+__device__ constexpr int first_chunk(int limit) {
   return limit + MAX_SKIP <= 64 ? SMALL_CHUNK : CHUNK;
 }
 // resource columns the step keeps in registers
 constexpr int MAX_C = 6;
+// spread classes: every block holds the V + 1 boosts in shared memory,
+// 192 KB at most of the 227 KB a block of sm_90 may opt into
+constexpr int MAX_V = 49152;
 // returned by the entry point when the card cannot co-schedule the cluster
 constexpr int CLUSTER_REFUSED = 0x4e5400;
 
@@ -126,6 +133,7 @@ struct ExactParams {
   unsigned char* spread_present;       // [G,V]
   int* offset;                         // [E]
   int* placements;                     // [A] out
+  long long* walked;                   // [1] or null: += the ring positions walked
   int N, C, G, V, E, A;
   bool rows4;                          // C == 4 and used, capacity 16-byte aligned
 };
@@ -220,6 +228,7 @@ __global__ void __launch_bounds__(THREADS) exact_scan_kernel(ExactParams P) {
   __shared__ Deferred deferred_s[MAX_SKIP];  // by nonpositive rank
 
   Pending pend = {-1, 0, 0, false};
+  long long walked = 0;  // block 0's thread 0: the positions of every chunk walked
   int known_e = -1, known_off = 0;  // the last step's eval and its new cursor
   Lane next = load_lane(P, 0);
   for (int i = 0; i < P.A; ++i) {
@@ -244,6 +253,7 @@ __global__ void __launch_bounds__(THREADS) exact_scan_kernel(ExactParams P) {
          base += len, len = CHUNK, par ^= 1) {
       // the chunk's positions, split evenly and in order across the blocks
       const int span = max(min(len, ring - base), 0);
+      if (placer) walked += span;
       const int per = (span + SCAN_CLUSTER - 1) / SCAN_CLUSTER;
       const int k = (int)rank * per + tid;
       const int r = base + k;  // this thread's rotated rank
@@ -361,6 +371,7 @@ __global__ void __launch_bounds__(THREADS) exact_scan_kernel(ExactParams P) {
     pend = Pending{best_node, g, i, active};
   }
   if (placer && pend.node >= 0) write_placement(P, pend);
+  if (placer && P.walked) *P.walked += walked;
   // no block leaves while another may still store into its shared memory
   cluster.sync();
 }
@@ -376,9 +387,10 @@ extern "C" int ntt_exact_scan(const void* capacity, const void* usable, const vo
                               const void* perm, const void* ring, const void* demands,
                               const void* groups, const void* limits, const void* valid,
                               void* used, void* collisions, void* spread_counts,
-                              void* spread_present, void* offset, void* placements, int N, int C,
-                              int G, int V, int E, int A, void* stream) {
-  if (C < 2 || C > MAX_C) return (int)cudaErrorInvalidValue;
+                              void* spread_present, void* offset, void* placements,
+                              void* walked, int N, int C, int G, int V, int E, int A,
+                              void* stream) {
+  if (C < 2 || C > MAX_C || V < 0 || V > MAX_V) return (int)cudaErrorInvalidValue;
   ExactParams P{(const int*)capacity,
                 (const float*)usable,
                 (const unsigned char*)feasible,
@@ -404,6 +416,7 @@ extern "C" int ntt_exact_scan(const void* capacity, const void* usable, const vo
                 (unsigned char*)spread_present,
                 (int*)offset,
                 (int*)placements,
+                (long long*)walked,
                 N,
                 C,
                 G,
@@ -411,10 +424,15 @@ extern "C" int ntt_exact_scan(const void* capacity, const void* usable, const vo
                 E,
                 A,
                 C == 4 && (((uintptr_t)used | (uintptr_t)capacity) & 15) == 0};
+  const size_t boosts_bytes = (size_t)(V + 1) * sizeof(float);
   cudaError_t err = cudaSuccess;
   if (SCAN_CLUSTER > 8)
     err = cudaFuncSetAttribute(exact_scan_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
+  if (err != cudaSuccess) return (int)err;
+  // the boosts may take more than the default 48 KB of dynamic shared memory
+  err = cudaFuncSetAttribute(exact_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)boosts_bytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -424,7 +442,7 @@ extern "C" int ntt_exact_scan(const void* capacity, const void* usable, const vo
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(SCAN_CLUSTER);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = (size_t)(V + 1) * sizeof(float);
+  cfg.dynamicSmemBytes = boosts_bytes;
   cfg.stream = (cudaStream_t)stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -436,17 +454,6 @@ extern "C" int ntt_exact_scan(const void* capacity, const void* usable, const vo
   err = cudaLaunchKernelEx(&cfg, exact_scan_kernel, P);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// The ring positions a step of the exact scan walks when its result needs
-// the first ``needed`` (its consumed prefix, or the whole ring): every chunk
-// through the one that holds position needed - 1, at least one
-extern "C" int ntt_exact_scan_walked(int needed, int ring, int limit) {
-  int walked = 0;
-  for (int base = 0, len = first_chunk(limit); base == 0 || base < needed;
-       base += len, len = CHUNK)
-    walked += max(min(len, ring - base), 0);
-  return walked;
 }
 
 // message for a status the C entry points return (shared by the library)

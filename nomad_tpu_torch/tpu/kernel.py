@@ -668,14 +668,21 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 
 #: resource columns the exact-scan kernel keeps in registers
 SCAN_MAX_COLS = 6
+#: spread classes the exact-scan kernel holds in each block's shared memory
+SCAN_MAX_CLASSES = 49_152
 
 
-def plan_batch(args: BatchArgs, init: BatchState, n_real: int):
+def plan_batch(args: BatchArgs, init: BatchState, n_real: int, walked: torch.Tensor | None = None):
     """Run the exact placement scan; returns (final state, node index per
     alloc or -1). On the card it is one launch of one thread block cluster
-    (``csrc/exact_scan.cu``); a card that cannot hold the cluster raises."""
+    (``csrc/exact_scan.cu``); a card that cannot hold the cluster raises.
+    ``walked``, a one-element int64 tensor on the card, gets the ring
+    positions the kernel's steps walked added to it (the plain version
+    walks no chunks and takes none)."""
     device = args.capacity.device
     if device.type == "cpu":
+        if walked is not None:
+            raise ValueError("only the kernel counts the ring positions it walks")
         return plan_batch_ref(args, init, n_real)
     from . import _build
 
@@ -686,6 +693,11 @@ def plan_batch(args: BatchArgs, init: BatchState, n_real: int):
     _check_index(args.group_eval, E, "group_eval")
     if not 2 <= C <= SCAN_MAX_COLS:
         raise ValueError(f"the exact scan takes 2 to {SCAN_MAX_COLS} resource columns, not {C}")
+    if V > SCAN_MAX_CLASSES:
+        raise ValueError(f"the exact scan takes at most {SCAN_MAX_CLASSES} spread classes, not {V}")
+    if walked is not None and (walked.shape != (1,) or walked.dtype != torch.int64
+                               or walked.device != device):
+        raise ValueError("walked must be a one-element int64 tensor on the scan's device")
     state = BatchState(*(t.clone() for t in init))
     placements = torch.empty(A, dtype=torch.int32, device=device)
     lib = _build.library()
@@ -694,7 +706,7 @@ def plan_batch(args: BatchArgs, init: BatchState, n_real: int):
         lib.ntt_exact_scan,
         *(_ptr(t) for t in args),
         *(_ptr(t) for t in state),
-        _ptr(placements),
+        _ptr(placements), None if walked is None else _ptr(walked),
         N, C, G, V, E, A,
         _stream(device),
     )

@@ -172,6 +172,75 @@ def test_exact_scan_walk_matches_plain(case, cuda_device):
     assert (want.cpu() >= 0).any()
 
 
+def _roomy(n, a, limit=None, seed=5):
+    """One group of ``a`` identical allocs over ``n`` feasible nodes with
+    capacity to spare, no spread; every lane's limit ``limit`` if given."""
+    c = problems.build_cluster(n, a, seed=seed)
+    c["feasible"][:] = True
+    c["capacity"][:] = [10**6, 10**7, 10**7, 10**6]
+    c["usable"][:] = [10**6, 10**7]
+    args, init = problems.exact_problem(c, spread=False)
+    if limit is not None:
+        args["limits"] = np.full_like(args["limits"], limit)
+    return args, init
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [3_000, 40_000])
+def test_exact_scan_counts_its_walk(n, cuda_device):
+    """The kernel counts the ring positions it walks: a full-ring limit
+    walks the whole ring every step; with limit 1 every step's window fills
+    at its first position, so a step walks no more than its first chunk
+    (at most the cluster's 16 x 1,024 positions), and adding to the count
+    accumulates across calls."""
+    a = 200
+    for limit, lo, hi in [(None, a * n, a * n), (1, a, a * min(n, 16 * 1024))]:
+        args, init = _roomy(n, a, limit)
+        ga, gs = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+        walked = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+        got_state, got = tk.plan_batch(ga, gs, n, walked=walked)
+        first = int(walked.item())
+        assert lo <= first <= hi
+        tk.plan_batch(ga, gs, n, walked=walked)
+        assert int(walked.item()) == 2 * first
+        want_state, want = tk.plan_batch_ref(ga, gs, n)
+        _same(got, want)
+        for g, w in zip(got_state, want_state):
+            _same(g, w)
+
+
+def _many_classes(V, n=20_000, a=96, seed=39):
+    """Spread over ``V`` classes (most nodes a class of their own)."""
+    args, init = problems.exact_problem(problems.build_cluster(n, a, n_values=V, seed=seed))
+    rng = np.random.default_rng(seed)
+    init["spread_counts"] = rng.integers(0, 3, init["spread_counts"].shape).astype(np.int32)
+    init["spread_present"] = init["spread_counts"] > 0
+    return args, init
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [16_384, tk.SCAN_MAX_CLASSES])
+def test_exact_scan_many_spread_classes(V, cuda_device):
+    """Spread boosts for more classes than the default 48 KB of a block's
+    shared memory holds."""
+    args, init = _many_classes(V)
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    got_state, got = tk.plan_batch(a, s, 20_000)
+    want_state, want = tk.plan_batch_ref(a, s, 20_000)
+    _same(got, want)
+    for g, w in zip(got_state, want_state):
+        _same(g, w)
+    assert (want.cpu() >= 0).any()
+
+
+@pytest.mark.gpu
+def test_exact_scan_refuses_too_many_classes(cuda_device):
+    args, init = _many_classes(tk.SCAN_MAX_CLASSES + 1, n=2_000, a=4)
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    with pytest.raises(ValueError, match="spread classes"):
+        tk.plan_batch(a, s, 2_000)
+
+
 def _runs_case(affinity=True, spread=True, n=96, a=700, seed=4):
     return problems.runs_problem(problems.build_cluster(n, a, seed=seed), affinity=affinity, spread=spread)
 

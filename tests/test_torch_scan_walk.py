@@ -246,3 +246,14 @@ def test_closed_form_bases_match_jax(seed, monkeypatch):
             kinds.add("a group past w_use")
     assert len(calls) > 11
     assert kinds >= {"no feasible row", "all wrapped", "none wrapped", "straddles"}
+
+
+def test_plain_scan_counts_no_walk():
+    """Only the kernel walks chunks: the plain version refuses a count."""
+    args, init = problems.exact_problem(problems.build_cluster(64, 8, seed=3))
+    a, s = tk.from_numpy(args, "cpu"), tk.from_numpy(init, "cpu")
+    with pytest.raises(ValueError, match="walks"):
+        tk.plan_batch(a, s, 64, walked=torch.zeros(1, dtype=torch.int64))
+    _, placements = tk.plan_batch(a, s, 64)
+    _, want = tk.plan_batch_ref(a, s, 64)
+    assert torch.equal(placements, want)
