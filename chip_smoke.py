@@ -33,8 +33,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    host oracle on a small eval, and each kernel against its plain version
    at the main-path shape (the exact scan's bound from the ring positions
    its result needs, with the positions the kernel counts itself walking
-   beside them; each one-shot wrapper's host microseconds beside its event
-   and device time);
+   beside them; the wavefront's microseconds a round, cluster shape and
+   ring positions walked against needed; each one-shot wrapper's host
+   microseconds beside its event and device time);
 5. the server path: a fused drain batch of 8 evals and 1,024 lanes on
    the card against the same batch through the plain versions on the
    CPU; then, with every launch counter set to 0 before and read after,
@@ -52,9 +53,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    both batches again on those planes with the wavefront stanza on,
    counted on their own, whose placements and bases must be the exact
    route's; the exact scan at the drain-bench batch's shape (limit 14)
-   against its plain version; and the usage-base, dirty-row scatter and
-   dense-verify kernels against their plain versions and the nearest
-   PyTorch calls at the main-path shapes;
+   against its plain version; the wavefront kernel at both batches'
+   shapes against its plain version, with its microseconds a round, its
+   cluster shape and the ring positions its committed lanes walked, which
+   must hold the ones the result needs (as at the multi-tenant eval in
+   phase 4); and the usage-base, dirty-row scatter and dense-verify
+   kernels against their plain versions and the nearest PyTorch calls at
+   the main-path shapes, with the scatter's launches a call (one) and its
+   host microseconds by part;
 6. one JSON line of per-kernel numbers, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -228,6 +234,71 @@ def scan_walked(bargs, bstate, n_real: int, needed: int) -> int:
         fail(f"exact_scan: the kernel walked {walked} ring positions, fewer than the "
              f"{needed} its result needs")
     return walked
+
+
+def wavefront_walk(label: str, bargs, bstate, n_real: int, pos: dict, plain: bool) -> dict:
+    """The wavefront kernel at one shape with the stanza's W and M: ms per
+    launch by CUDA events, us a round, its cluster shape (Q blocks a lane,
+    clusters launched) and the ring positions its committed lanes walked,
+    which must hold the ``pos['needed']`` positions the result needs. With
+    ``plain`` it is also held against its plain version on the card
+    (placements, final state, rounds)."""
+    from nomad_tpu_torch.tpu import wavefront
+
+    dev = bargs.capacity.device
+
+    def run():
+        return wavefront.plan_batch_wavefront(bargs, bstate, n_real)
+
+    ms, (state, placements, rounds) = cuda_ms(run)
+    rounds = int(rounds)
+    err = 0
+    if plain:
+        W, M = wavefront.window_for(bargs.demands.shape[0]), wavefront.contention_top_m()
+        want_state, want, want_rounds = wavefront.plan_batch_wavefront_ref(
+            bargs, bstate, n_real, W, M, 1)
+        err = max_abs_err([(placements, want), *zip(state, want_state)]) + abs(rounds - want_rounds)
+        if err:
+            fail(f"wavefront at {label}: kernel differs from its plain version ({err})")
+    walked = torch.zeros(1, dtype=torch.int64, device=dev)
+    wavefront.plan_batch_wavefront(bargs, bstate, n_real, walked=walked)
+    walked = int(walked.item())
+    if walked < pos["needed"]:
+        fail(f"wavefront at {label}: the kernel walked {walked} ring positions, fewer than the "
+             f"{pos['needed']} its result needs")
+    q, clusters, _ = wavefront.cluster_shape(wavefront.window_for(bargs.demands.shape[0]),
+                                             bstate.spread_counts.shape[1],
+                                             wavefront.contention_top_m(), dev)
+    row = dict(ms=ms, rounds=rounds, us_per_round=ms * 1e3 / max(rounds, 1), q=q,
+               clusters=clusters, positions_needed=pos["needed"], positions_walked=walked,
+               max_abs_err=err)
+    log(f"wavefront at {label}: {ms:.4f} ms per launch, {rounds} rounds, "
+        f"{row['us_per_round']:.3f} us a round; clusters of Q={q} blocks, {clusters} launched; "
+        f"{pos['needed']} ring positions needed, {walked} walked"
+        + ("; identical to its plain version" if plain else ""))
+    return row
+
+
+def scatter_host_split(used, rows, vals) -> dict:
+    """Host microseconds of each part of one dirty-row scatter wrapper call
+    (no synchronize, median of 20 after a warm-up): the argument checks, the
+    allocation of the new plane, the current stream and the ctypes call
+    with the launch it enqueues."""
+    from nomad_tpu_torch.tpu import _build, kernel, mirror
+
+    dev = used.device
+    lib = _build.library()
+    out = torch.empty_like(used)
+    stream = kernel._stream(dev)
+    ptrs = [kernel._ptr(t) for t in (used, rows, vals, out)]
+    N, C, R = used.shape[0], used.shape[1], rows.shape[0]
+    return dict(
+        checks=wrapper_host_us(lambda: kernel._check_int32(
+            dict(used=used, rows=rows, vals=vals), mirror._SCATTER_SHAPES, dev)),
+        alloc=wrapper_host_us(lambda: torch.empty_like(used)),
+        stream=wrapper_host_us(lambda: kernel._stream(dev)),
+        ctypes_call=wrapper_host_us(lambda: lib.ntt_scatter_rows(*ptrs, N, C, R, stream)),
+    )
 
 
 def scan_bound(pos: dict, bargs, bstate, cols: int) -> tuple:
@@ -607,6 +678,10 @@ def server_path(dev) -> tuple:
         + ("not measured" if us is None else f"{us:.2f} us")
         + f"; {pos['lanes']} lanes, {pos['needed']} ring positions needed, {pos['walked']} "
         f"walked; {scan_bench['shape']}")
+    # the wavefront kernel on the same batch, against its plain version
+    wavefront.configure(max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
+    wf_drain = {"drain_bench": wavefront_walk("drain-bench", bargs, init, NODES, pos, plain=True)}
+    wavefront.reset()
 
     # ---- the server kernels at the main-path shapes -------------------------
     rows_out = []
@@ -627,6 +702,14 @@ def server_path(dev) -> tuple:
     lib_ms, lib = cuda_ms(scatter_library)
     err = max_abs_err([(got, want), (got, lib), (got, planes_b[2])])
     R = len(r_np)
+    before = kernel.LAUNCHES["scatter_rows"]
+    scatter_kernel()
+    scatter_extra = dict(launches_per_call=kernel.LAUNCHES["scatter_rows"] - before,
+                         host_split_us=scatter_host_split(plane0, r, v))
+    if scatter_extra["launches_per_call"] != 1:
+        fail(f"scatter_rows: {scatter_extra['launches_per_call']} launches a call")
+    log(f"scatter_rows: {scatter_extra['launches_per_call']} launch a call; host us by part "
+        + ", ".join(f"{k} {u:.1f}" for k, u in scatter_extra["host_split_us"].items()))
     rows_out.append(("scatter_rows", "nomad_tpu_torch/tpu/csrc/scatter.cu",
                      "nomad_tpu/tpu/mirror.py:251", err, ms, plain_ms, lib_ms,
                      (device_us(scatter_kernel), device_us(scatter_library),
@@ -643,6 +726,10 @@ def server_path(dev) -> tuple:
     fused = np.concatenate([out_t[p.eval_id][0] for p in order])
     if not np.array_equal(placements[: len(fused)].cpu().numpy(), fused):
         fail("drain-tenant: the scan of the assembled batch differs from the collector's")
+    wavefront.configure(max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
+    wf_drain["drain_tenant"] = wavefront_walk("drain-tenant", bargs, init, NODES,
+                                              scan_positions(bargs, init, NODES), plain=True)
+    wavefront.reset()
     eval_of = kernel.from_numpy(args_np["group_eval"][args_np["groups"]], dev)
     used_t = init.used
 
@@ -705,12 +792,13 @@ def server_path(dev) -> tuple:
             name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
             device_us=dev_us[0], library_device_us=dev_us[1], host_us=dev_us[2], shape=shape,
+            **(scatter_extra if name == "scatter_rows" else {}),
         ))
         us = ["not measured" if u is None else f"{u:.2f} us" for u in dev_us[:2]]
         log(f"{name}: {ms:.4f} ms per launch (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
             f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
             f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us; {shape}")
-    return launches, wf_launches, server_rows, scan_bench
+    return launches, wf_launches, server_rows, scan_bench, wf_drain
 
 
 def main() -> int:
@@ -1014,6 +1102,7 @@ def main() -> int:
     planner_us["wavefront"] = device_us(wavefront_kernel, calls=3)
     plain_ms, (pw_state, pw, pw_rounds) = host_ms(lambda: wavefront.plan_batch_wavefront_ref(
         bargs, bstate, p["n_real"], WAVEFRONT_W, WAVEFRONT_M, 1))
+    wf_walk = wavefront_walk("multi-tenant", bargs, bstate, p["n_real"], scan_pos, plain=False)
     wavefront.reset()
     errs["wavefront"] = max(errs["wavefront"], max_abs_err([(wf, pw), *zip(wf_state, pw_state)])
                             + abs(int(wf_rounds) - pw_rounds))
@@ -1103,6 +1192,9 @@ def main() -> int:
             + ("not measured" if us is None else f"{us:.1f} us") + f", rounds {rounds}, {shape}")
     scan_row = next(row for row in kernels if row["name"] == "exact_scan")
     scan_row.update(positions_needed=scan_pos["needed"], positions_walked=scan_pos["walked"])
+    wf_json = next(row for row in kernels if row["name"] == "wavefront")
+    wf_json.update({k: wf_walk[k] for k in ("us_per_round", "q", "clusters", "positions_needed",
+                                            "positions_walked")})
     for (name, source, replaces, ms, plain_ms, lib_ms, dev_us, moved, ops, rate,
          shape) in sweep_rows:
         bound_ms, bound_by = bound(moved, ops, rate)
@@ -1118,8 +1210,9 @@ def main() -> int:
             f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us; {shape}")
 
     # ---- 5. the server path -------------------------------------------------
-    server_launches, server_wf_launches, server_rows, scan_bench = server_path(dev)
+    server_launches, server_wf_launches, server_rows, scan_bench, wf_drain = server_path(dev)
     next(row for row in kernels if row["name"] == "exact_scan")["drain_bench"] = scan_bench
+    wf_json.update(wf_drain)
     for row in server_rows:
         row["paths"] = {}
         kernels.append(row)

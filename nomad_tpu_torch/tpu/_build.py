@@ -30,10 +30,10 @@ _ENTRY_POINTS = {
     "ntt_runs": (30, 5),
     "ntt_windowed": (15, 4),
     "ntt_used_bases": (5, 5),
-    "ntt_scatter_rows": (5, 3),
+    "ntt_scatter_rows": (4, 3),
     "ntt_verify_rows": (6, 3),
-    "ntt_wavefront": (35, 9),
-    "ntt_wavefront_grid": (1, 1),
+    "ntt_wavefront": (29, 8),
+    "ntt_wavefront_shape": (1, 3),
     "ntt_tile_count": (5, 5),
     "ntt_tile_window": (16, 11),
 }
@@ -82,7 +82,7 @@ def build() -> Path:
     ptxas, failed = [], []
     for src, _, proc in jobs:
         log, _ = proc.communicate()
-        ptxas += [f"{src.name}: {ln}" for ln in log.splitlines() if "ptxas" in ln]
+        ptxas += [f"{src.name}: {ln}" for ln in log.splitlines() if "ptxas" in ln or "spill" in ln]
         if proc.returncode != 0:
             failed.append(f"{src.name}:\n{log}")
     if failed:

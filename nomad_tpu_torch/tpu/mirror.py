@@ -41,22 +41,20 @@ _SCATTER_SHAPES = dict(used="NC", rows="R", vals="RC")
 
 def scatter_rows(used, rows, vals):
     """``used`` with ``rows`` set to ``vals``, in a new tensor: ``used``,
-    which an earlier kernel may still be reading, is never written."""
+    which an earlier kernel may still be reading, is never written. On the
+    card it is one launch (``csrc/scatter.cu``) and one allocation."""
     device = used.device
     if device.type == "cpu":
         return scatter_rows_ref(used, rows, vals)
     from . import _build
 
     d = kernel._check_int32(dict(used=used, rows=rows, vals=vals), _SCATTER_SHAPES, device)
-    N, C, R = d["N"], d["C"], d["R"]
     out = torch.empty_like(used)
-    first = torch.empty(N, dtype=torch.int32, device=device)  # lowest lane per row
     kernel._launch(
         "scatter_rows",
         _build.library().ntt_scatter_rows,
         kernel._ptr(used), kernel._ptr(rows), kernel._ptr(vals), kernel._ptr(out),
-        kernel._ptr(first),
-        N, C, R,
+        d["N"], d["C"], d["R"],
         kernel._stream(device),
     )
     return out

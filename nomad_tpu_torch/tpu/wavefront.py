@@ -24,7 +24,9 @@ runs on one card, so its wrapper always takes S = 1.
 
 ``plan_batch_wavefront_ref`` is the plain PyTorch version and
 ``plan_batch_wavefront`` the wrapper: the plain version for CPU tensors,
-the hand-written CUDA kernel ``csrc/wavefront.cu`` for CUDA tensors.
+the hand-written CUDA kernel ``csrc/wavefront.cu`` for CUDA tensors (one
+cooperative launch of a thread block cluster per lane of the window, each
+walking its lane's ring only as far as its limit window).
 """
 
 from __future__ import annotations
@@ -280,19 +282,49 @@ def plan_batch_wavefront_ref(args: BatchArgs, init: BatchState, n_real: int, win
     return BatchState(used, coll, counts, present, offset), placements, rounds
 
 
-def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid: int = None):
+#: candidates per lane the kernel feeds to the conflict test (its threads
+#: keep their best M - 1 keys in registers); the plain version takes any M
+WAVE_MAX_TOP_M = 4
+
+
+def cluster_shape(window: int, n_classes: int, top_m: int, device: torch.device) -> tuple:
+    """(Q, clusters, scratch ints) of the kernel's launch for a window of
+    ``window`` lanes: the largest power of two Q (at most 16) for which the
+    card co-schedules ``window`` clusters of Q blocks, or Q = 1 and as many
+    clusters as fit, which take the lanes in turn. A card that cannot hold
+    one cluster, or a window whose records do not fit a block's shared
+    memory, raises."""
+    from . import _build
+
+    lib = _build.library()
+    out = (ctypes.c_int * 3)()
+    rc = lib.ntt_wavefront_shape(ctypes.addressof(out), window, n_classes, top_m,
+                                 kernel._stream(device))
+    if rc != 0:
+        raise RuntimeError(f"no launch of the wavefront kernel for W={window}, M={top_m}: "
+                           f"{lib.ntt_error_string(rc).decode()} ({rc})")
+    return tuple(out)
+
+
+def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid: int = None,
+                         walked: torch.Tensor | None = None):
     """Run the wavefront drive with the stanza's W and M; returns (final
     state, node index per alloc or -1, rounds). A drop-in for
     ``kernel.plan_batch``. On the card ``rounds`` is a device scalar, so
     the call does not wait for the kernel; the caller syncs when it reads
     it. ``n_valid`` (the real placements asked for) is accepted for the
-    JAX signature; the JAX package feeds it to its round ledger."""
+    JAX signature; the JAX package feeds it to its round ledger.
+    ``walked``, a one-element int64 tensor on the card, gets the ring
+    positions the committed lanes' selections walked added to it (the
+    plain version walks no chunks and takes none)."""
     del n_valid
     A = int(args.demands.shape[0])
     W = window_for(A)
     M = contention_top_m()
     device = args.capacity.device
     if device.type == "cpu":
+        if walked is not None:
+            raise ValueError("only the kernel counts the ring positions it walks")
         return plan_batch_wavefront_ref(args, init, n_real, W, M, shards_for(args.capacity.shape[0], 1))
     from . import _build
 
@@ -301,40 +333,33 @@ def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid
     kernel._check_index(args.perm, N, "perm")
     kernel._check_index(args.groups, G, "groups")
     kernel._check_index(args.group_eval, E, "group_eval")
-    lib = _build.library()
-    blocks = ctypes.c_int(0)
-    stream = kernel._stream(device)
-    rc = lib.ntt_wavefront_grid(ctypes.c_void_p(ctypes.addressof(blocks)), W, stream)
-    if rc != 0:
-        raise RuntimeError(f"wavefront kernel cannot be made co-resident: "
-                           f"{lib.ntt_error_string(rc).decode()} ({rc})")
-    B = blocks.value
+    if not 2 <= C <= kernel.SCAN_MAX_COLS:
+        raise ValueError(f"the wavefront takes 2 to {kernel.SCAN_MAX_COLS} resource columns, "
+                         f"not {C}")
+    if V > kernel.SCAN_MAX_CLASSES:
+        raise ValueError(f"the wavefront takes at most {kernel.SCAN_MAX_CLASSES} spread classes, "
+                         f"not {V}")
+    if M > WAVE_MAX_TOP_M:
+        raise ValueError(f"the wavefront kernel takes at most {WAVE_MAX_TOP_M} candidates a lane, "
+                         f"not {M}")
+    if walked is not None and (walked.shape != (1,) or walked.dtype != torch.int64
+                               or walked.device != device):
+        raise ValueError("walked must be a one-element int64 tensor on the wavefront's device")
+    _, _, scratch_ints = cluster_shape(W, V, M, device)
     state = BatchState(*(t.clone() for t in init))
     placements = torch.full((A,), -1, dtype=torch.int32, device=device)
-    ctrl = torch.zeros(2, dtype=torch.int32, device=device)  # next lane, rounds
-    i32 = dict(dtype=torch.int32, device=device)
-    lane_out = (
-        torch.empty(W, **i32),  # winner
-        torch.empty(W, **i32),  # placed | advances << 1
-        torch.empty(W, **i32),  # ring positions consumed
-        torch.empty((W, M), **i32),  # candidate nodes
-    )
-    scratch = (
-        torch.empty((B, N), dtype=torch.float32, device=device),  # scores
-        torch.empty((B, N), dtype=torch.uint8, device=device),  # flags
-        torch.empty((B, V + 1), dtype=torch.float32, device=device),  # boosts
-        torch.empty((B, max(V, 1)), **i32),  # spread counts of the lane's group
-        torch.empty((B, max(V, 1)), dtype=torch.uint8, device=device),  # spread present
-    )
+    rounds = torch.zeros(1, dtype=torch.int32, device=device)
+    lane_info = torch.empty((A, 8), dtype=torch.int32, device=device)  # each lane's inputs
+    scratch = torch.empty(scratch_ints, dtype=torch.int32, device=device)  # the round's lane slots
     kernel._launch(
         "wavefront",
-        lib.ntt_wavefront,
+        _build.library().ntt_wavefront,
         *(kernel._ptr(t) for t in args),
         *(kernel._ptr(t) for t in state),
-        kernel._ptr(placements), kernel._ptr(ctrl),
-        *(kernel._ptr(t) for t in lane_out),
-        *(kernel._ptr(t) for t in scratch),
-        N, C, G, V, E, A, W, M, B,
-        stream,
+        kernel._ptr(placements), kernel._ptr(rounds),
+        None if walked is None else kernel._ptr(walked), kernel._ptr(lane_info),
+        kernel._ptr(scratch),
+        N, C, G, V, E, A, W, M,
+        kernel._stream(device),
     )
-    return state, placements, ctrl[1]
+    return state, placements, rounds[0]

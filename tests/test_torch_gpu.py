@@ -663,3 +663,134 @@ def test_drain_batch_on_card_matches_cpu(shape, with_state, planner_on, cuda_dev
     for eval_id, (placements, base) in cpu.items():
         np.testing.assert_array_equal(card[eval_id][0], placements)
         np.testing.assert_array_equal(card[eval_id][1], base)
+
+
+# ---------------------------------------------------------------------------
+# the wavefront as a cluster per lane that stops at its window, and the
+# dirty-row scatter as one launch
+# ---------------------------------------------------------------------------
+
+#: (window, candidates per lane): one lane, a few, the default, and more
+#: lanes than clusters of one block fit on the card (they take turns)
+WAVE_SHAPES = [(1, 1), (8, 1), (32, 1), (32, 3), (200, 1), (200, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,top_m", WAVE_SHAPES)
+@pytest.mark.parametrize("case", sorted(SCAN_WALK_CASES))
+def test_wavefront_walk_matches_plain(case, window, top_m, cuda_device):
+    """Small and full-ring limits, rings shorter than a chunk and of several
+    chunks, replays, invalid lanes: placements, final state and rounds of
+    the plain version, and the sequential scan's placements and state."""
+    args, init = SCAN_WALK_CASES[case]()
+    wavefront.configure(max_round=window, contention_top_m=top_m)
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    n_real = int(args["ring"].max())
+    before = tk.LAUNCHES["wavefront"]
+    got_state, got, rounds = wavefront.plan_batch_wavefront(a, s, n_real)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["wavefront"] == before + 1
+    W = wavefront.window_for(len(args["groups"]))
+    want_state, want, want_rounds = wavefront.plan_batch_wavefront_ref(a, s, n_real, W, top_m, 1)
+    _same(got, want)
+    for g, w in zip(got_state, want_state):
+        _same(g, w)
+    assert int(rounds) == want_rounds
+    scan_state, scan = tk.plan_batch(a, s, n_real)
+    _same(got, scan)
+    for g, w in zip(got_state, scan_state):
+        _same(g, w)
+
+
+def _positions_needed(a, s, n_real):
+    """The ring positions the placements need, over the valid lanes: each
+    lane's consumed prefix (the plain scan lane by lane on the CPU), or its
+    whole ring where the window does not fill."""
+    args = tk.BatchArgs(*(t.cpu() for t in a))
+    state = tk.BatchState(*(t.cpu() for t in s))
+    needed = 0
+    for i in np.flatnonzero(args.valid.numpy()):
+        e = int(args.group_eval[args.groups[i]])
+        ring, off = int(args.ring[e]), int(state.offset[e])
+        one = args._replace(demands=args.demands[i:i + 1], groups=args.groups[i:i + 1],
+                            limits=args.limits[i:i + 1], valid=args.valid[i:i + 1])
+        state, _ = tk.plan_batch_ref(one, state, n_real)
+        needed += (int(state.offset[e]) - off) % max(ring, 1) or ring
+    return needed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["drain_limit14", "drain_tenant", "ring_40000", "invalid_lanes"])
+def test_wavefront_counts_its_walk(case, cuda_device):
+    """The kernel counts the ring positions its committed lanes walked: at
+    least what the placements need, no more than whole rings, and a limit
+    of 14 stops short of them; the count adds up across calls."""
+    args, init = SCAN_WALK_CASES[case]()
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    n_real = int(args["ring"].max())
+    walked = torch.zeros(1, dtype=torch.int64, device=cuda_device)
+    got_state, got, _ = wavefront.plan_batch_wavefront(a, s, n_real, walked=walked)
+    first = int(walked.item())
+    valid = args["valid"]
+    whole = int(args["ring"][args["group_eval"][args["groups"]]][valid].sum())
+    assert _positions_needed(a, s, n_real) <= first <= whole
+    if case == "drain_limit14":
+        assert first < whole
+    wavefront.plan_batch_wavefront(a, s, n_real, walked=walked)
+    assert int(walked.item()) == 2 * first
+    scan_state, scan = tk.plan_batch(a, s, n_real)
+    _same(got, scan)
+    for g, w in zip(got_state, scan_state):
+        _same(g, w)
+
+
+@pytest.mark.gpu
+def test_wavefront_refuses_what_the_kernel_does_not_take(cuda_device):
+    args, init = _many_classes(tk.SCAN_MAX_CLASSES + 1, n=2_000, a=4)
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    with pytest.raises(ValueError, match="spread classes"):
+        wavefront.plan_batch_wavefront(a, s, 2_000)
+    args, init = problems.wavefront_problem(problems.build_cluster(200, 64, seed=3), n_groups=4)
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    wavefront.configure(contention_top_m=wavefront.WAVE_MAX_TOP_M + 1)
+    with pytest.raises(ValueError, match="candidates"):
+        wavefront.plan_batch_wavefront(a, s, 200)
+    wavefront.reset()
+    with pytest.raises(ValueError, match="walked"):
+        wavefront.plan_batch_wavefront(a, s, 200, walked=torch.zeros(2, dtype=torch.int64,
+                                                                     device=cuda_device))
+
+
+@pytest.mark.gpu
+def test_wavefront_cluster_shape(cuda_device):
+    """Q is the largest power of two at which W clusters fit; a window
+    wider than the card's clusters of one block takes them in turn."""
+    shapes = {w: wavefront.cluster_shape(w, 4, 1, cuda_device) for w in (1, 8, 32, 200, 4096)}
+    for w, (q, clusters, _) in shapes.items():
+        assert q in (1, 2, 4, 8, 16) and 1 <= clusters <= w
+        assert clusters == w or q == 1
+    assert shapes[1][0] >= shapes[8][0] >= shapes[32][0] >= shapes[200][0]
+    assert shapes[4096][1] < 4096
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [8, 64, 512, 4096])
+def test_scatter_rows_one_launch_per_bucket(rows, cuda_device):
+    """Every row bucket of DeviceState, duplicate rows with differing
+    values, rows outside [0, N), N not a multiple of a block's rows: the
+    plain version's plane, from one launch."""
+    from nomad_tpu_torch.tpu import mirror
+
+    rng = np.random.default_rng(rows)
+    N = 10_000
+    r = rng.integers(0, N, rows).astype(np.int32)
+    r[: rows // 4] = r[rows // 4: rows // 2]  # duplicates, with their own values
+    r[-1], r[-2] = -1, N
+    vals = rng.integers(0, 2**30, (rows, 4)).astype(np.int32)
+    used = torch.from_numpy(rng.integers(0, 2**30, (N, 4)).astype(np.int32)).to(cuda_device)
+    t = [torch.from_numpy(x).to(cuda_device) for x in (r, vals)]
+    before = tk.LAUNCHES["scatter_rows"]
+    got = mirror.scatter_rows(used, *t)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["scatter_rows"] == before + 1
+    _same(got, mirror.scatter_rows_ref(used, *t))
