@@ -35,7 +35,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its result needs, with the positions the kernel counts itself walking
    beside them; the wavefront's microseconds a round, cluster shape and
    ring positions walked against needed; each one-shot wrapper's host
-   microseconds beside its event and device time);
+   microseconds beside its event and device time; the run planner's round
+   split by clock64 stamps from a second, stamped build, with its sweep
+   and fill rounds, nomad_tpu_torch/tools/runs_round_sweep.py; the four
+   score primitives the planners inline, each applied alone to the
+   headline eval's node plane by csrc/primitives.cu, against its plain
+   version);
+   then, counted on its own, the spread past the kernels' shared memory
+   (ROADMAP C1): a 50,000-node eval of 256 allocs in 32 groups over 49,153
+   spread values through ``planner.plan_eval``, once by the exact scan and
+   once by the wavefront with 5 candidates a lane, each placing exactly as
+   its plain version on the same planes;
 5. the server path: a fused drain batch of 8 evals and 1,024 lanes on
    the card against the same batch through the plain versions on the
    CPU; then, with every launch counter set to 0 before and read after,
@@ -88,11 +98,19 @@ F32_OPS_PER_S = 67e12
 SCORE_OPS = 95
 # integer operations of one fit check: an add and a compare per column
 FIT_OPS_PER_COL = 2
+# float32 operations of one binpack (two bit-stable 10^x, the sum, clip
+# and scale) and of one class boost (its desired count, target and even
+# terms)
+BINPACK_OPS = 70
+CLASS_BOOST_OPS = 12
 # int32 adds and compares outside the tensor cores: half the float32 rate
 # (64 int32 lanes per SM and clock against 128 float32)
 I32_OPS_PER_S = F32_OPS_PER_S / 2
 
 NODES, ALLOCS, VALUES = 10_000, 50_000, 4
+#: ROADMAP C1's eval at a reduced alloc count: (nodes, allocs, spread
+#: values, candidates a lane on the wavefront)
+C1_NODES, C1_ALLOCS, C1_VALUES, C1_TOP_M = 50_000, 256, 49_153, 5
 EXACT_GROUPS, EXACT_ALLOCS = 8, 8_192
 LIMIT = 10
 DRAIN_EVALS, DIRTY_ROWS = 32, 3_000
@@ -107,6 +125,14 @@ MID_PAGED = (7, 8192, 1024)  # seed, nodes, allocs; limit 4, 1,024-row tiles
 SERVER_KERNELS = ("exact_scan", "used_bases", "scatter_rows", "verify_rows")
 PLAN_EVAL_KERNELS = ("exact_scan", "runs", "windowed")
 PAGED_KERNELS = ("tile_count", "tile_window")
+#: the score primitives and the kernels that inline them (K1-K4)
+PRIMITIVES = {
+    "binpack": ("nomad_tpu/tpu/kernel.py:151",
+                ("exact_scan", "runs", "windowed", "wavefront", "tile_window")),
+    "class_boosts": ("nomad_tpu/tpu/kernel.py:161", ("exact_scan", "runs", "wavefront")),
+    "scores": ("nomad_tpu/tpu/kernel.py:203", ("exact_scan", "runs", "wavefront")),
+    "rot_incl": ("nomad_tpu/tpu/kernel.py:255", ("exact_scan", "windowed", "wavefront")),
+}
 
 
 def log(msg: str) -> None:
@@ -268,7 +294,8 @@ def wavefront_walk(label: str, bargs, bstate, n_real: int, pos: dict, plain: boo
              f"{pos['needed']} its result needs")
     q, clusters, _ = wavefront.cluster_shape(wavefront.window_for(bargs.demands.shape[0]),
                                              bstate.spread_counts.shape[1],
-                                             wavefront.contention_top_m(), dev)
+                                             wavefront.contention_top_m(), dev,
+                                             bargs.capacity.shape[0])
     row = dict(ms=ms, rounds=rounds, us_per_round=ms * 1e3 / max(rounds, 1), q=q,
                clusters=clusters, positions_needed=pos["needed"], positions_walked=walked,
                max_abs_err=err)
@@ -404,6 +431,108 @@ def sweeps_err(calls) -> int:
         want = plain[name](*args)
         err = max(err, max_abs_err(zip(out, want if isinstance(want, tuple) else (want,))))
     return err
+
+
+def c1_phase(dev) -> dict:
+    """ROADMAP C1's eval through ``plan_eval`` on the card, once by the
+    exact scan and once by the wavefront (M = C1_TOP_M), each held against
+    its plain version on the card on the same planes; returns the launches
+    per route."""
+    from nomad_tpu_torch.tpu import kernel, planner, problems, wavefront
+
+    planes = problems.eval_planes(*problems.wavefront_problem(
+        problems.build_cluster(C1_NODES, C1_ALLOCS, n_values=C1_VALUES)))
+    p = planner.pad_planes(planes)
+    args, state = planner.exact_inputs(p, dev)
+    launches = {}
+    for mode, top_m in (("exact-scan", None), ("wavefront", C1_TOP_M)):
+        if top_m is not None:
+            wavefront.configure(enabled=True, contention_top_m=top_m)
+        try:
+            kernel.reset_launches()
+            placements, stats = planner.plan_eval(planes, dev)
+            name = "wavefront" if top_m is not None else "exact_scan"
+            launches[mode] = kernel.LAUNCHES[name]
+            if stats["mode"] != mode or launches[mode] < 1:
+                fail(f"C1 {mode}: planned in mode {stats['mode']}, launches {launches[mode]}")
+            if top_m is None:
+                _, want = kernel.plan_batch_ref(args, state, p["n_real"])
+            else:
+                W = wavefront.window_for(p["demands"].shape[0])
+                _, want, _ = wavefront.plan_batch_wavefront_ref(args, state, p["n_real"], W,
+                                                                top_m, 1)
+        finally:
+            wavefront.reset()
+        want = want[: p["a_real"]].cpu().numpy()
+        diff = int((placements != want).sum())
+        if diff:
+            fail(f"C1 {mode}: {diff} placements differ from the plain version")
+        log(f"C1 {mode}: {C1_ALLOCS} allocs x {C1_NODES} nodes over {C1_VALUES} spread values"
+            + (f", M={top_m}" if top_m else "") + f": placed {int((placements >= 0).sum())}, "
+            f"identical to the plain version; rounds {stats['rounds']}, kernel "
+            f"{stats['kernel_s'] * 1e3:.2f} ms, launches {launches[mode]}")
+    return launches
+
+
+def primitive_rows(dev, planes: dict) -> list:
+    """K1-K4, which the planners inline: each primitive applied alone to
+    the headline eval's node plane (csrc/primitives.cu, one launch), held
+    against its plain version, with its time, bound and host us; JSON rows
+    without their launches."""
+    from nomad_tpu_torch.tpu import kernel, planner
+
+    p = planner.pad_planes(planes)
+    args, state = planner.exact_inputs(p, dev)
+    N, C = p["capacity"].shape
+    V = state.spread_counts.shape[1]
+    demand = args.demands[0]
+    # a spread state part way into the eval: a seeded third of the allocs
+    rng = np.random.default_rng(25)
+    counts = torch.from_numpy(rng.integers(0, ALLOCS // (3 * V), (1, V)).astype(np.int32)).to(dev)
+    state = state._replace(spread_counts=counts, spread_present=counts > 0)
+    util = state.used + demand[None, :]
+    fc = (1.0 - util[:, 0].float() / args.usable[:, 0]).contiguous()
+    fm = (1.0 - util[:, 1].float() / args.usable[:, 1]).contiguous()
+    fit = (args.feasible[0] & (util <= args.capacity).all(dim=1))[args.perm[0].long()].contiguous()
+    offset = N // 3
+    positions = torch.arange(N, dtype=torch.int32, device=dev)
+    boost_args = (state.spread_counts[0], state.spread_present[0], args.spread_desired[0],
+                  args.spread_implicit[0], args.spread_weight_frac[0], args.spread_even[0],
+                  args.spread_active[0])
+    score_bytes = N * (8 * C + 8 + 4 + 4 + 1 + 4 + 4) + V * 9
+    cases = {
+        "binpack": (lambda: kernel.binpack(fc, fm), lambda: kernel._binpack(fc, fm),
+                    3 * N * 4, N * BINPACK_OPS, f"N={N}"),
+        "class_boosts": (lambda: kernel.class_boosts(*boost_args),
+                         lambda: kernel._class_boosts(*boost_args),
+                         V * 9 + 16 + (V + 1) * 4, V * CLASS_BOOST_OPS, f"V={V}"),
+        "scores": (lambda: kernel.scores(args, state, 0, demand),
+                   lambda: kernel._scores(args, state, 0, demand),
+                   score_bytes, N * SCORE_OPS + V * CLASS_BOOST_OPS, f"N={N} C={C} V={V}"),
+        "rot_incl": (lambda: kernel.rot_incl(fit, offset),
+                     lambda: kernel._rot_incl(fit, offset, fit.sum(dtype=torch.int32), positions),
+                     N + N * 4, 2 * N, f"N={N} offset={offset}"),
+    }
+    rows = []
+    for name, (kern, plain, moved, ops, shape) in cases.items():
+        ms, got = cuda_ms(kern)
+        plain_ms, want = cuda_ms(plain)
+        err = max_abs_err([(got, want)])
+        if err:
+            fail(f"{name}: the primitive differs from its plain version ({err})")
+        bound_ms, bound_by = bound(moved, ops)
+        replaces, inside = PRIMITIVES[name]
+        rows.append(dict(
+            name=name, route="cuda", source="nomad_tpu_torch/tpu/csrc/primitives.cu",
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None, device_us=device_us(kern),
+            host_us=wrapper_host_us(kern), shape=shape, inlined_in=list(inside),
+        ))
+        us = rows[-1]["device_us"]
+        log(f"{name} (inlined in {', '.join(inside)}; alone): {ms:.4f} ms per launch (plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by}), on the card by the "
+            "profiler " + ("not measured" if us is None else f"{us:.2f} us") + f"; {shape}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -806,6 +935,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 2
+    from nomad_tpu_torch.tools import runs_round_sweep
     from nomad_tpu_torch.tpu import _build, exact_np, kernel, paging, planner, problems, wavefront
 
     dev = torch.device("cuda")
@@ -1001,6 +1131,9 @@ def main() -> int:
         + json.dumps({k: v for k, v in pg_stats.items()
                       if k not in ("mode", "kernel_s", "launches", "rounds")}))
 
+    # C1: spread past the kernels' shared memory, counted on its own
+    c1_phase(dev)
+
     # timings of the headline eval through the entry point
     samples = []
     planner.plan_eval(spread, dev)  # warm-up
@@ -1059,6 +1192,13 @@ def main() -> int:
                  ms, plain_ms, nbytes(rargs, rinit, got),
                  rounds * scan_ops(N, int(p["feasible"][0].sum()) + kernel.RUNCAP, C), rounds,
                  f"N={N} A={A} V={VALUES}"))
+    # its round split by clock64 stamps, from a second, stamped build
+    runs_split = runs_round_sweep.split_report(_build, kernel, cuda_ms, rargs, rinit, A)
+    log(f"runs round split (us a round of {runs_split['us_per_round']:.3f}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in runs_split["split_us"].items())
+        + f"; {runs_split['sweep_rounds']} sweep rounds placed {runs_split['sweep_placed']}, "
+        f"{runs_split['fill_rounds']} fill rounds placed {runs_split['fill_placed']}; n_acc "
+        + json.dumps(runs_split["n_acc_pow2"]))
 
     p = planner.pad_planes(windowed)
     wargs, wused, wcoll = planner.window_inputs(p, dev)
@@ -1190,6 +1330,9 @@ def main() -> int:
         log(f"{name}: {ms:.3f} ms per launch (plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
             f"by {bound_by}), on the card by the profiler "
             + ("not measured" if us is None else f"{us:.1f} us") + f", rounds {rounds}, {shape}")
+    next(row for row in kernels if row["name"] == "runs").update(
+        {k: runs_split[k] for k in ("us_per_round", "split_us", "sweep_rounds", "fill_rounds",
+                                    "sweep_placed", "fill_placed", "n_acc_pow2")})
     scan_row = next(row for row in kernels if row["name"] == "exact_scan")
     scan_row.update(positions_needed=scan_pos["needed"], positions_walked=scan_pos["walked"])
     wf_json = next(row for row in kernels if row["name"] == "wavefront")
@@ -1209,6 +1352,8 @@ def main() -> int:
             f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
             f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us; {shape}")
 
+    primitives = primitive_rows(dev, spread)
+
     # ---- 5. the server path -------------------------------------------------
     server_launches, server_wf_launches, server_rows, scan_bench, wf_drain = server_path(dev)
     next(row for row in kernels if row["name"] == "exact_scan")["drain_bench"] = scan_bench
@@ -1223,6 +1368,12 @@ def main() -> int:
         if name in server_wf_launches:
             row["paths"]["server_wavefront"] = server_wf_launches[name]
         row["launches"] = sum(row["paths"].values())
+    # K1-K4 run inside every launch of the kernels that inline them
+    launched = {row["name"]: row["launches"] for row in kernels}
+    for row in primitives:
+        row["launches"] = sum(launched[k] for k in row["inlined_in"])
+        row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
+    kernels = primitives + kernels
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,10 @@
 // Block-wide scans and reductions for the planner kernels.
 //
-// The run, windowed and wavefront planners run a node axis in ONE block of
-// THREADS threads: thread t holds the contiguous positions
-// [t*chunk, (t+1)*chunk), so a prefix over positions is a per-thread
-// running count started at the thread's exclusive block prefix. The exact
-// scan uses the same helpers inside each block of its cluster.
+// The windowed planner runs a node axis in ONE block of THREADS threads:
+// thread t holds the contiguous positions [t*chunk, (t+1)*chunk), so a
+// prefix over positions is a per-thread running count started at the
+// thread's exclusive block prefix. The exact scan, the run planner and the
+// wavefront use the same helpers inside each block of their clusters.
 //
 // Every helper costs one __syncthreads(). Its partials live in a shared
 // buffer private to its TAG, and every thread reads the partials itself

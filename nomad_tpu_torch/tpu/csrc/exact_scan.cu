@@ -63,7 +63,11 @@
 // first takes one more cluster barrier. The mutable state is read with
 // ld.global.cg from L2, so no SM's L1 holds a stale line. The spread boosts
 // (V+1 values) are computed by warp 0 of every block into its own shared
-// memory, behind the first chunk's loads.
+// memory, behind the first chunk's loads. Where V + 1 boosts do not fit a
+// block's shared memory (more than SMEM_CLASSES classes), every thread of
+// each block reduces a share of the classes to the counts' min and max
+// (one block reduction a step) and each position computes its own class's
+// boost from them, its count read from L2.
 //
 // Block 0's thread 0 counts the positions of every chunk walked and, when
 // given a counter, adds them to it.
@@ -101,9 +105,10 @@ __device__ constexpr int first_chunk(int limit) {
 }
 // resource columns the step keeps in registers
 constexpr int MAX_C = 6;
-// spread classes: every block holds the V + 1 boosts in shared memory,
-// 192 KB at most of the 227 KB a block of sm_90 may opt into
-constexpr int MAX_V = 49152;
+// spread classes whose V + 1 boosts every block holds in shared memory
+// (192 KB at most of the 227 KB a block of sm_90 may opt into); more take
+// each position's boost from the classes' min and max count
+constexpr int SMEM_CLASSES = 49152;
 // returned by the entry point when the card cannot co-schedule the cluster
 constexpr int CLUSTER_REFUSED = 0x4e5400;
 
@@ -214,6 +219,8 @@ struct Deferred {
   int node;
 };
 
+// SMEM: the V + 1 boosts fit each block's shared memory
+template <bool SMEM>
 __global__ void __launch_bounds__(THREADS) exact_scan_kernel(ExactParams P) {
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
@@ -246,6 +253,8 @@ __global__ void __launch_bounds__(THREADS) exact_scan_kernel(ExactParams P) {
     const int off = e == known_e ? known_off : __ldcg(P.offset + e);
 
     int run_fit = 0, run_np = 0;  // fit and nonpositive counts of the chunks walked
+    int bump = -1;                // the pending placement's class (without SMEM)
+    ClassRange range = {};        // the classes' count range (without SMEM)
     bool full = false;            // the window filled: the walk stopped there
     Best best = best_identity();  // this thread's returned options
     // at least one chunk, so that the pending placement is written
@@ -279,15 +288,24 @@ __global__ void __launch_bounds__(THREADS) exact_scan_kernel(ExactParams P) {
       if (base == 0 && active) {
         // the boosts of this step's spread counts (plus the pending
         // placement's class), while the loads above are in flight
-        if (warp == 0) {
-          const int bump = pend.node >= 0 && pend.g == g ? __ldg(P.node_value + gN + pend.node)
-                                                         : -1;
-          class_boosts_warp(P.spread_counts + (size_t)g * V, P.spread_present + (size_t)g * V,
-                            P.spread_desired + (size_t)g * V, __ldg(P.spread_implicit + g),
-                            __ldg(P.spread_weight_frac + g), __ldg(P.spread_even + g), true, V,
-                            bump >= 0 && bump < V ? bump : -1, boosts_s);
+        if constexpr (SMEM) {
+          if (warp == 0) {
+            const int bump = pend.node >= 0 && pend.g == g ? __ldg(P.node_value + gN + pend.node)
+                                                           : -1;
+            class_boosts_warp(P.spread_counts + (size_t)g * V, P.spread_present + (size_t)g * V,
+                              P.spread_desired + (size_t)g * V, __ldg(P.spread_implicit + g),
+                              __ldg(P.spread_weight_frac + g), __ldg(P.spread_even + g), true, V,
+                              bump >= 0 && bump < V ? bump : -1, boosts_s);
+          }
+          __syncthreads();
+        } else {
+          const int b = pend.node >= 0 && pend.g == g ? __ldg(P.node_value + gN + pend.node) : -1;
+          bump = b >= 0 && b < V ? b : -1;
+          range = block_allreduce<2>(class_range_part(P.spread_counts + (size_t)g * V,
+                                                      P.spread_present + (size_t)g * V, V, bump,
+                                                      tid, THREADS),
+                                     ClassRangeOp());
         }
-        __syncthreads();
       }
       bool fit = feas;
       int u0 = 0, u1 = 0;
@@ -298,10 +316,21 @@ __global__ void __launch_bounds__(THREADS) exact_scan_kernel(ExactParams P) {
         u1 = uv[1] + add[1];
       }
       float sc = 0.0f;
-      if (fit)
+      if (fit) {
+        const int cls = v >= 0 ? min(v, V) : V;
+        float boost = 0.0f;
+        if constexpr (SMEM) {
+          boost = active ? boosts_s[cls] : 0.0f;
+        } else if (active) {
+          // past the first chunk the pending placement is in the counts
+          boost = class_boost_at(cls, P.spread_counts + (size_t)g * V,
+                                 P.spread_desired + (size_t)g * V, __ldg(P.spread_implicit + g),
+                                 __ldg(P.spread_weight_frac + g), __ldg(P.spread_even + g), true,
+                                 V, base == 0 ? bump : -1, range);
+        }
         sc = score_node(free_frac(u0 + L.dem[0], us0), free_frac(u1 + L.dem[1], us1), coll,
-                        L.count_f, aff_p, aff, active,
-                        active ? boosts_s[v >= 0 ? min(v, V) : V] : 0.0f);
+                        L.count_f, aff_p, aff, active, boost);
+      }
       const bool np = fit && sc <= 0.0f;
 
       // rotated counts: this block's scan, then the blocks before it
@@ -376,6 +405,39 @@ __global__ void __launch_bounds__(THREADS) exact_scan_kernel(ExactParams P) {
   cluster.sync();
 }
 
+template <bool SMEM>
+int launch(const ExactParams& P, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (SCAN_CLUSTER > 8)
+    err = cudaFuncSetAttribute(exact_scan_kernel<SMEM>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  // the boosts may take more than the default 48 KB of dynamic shared memory
+  err = cudaFuncSetAttribute(exact_scan_kernel<SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SCAN_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(SCAN_CLUSTER);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the card must hold the whole cluster at once, or the launch is refused
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, exact_scan_kernel<SMEM>, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return CLUSTER_REFUSED;
+  err = cudaLaunchKernelEx(&cfg, exact_scan_kernel<SMEM>, P);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int ntt_exact_scan(const void* capacity, const void* usable, const void* feasible,
@@ -390,7 +452,8 @@ extern "C" int ntt_exact_scan(const void* capacity, const void* usable, const vo
                               void* spread_present, void* offset, void* placements,
                               void* walked, int N, int C, int G, int V, int E, int A,
                               void* stream) {
-  if (C < 2 || C > MAX_C || V < 0 || V > MAX_V) return (int)cudaErrorInvalidValue;
+  if (C < 2 || C > MAX_C || V < 0) return (int)cudaErrorInvalidValue;
+  const bool boosts_smem = V <= SMEM_CLASSES;
   ExactParams P{(const int*)capacity,
                 (const float*)usable,
                 (const unsigned char*)feasible,
@@ -424,41 +487,15 @@ extern "C" int ntt_exact_scan(const void* capacity, const void* usable, const vo
                 E,
                 A,
                 C == 4 && (((uintptr_t)used | (uintptr_t)capacity) & 15) == 0};
-  const size_t boosts_bytes = (size_t)(V + 1) * sizeof(float);
-  cudaError_t err = cudaSuccess;
-  if (SCAN_CLUSTER > 8)
-    err = cudaFuncSetAttribute(exact_scan_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-  if (err != cudaSuccess) return (int)err;
-  // the boosts may take more than the default 48 KB of dynamic shared memory
-  err = cudaFuncSetAttribute(exact_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)boosts_bytes);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = SCAN_CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(SCAN_CLUSTER);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = boosts_bytes;
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // the card must hold the whole cluster at once, or the launch is refused
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, exact_scan_kernel, &cfg);
-  if (err != cudaSuccess) return (int)err;
-  if (clusters < 1) return CLUSTER_REFUSED;
-  err = cudaLaunchKernelEx(&cfg, exact_scan_kernel, P);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return boosts_smem ? launch<true>(P, (size_t)(V + 1) * sizeof(float), (cudaStream_t)stream)
+                     : launch<false>(P, 0, (cudaStream_t)stream);
 }
 
 // message for a status the C entry points return (shared by the library)
 extern "C" const char* ntt_error_string(int code) {
   if (code == CLUSTER_REFUSED)
     return "the card cannot co-schedule the exact scan's cluster of blocks";
+  if (code == CLUSTER_REFUSED + 1)
+    return "the card cannot co-schedule the run planner's cluster of blocks";
   return cudaGetErrorString((cudaError_t)code);
 }

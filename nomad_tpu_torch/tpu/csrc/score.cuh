@@ -15,6 +15,8 @@
 
 #include <cstdint>
 
+#include "block.cuh"
+
 namespace ntt {
 
 constexpr int MAX_SKIP = 3;     // ref stack.go:17
@@ -102,65 +104,64 @@ __device__ __forceinline__ float class_boost(float cf, float desired_c, float im
   return active_flag ? per_class : 0.0f;
 }
 
-// Spread boost per value class, plus the missing-value class at index V.
-// One thread computes it.
-__device__ inline void class_boosts(const int* counts, const unsigned char* present,
-                                    const float* desired, float implicit,
-                                    float weight_frac, bool even_flag,
-                                    bool active_flag, int V, float* out) {
-  const float big = f32(0x4e800000u);  // 2**30
-  bool any_present = false;
-  float min_c = big, max_c = -big;
-  for (int c = 0; c < V; ++c) {
-    if (present[c]) {
-      any_present = true;
-      const float cf = __int2float_rn(counts[c]);
-      min_c = fminf(min_c, cf);
-      max_c = fmaxf(max_c, cf);
-    }
+// The min and max count over the present classes, and whether any is
+// present: what every class's boost needs besides its own count
+struct ClassRange {
+  float mn, mx;
+  int any;
+};
+struct ClassRangeOp {
+  __device__ __forceinline__ ClassRange operator()(ClassRange a, ClassRange b) const {
+    return {fminf(a.mn, b.mn), fmaxf(a.mx, b.mx), a.any | b.any};
   }
-  const float min_count = any_present ? min_c : 0.0f;
-  const float max_count = any_present ? max_c : 0.0f;
-  for (int c = 0; c < V; ++c)
-    out[c] = class_boost(__int2float_rn(counts[c]), desired[c], implicit, weight_frac, even_flag,
-                         active_flag, any_present, min_count, max_count);
-  out[V] = active_flag ? -1.0f : 0.0f;
+};
+__device__ __forceinline__ ClassRange shfl_xor(ClassRange v, int m) {
+  return {shfl_xor(v.mn, m), shfl_xor(v.mx, m), shfl_xor(v.any, m)};
 }
 
-// The same boosts from one warp: lane l takes classes l, l+32, ...; the
-// min and max are exact in any order, so the values are class_boosts'.
-// ``counts`` and ``present`` are read from L2 (another SM may have written
-// them), with one more placement in class ``bump`` (-1: none) that is not
-// written yet.
+// One thread's part of the range over classes first, first + stride, ...
+// below V. ``counts`` and ``present`` are read from L2 (another SM may
+// have written them), with one more placement in class ``bump`` (-1: none)
+// that is not written yet. The min and max are exact in any order.
+__device__ __forceinline__ ClassRange class_range_part(const int* counts,
+                                                       const unsigned char* present, int V,
+                                                       int bump, int first, int stride) {
+  const float big = f32(0x4e800000u);  // 2**30
+  ClassRange r = {big, -big, 0};
+  for (int c = first; c < V; c += stride) {
+    if (__ldcg(present + c) || c == bump) {
+      const float cf = __int2float_rn(__ldcg(counts + c) + (c == bump));
+      r = ClassRangeOp()(r, ClassRange{cf, cf, 1});
+    }
+  }
+  return r;
+}
+
+// The boost of class ``c`` (V: the missing-value class) from the range,
+// its count read from L2 plus ``bump``: class_boosts' value
+__device__ __forceinline__ float class_boost_at(int c, const int* counts, const float* desired,
+                                                float implicit, float weight_frac, bool even_flag,
+                                                bool active_flag, int V, int bump,
+                                                const ClassRange& r) {
+  if (c >= V) return active_flag ? -1.0f : 0.0f;
+  const bool any = r.any != 0;
+  return class_boost(__int2float_rn(__ldcg(counts + c) + (c == bump)), __ldg(desired + c),
+                     implicit, weight_frac, even_flag, active_flag, any, any ? r.mn : 0.0f,
+                     any ? r.mx : 0.0f);
+}
+
+// The same boosts from one warp: lane l takes classes l, l+32, ...
 __device__ inline void class_boosts_warp(const int* counts, const unsigned char* present,
                                          const float* desired, float implicit,
                                          float weight_frac, bool even_flag, bool active_flag,
                                          int V, int bump, float* out) {
-  const float big = f32(0x4e800000u);  // 2**30
   const int lane = threadIdx.x & 31;
-  bool any = false;
-  float min_c = big, max_c = -big;
-  for (int c = lane; c < V; c += 32) {
-    if (__ldcg(present + c) || c == bump) {
-      any = true;
-      const float cf = __int2float_rn(__ldcg(counts + c) + (c == bump));
-      min_c = fminf(min_c, cf);
-      max_c = fmaxf(max_c, cf);
-    }
-  }
-  const bool any_present = __any_sync(0xffffffffu, any);
+  ClassRange r = class_range_part(counts, present, V, bump, lane, 32);
 #pragma unroll
-  for (int m = 16; m > 0; m >>= 1) {
-    min_c = fminf(min_c, __shfl_xor_sync(0xffffffffu, min_c, m));
-    max_c = fmaxf(max_c, __shfl_xor_sync(0xffffffffu, max_c, m));
-  }
-  const float min_count = any_present ? min_c : 0.0f;
-  const float max_count = any_present ? max_c : 0.0f;
-  for (int c = lane; c < V; c += 32)
-    out[c] = class_boost(__int2float_rn(__ldcg(counts + c) + (c == bump)), __ldg(desired + c),
-                         implicit, weight_frac, even_flag, active_flag, any_present, min_count,
-                         max_count);
-  if (lane == 0) out[V] = active_flag ? -1.0f : 0.0f;
+  for (int m = 16; m > 0; m >>= 1) r = ClassRangeOp()(r, shfl_xor(r, m));
+  for (int c = lane; c <= V; c += 32)
+    out[c] = class_boost_at(c, counts, desired, implicit, weight_frac, even_flag, active_flag, V,
+                            bump, r);
 }
 
 // Final score of one node for one placement: binpack, anti-affinity,

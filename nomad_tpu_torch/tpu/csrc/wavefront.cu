@@ -65,6 +65,15 @@
 // 1..M-1 are the first M-1 of the M best scores, ties to the lower ring
 // position (lax.top_k's order), as keys (order(score) << 32 | ~position).
 // A stopped walk has no replays, so no position past it is a candidate.
+//
+// Paths chosen at launch where a budget ends: more than SMEM_CLASSES spread
+// classes take each position's boost from the classes' count range (one
+// block reduction a lane, score.cuh) instead of a shared array; more than
+// REG_M candidates a lane keep each thread's best M - 1 keys (at most as many
+// as it can see in one walk) in a sorted list in global memory, and the
+// block takes its best M - 1 from the lists' heads, one reduction each; a
+// window whose W x (8 + M) record ints exceed SMEM_INTS keeps each block's
+// copy of the records in global memory.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -84,12 +93,14 @@ using namespace ntt;
 
 // resource columns a lane keeps in registers
 constexpr int MAX_C = 6;
-// spread classes: the V + 1 boosts live in each block's shared memory (and
-// share it with the window's lane records after the selection)
-constexpr int MAX_V = 49152;
-// candidates per lane for the conflict test: a thread keeps its best
-// MAX_M - 1 keys in registers
-constexpr int MAX_M = 4;
+// spread classes whose V + 1 boosts live in each block's shared memory
+// (shared with the window's lane records after the selection)
+constexpr int SMEM_CLASSES = 49152;
+// ints of the window's lane records a block keeps in shared memory
+constexpr int SMEM_INTS = 49152;
+// candidates per lane for the conflict test whose best M - 1 keys a thread
+// keeps in registers
+constexpr int REG_M = 4;
 constexpr int MAX_Q = 16;
 // ring positions a thread takes in a full chunk: a chunk is Q x 1024 x UPT
 constexpr int UPT = 4;
@@ -133,8 +144,12 @@ struct WaveParams {
   int4* lane_meta;                        // [W] valid, deferred to replay (-1: walk stopped),
                                           // walked, the eval's cursor at the round's start
   int4* lane_def;                         // [W, MAX_SKIP] deferred options by nonpositive rank
+  int* rec_g;                             // [blocks, W * (8 + M)] records, past SMEM_INTS
+  unsigned long long* tkeys_g;            // [blocks * THREADS, lt] key lists, past REG_M
   int N, C, G, V, E, A, W, M;
+  int lt;                                 // a thread's key list, past REG_M
   bool rows4;                             // C == 4 and used, capacity 16-byte aligned
+  bool boosts_smem, recs_smem;
 };
 
 // One alloc lane's read-only inputs, as loaded: a cluster loads its next
@@ -194,11 +209,11 @@ __device__ __forceinline__ int4 pack(const Best& b) {
 __device__ __forceinline__ Best unpack(int4 v) { return {__int_as_float(v.x), v.y, v.z, v.w}; }
 
 // The largest of ``keys`` (M - 1 of them, descending) below ``prev``, or 0
-__device__ __forceinline__ unsigned long long key_below(const unsigned long long (&keys)[MAX_M - 1],
+__device__ __forceinline__ unsigned long long key_below(const unsigned long long (&keys)[REG_M - 1],
                                                         int m1, unsigned long long prev) {
   unsigned long long k = 0ull;
 #pragma unroll
-  for (int t = MAX_M - 2; t >= 0; --t)
+  for (int t = REG_M - 2; t >= 0; --t)
     if (t < m1 && keys[t] < prev) k = keys[t];
   return k;
 }
@@ -208,7 +223,7 @@ __device__ __forceinline__ unsigned long long key_below(const unsigned long long
 // lane's per-block slots. ``par`` is the parity of the count slots,
 // carried from lane to lane of the round, so that a chunk's pushes never
 // land in slots a slower block still reads.
-template <int Q>
+template <int Q, bool FAST>
 __device__ void select_lane(const WaveParams& P, cg::cluster_group& cluster, unsigned rank,
                             const Lane& L, int k, int& par, int (*counts_s)[Q], float* boosts_s) {
   constexpr int CHUNK = Q * THREADS * UPT;
@@ -216,9 +231,14 @@ __device__ void select_lane(const WaveParams& P, cg::cluster_group& cluster, uns
   const int N = P.N, V = P.V, m1 = P.M - 1;
 
   Best best = best_identity();
-  unsigned long long keys[MAX_M - 1];  // this thread's best candidate keys, descending
+  unsigned long long keys[REG_M - 1];  // this thread's best candidate keys, descending
 #pragma unroll
-  for (int t = 0; t < MAX_M - 1; ++t) keys[t] = 0ull;
+  for (int t = 0; t < REG_M - 1; ++t) keys[t] = 0ull;
+  // past REG_M: this thread's sorted list in global memory, and its length
+  const bool reg_keys = FAST || P.M <= REG_M;
+  unsigned long long* tk = P.tkeys_g + ((size_t)blockIdx.x * THREADS + tid) * P.lt;
+  int tn = 0;
+  ClassRange range = {};  // the classes' count range, without shared boosts
   int run_fit = 0, run_np = 0, walked = 0, off = 0;
   bool full = false;  // the window filled: the walk stopped there
   if (L.valid()) {
@@ -251,12 +271,19 @@ __device__ void select_lane(const WaveParams& P, cg::cluster_group& cluster, uns
       for (int u = 0; u < UPT; ++u) feas[u] = u < n_mine && __ldg(P.feasible + gN + node[u]);
       if (base == 0 && active) {
         // the boosts of the round's spread counts, behind the loads above
-        if (warp == 0)
-          class_boosts_warp(P.spread_counts + (size_t)g * V, P.spread_present + (size_t)g * V,
-                            P.spread_desired + (size_t)g * V, __ldg(P.spread_implicit + g),
-                            __ldg(P.spread_weight_frac + g), __ldg(P.spread_even + g), true, V, -1,
-                            boosts_s);
-        __syncthreads();
+        if (FAST || P.boosts_smem) {
+          if (warp == 0)
+            class_boosts_warp(P.spread_counts + (size_t)g * V, P.spread_present + (size_t)g * V,
+                              P.spread_desired + (size_t)g * V, __ldg(P.spread_implicit + g),
+                              __ldg(P.spread_weight_frac + g), __ldg(P.spread_even + g), true, V,
+                              -1, boosts_s);
+          __syncthreads();
+        } else {
+          range = block_allreduce<4>(class_range_part(P.spread_counts + (size_t)g * V,
+                                                      P.spread_present + (size_t)g * V, V, -1,
+                                                      tid, THREADS),
+                                     ClassRangeOp());
+        }
       }
       float sc[UPT];
       unsigned fit_bits = 0, np_bits = 0;
@@ -275,9 +302,17 @@ __device__ void select_lane(const WaveParams& P, cg::cluster_group& cluster, uns
 #pragma unroll
         for (int c = 0; c < MAX_C; ++c) fit &= uv[c] + L.dem[c] <= cv[c];
         if (!fit) continue;
+        const int cls = v >= 0 ? min(v, V) : V;
+        const float boost =
+            !active ? 0.0f
+            : FAST || P.boosts_smem
+                ? boosts_s[cls]
+                : class_boost_at(cls, P.spread_counts + (size_t)g * V, P.spread_desired + (size_t)g * V,
+                                 __ldg(P.spread_implicit + g), __ldg(P.spread_weight_frac + g),
+                                 __ldg(P.spread_even + g), true, V, -1, range);
         sc[u] = score_node(free_frac(uv[0] + L.dem[0], us0), free_frac(uv[1] + L.dem[1], us1),
                            coll, L.count_f(), aff_p, aff_p ? __ldg(P.affinity + gN + n) : 0.0f,
-                           active, active ? boosts_s[v >= 0 ? min(v, V) : V] : 0.0f);
+                           active, boost);
         fit_bits |= 1u << u;
         np_bits |= (unsigned)(sc[u] <= 0.0f) << u;
       }
@@ -305,13 +340,23 @@ __device__ void select_lane(const WaveParams& P, cg::cluster_group& cluster, uns
         } else if (fit_r - min(np_r, MAX_SKIP) <= limit) {
           best = BestOp()(best, Best{sc[u], r, node[u], r});
           unsigned long long key = top_key(sc[u], p);
+          if (reg_keys) {
 #pragma unroll
-          for (int t = 0; t < MAX_M - 1; ++t) {
-            if (t < m1 && key > keys[t]) {
-              const unsigned long long y = keys[t];
-              keys[t] = key;
-              key = y;
+            for (int t = 0; t < REG_M - 1; ++t) {
+              if (t < m1 && key > keys[t]) {
+                const unsigned long long y = keys[t];
+                keys[t] = key;
+                key = y;
+              }
             }
+          } else if (tn < P.lt || key > tk[tn - 1]) {
+            // insert into the descending list, the last one dropped when full
+            int at = tn < P.lt ? tn++ : tn - 1;
+            while (at > 0 && tk[at - 1] < key) {
+              tk[at] = tk[at - 1];
+              --at;
+            }
+            tk[at] = key;
           }
         }
       }
@@ -324,11 +369,16 @@ __device__ void select_lane(const WaveParams& P, cg::cluster_group& cluster, uns
   }
   best = block_allreduce<1>(best, BestOp());
   if (tid == 0) P.blk_best[k * Q + rank] = pack(best);
-  // this block's best M - 1 keys, one reduction each
+  // this block's best M - 1 keys, one reduction each (keys are unique:
+  // from a list, the thread whose head wins moves past it)
   unsigned long long prev = ~0ull;
+  int head = 0;
   for (int t = 0; t < m1; ++t) {
     __syncthreads();  // the previous reduction's partials are read
-    const unsigned long long kb = block_allreduce<2>(key_below(keys, m1, prev), MaxU64());
+    const unsigned long long mine =
+        reg_keys ? key_below(keys, m1, prev) : head < tn ? tk[head] : 0ull;
+    const unsigned long long kb = block_allreduce<2>(mine, MaxU64());
+    if (!reg_keys && kb != 0ull && mine == kb) ++head;
     if (tid == 0) P.blk_keys[((size_t)k * Q + rank) * m1 + t] = kb;
     prev = kb;
   }
@@ -436,7 +486,9 @@ __device__ void fold_lane(const WaveParams& P, int i, int k, const Window& S) {
   if (flags & 2) P.offset[S.e[k]] = (S.start[k] + S.consumed[k]) % max(S.ring[k], 1);
 }
 
-template <int Q>
+// FAST: the boosts in shared memory and the keys in registers (at most
+// SMEM_CLASSES classes, REG_M candidates), the other paths compiled out
+template <int Q, bool FAST>
 __global__ void __launch_bounds__(THREADS) wavefront_kernel(WaveParams P) {
   cg::grid_group grid = cg::this_grid();
   cg::cluster_group cluster = cg::this_cluster();
@@ -446,11 +498,13 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(WaveParams P) {
   const int cid = blockIdx.x / Q, ncl = gridDim.x / Q;  // this cluster, the clusters
   const int W = P.W, M = P.M, A = P.A;
 
-  // the boosts during the selection, the window's lanes after it
+  // the boosts during the selection, the window's lanes after it (or this
+  // block's copy of them in global memory)
   extern __shared__ int dyn_s[];
   float* boosts_s = reinterpret_cast<float*>(dyn_s);
-  const Window S = {dyn_s,         dyn_s + W,     dyn_s + 2 * W, dyn_s + 3 * W, dyn_s + 4 * W,
-                    dyn_s + 5 * W, dyn_s + 6 * W, dyn_s + 7 * W, dyn_s + 8 * W};
+  int* rec = P.recs_smem ? dyn_s : P.rec_g + (size_t)blockIdx.x * W * (8 + M);
+  const Window S = {rec,         rec + W,     rec + 2 * W, rec + 3 * W, rec + 4 * W,
+                    rec + 5 * W, rec + 6 * W, rec + 7 * W, rec + 8 * W};
   __shared__ int counts_s[2][Q];  // packed chunk totals, by chunk parity
   __shared__ int first_block;
 
@@ -480,7 +534,7 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(WaveParams P) {
         __syncthreads();  // the last lane's reduction partials are read
         next = load_lane(P, i + k);
       }
-      select_lane<Q>(P, cluster, rank, next, k, par, counts_s, boosts_s);
+      select_lane<Q, FAST>(P, cluster, rank, next, k, par, counts_s, boosts_s);
     }
     // lane i + warp's inputs for the conflict test, loaded across the barrier
     const int4 pre = warp < W ? __ldcg(P.lane_info + 2 * min(i + warp, A - 1)) : int4{};
@@ -525,22 +579,27 @@ __global__ void __launch_bounds__(THREADS) wavefront_kernel(WaveParams P) {
   }
 }
 
-// The cluster size and count of one launch: (Q, clusters, shared bytes)
+// The cluster size and count of one launch: (Q, clusters, shared bytes),
+// where the boosts and records live, each thread's key list, and the
+// global scratch it needs past the round's lane slots
 struct Shape {
   int q, clusters;
   size_t smem;
+  bool boosts_smem, recs_smem, fast;
+  int lt;
+  size_t rec_ints, key_ints;
 };
 
-template <int Q>
+template <int Q, bool FAST>
 cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[2], int clusters,
                       size_t smem, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   if (Q > 8)
-    err = cudaFuncSetAttribute(wavefront_kernel<Q>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
+    err = cudaFuncSetAttribute(wavefront_kernel<Q, FAST>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(wavefront_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    err = cudaFuncSetAttribute(wavefront_kernel<Q, FAST>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = Q;
   attr[0].val.clusterDim.y = 1;
@@ -558,69 +617,99 @@ cudaError_t configure(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[2], i
 }
 
 // clusters of Q blocks the card co-schedules
-template <int Q>
+template <int Q, bool FAST>
 cudaError_t max_clusters(size_t smem, int* n) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
-  cudaError_t err = configure<Q>(cfg, attr, 1, smem, nullptr);
+  cudaError_t err = configure<Q, FAST>(cfg, attr, 1, smem, nullptr);
   cfg.numAttrs = 1;  // the query takes the cluster dimension alone
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(n, wavefront_kernel<Q>, &cfg);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(n, wavefront_kernel<Q, FAST>, &cfg);
   return err;
 }
 
-cudaError_t max_clusters(int q, size_t smem, int* n) {
+template <bool FAST>
+cudaError_t max_clusters_any(int q, size_t smem, int* n) {
   switch (q) {
-    case 16: return max_clusters<16>(smem, n);
-    case 8: return max_clusters<8>(smem, n);
-    case 4: return max_clusters<4>(smem, n);
-    case 2: return max_clusters<2>(smem, n);
-    default: return max_clusters<1>(smem, n);
+    case 16: return max_clusters<16, FAST>(smem, n);
+    case 8: return max_clusters<8, FAST>(smem, n);
+    case 4: return max_clusters<4, FAST>(smem, n);
+    case 2: return max_clusters<2, FAST>(smem, n);
+    default: return max_clusters<1, FAST>(smem, n);
   }
 }
 
 // The largest Q for which W clusters fit at once; at Q = 1, as many
 // clusters as fit (the lanes taken in turn)
-int pick_shape(int W, int V, int M, Shape* s) {
-  if (W < 1 || M < 1 || M > MAX_M || V < 0 || V > MAX_V || W * (8 + M) > MAX_V)
-    return (int)cudaErrorInvalidValue;
-  s->smem = (size_t)max(V + 1, W * (8 + M)) * sizeof(int);
+int pick_shape(int N, int W, int V, int M, Shape* s) {
+  if (N < 1 || W < 1 || M < 1 || V < 0) return (int)cudaErrorInvalidValue;
+  s->boosts_smem = V <= SMEM_CLASSES;
+  s->recs_smem = (long long)W * (8 + M) <= SMEM_INTS;
+  s->smem = (size_t)max(s->boosts_smem ? V + 1 : 0, s->recs_smem ? W * (8 + M) : 0) * sizeof(int);
+  s->fast = s->boosts_smem && M <= REG_M;
   for (int q = MAX_Q; q >= 1; q /= 2) {
     int n = 0;
-    const cudaError_t err = max_clusters(q, s->smem, &n);
+    const cudaError_t err =
+        s->fast ? max_clusters_any<true>(q, s->smem, &n) : max_clusters_any<false>(q, s->smem, &n);
     if (err != cudaSuccess) return (int)err;
     if (n >= W || q == 1) {
       if (n < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
       s->q = q;
       s->clusters = min(W, n);
+      const size_t blocks = (size_t)q * s->clusters;
+      s->rec_ints = s->recs_smem ? 0 : blocks * W * (8 + M);
+      // a thread sees at most UPT positions a chunk, and a walk at most one
+      // chunk more than the ring's full chunks
+      const long long seen = (long long)UPT * (2 + N / (q * THREADS * UPT));
+      s->lt = M <= REG_M ? 0 : (int)min((long long)M - 1, seen);
+      s->key_ints = blocks * THREADS * s->lt * 2;
       return 0;
     }
   }
   return (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
-template <int Q>
+template <int Q, bool FAST>
 int launch(const WaveParams& P, const Shape& s, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
-  cudaError_t err = configure<Q>(cfg, attr, s.clusters, s.smem, stream);
-  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, wavefront_kernel<Q>, P);
+  cudaError_t err = configure<Q, FAST>(cfg, attr, s.clusters, s.smem, stream);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, wavefront_kernel<Q, FAST>, P);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <bool FAST>
+int launch_any(const WaveParams& P, const Shape& s, cudaStream_t st) {
+  switch (s.q) {
+    case 16: return launch<16, FAST>(P, s, st);
+    case 8: return launch<8, FAST>(P, s, st);
+    case 4: return launch<4, FAST>(P, s, st);
+    case 2: return launch<2, FAST>(P, s, st);
+    default: return launch<1, FAST>(P, s, st);
+  }
+}
+
 }  // namespace
 
-// (Q, clusters, ints of scratch) of a launch for a window of W lanes with
-// M candidates over V spread classes; the scratch holds the round's
-// per-lane slots
-extern "C" int ntt_wavefront_shape(void* out, int W, int V, int M, void* stream) {
+// ints of the round's per-lane slots
+size_t slot_ints(int W, int M) {
+  return (size_t)W * MAX_Q * (M - 1) * 2 + (size_t)W * MAX_Q * 4 + (size_t)W * 4 +
+         (size_t)W * MAX_SKIP * 4;
+}
+
+// (Q, clusters, ints of scratch) of a launch over N nodes for a window of W
+// lanes with M candidates over V spread classes; the scratch holds the
+// round's per-lane slots and, past the shared-memory budgets, the blocks'
+// records and the threads' key lists
+extern "C" int ntt_wavefront_shape(void* out, int N, int W, int V, int M, void* stream) {
   (void)stream;
   Shape s;
-  const int rc = pick_shape(W, V, M, &s);
+  const int rc = pick_shape(N, W, V, M, &s);
   if (rc != 0) return rc;
-  ((int*)out)[0] = s.q;
-  ((int*)out)[1] = s.clusters;
-  ((int*)out)[2] = W * MAX_Q * (M - 1) * 2 + W * MAX_Q * 4 + W * 4 + W * MAX_SKIP * 4;
+  ((long long*)out)[0] = s.q;
+  ((long long*)out)[1] = s.clusters;
+  ((long long*)out)[2] = (long long)(slot_ints(W, M) + s.rec_ints + s.key_ints);
   return 0;
 }
 
@@ -638,13 +727,16 @@ extern "C" int ntt_wavefront(const void* capacity, const void* usable, const voi
                              void* stream) {
   if (C < 2 || C > MAX_C) return (int)cudaErrorInvalidValue;
   Shape s;
-  const int rc = pick_shape(W, V, M, &s);
+  const int rc = pick_shape(N, W, V, M, &s);
   if (rc != 0) return rc;
-  // the slots: 8-byte keys first, then 16-byte records
+  // the slots: 8-byte keys first, then 16-byte records; then the threads'
+  // key lists and the blocks' window records
   unsigned long long* keys = (unsigned long long*)scratch;
   int4* blk_best = (int4*)(keys + (size_t)W * MAX_Q * (M - 1));
   int4* lane_meta = blk_best + (size_t)W * MAX_Q;
   int4* lane_def = lane_meta + W;
+  unsigned long long* tkeys = (unsigned long long*)((int*)scratch + slot_ints(W, M));
+  int* rec_g = (int*)scratch + slot_ints(W, M) + s.key_ints;
   WaveParams P{(const int*)capacity,
                (const float*)usable,
                (const unsigned char*)feasible,
@@ -677,6 +769,8 @@ extern "C" int ntt_wavefront(const void* capacity, const void* usable, const voi
                blk_best,
                lane_meta,
                lane_def,
+               rec_g,
+               tkeys,
                N,
                C,
                G,
@@ -685,13 +779,10 @@ extern "C" int ntt_wavefront(const void* capacity, const void* usable, const voi
                A,
                W,
                M,
-               C == 4 && (((uintptr_t)used | (uintptr_t)capacity) & 15) == 0};
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (s.q) {
-    case 16: return launch<16>(P, s, st);
-    case 8: return launch<8>(P, s, st);
-    case 4: return launch<4>(P, s, st);
-    case 2: return launch<2>(P, s, st);
-    default: return launch<1>(P, s, st);
-  }
+               s.lt,
+               C == 4 && (((uintptr_t)used | (uintptr_t)capacity) & 15) == 0,
+               s.boosts_smem,
+               s.recs_smem};
+  return s.fast ? launch_any<true>(P, s, (cudaStream_t)stream)
+                : launch_any<false>(P, s, (cudaStream_t)stream);
 }

@@ -582,6 +582,7 @@ LAUNCHES = {
     "exact_scan": 0, "runs": 0, "windowed": 0,
     "used_bases": 0, "scatter_rows": 0, "verify_rows": 0,
     "wavefront": 0, "tile_count": 0, "tile_window": 0,
+    "binpack": 0, "class_boosts": 0, "scores": 0, "rot_incl": 0,
 }
 
 
@@ -652,13 +653,17 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(name: str, fn, *call_args) -> None:
+def _launch_status(name: str, rc: int) -> None:
+    """Raise on a C entry point's non-zero status."""
     from . import _build
 
-    rc = fn(*call_args)
     if rc != 0:
         msg = _build.library().ntt_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+
+
+def _launch(name: str, fn, *call_args) -> None:
+    _launch_status(name, fn(*call_args))
     LAUNCHES[name] += 1
 
 
@@ -668,7 +673,9 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 
 #: resource columns the exact-scan kernel keeps in registers
 SCAN_MAX_COLS = 6
-#: spread classes the exact-scan kernel holds in each block's shared memory
+#: spread classes whose boosts the exact-scan and wavefront kernels hold in
+#: each block's shared memory; more classes take each position's boost from
+#: the classes' count range, read from L2
 SCAN_MAX_CLASSES = 49_152
 
 
@@ -693,8 +700,6 @@ def plan_batch(args: BatchArgs, init: BatchState, n_real: int, walked: torch.Ten
     _check_index(args.group_eval, E, "group_eval")
     if not 2 <= C <= SCAN_MAX_COLS:
         raise ValueError(f"the exact scan takes 2 to {SCAN_MAX_COLS} resource columns, not {C}")
-    if V > SCAN_MAX_CLASSES:
-        raise ValueError(f"the exact scan takes at most {SCAN_MAX_CLASSES} spread classes, not {V}")
     if walked is not None and (walked.shape != (1,) or walked.dtype != torch.int64
                                or walked.device != device):
         raise ValueError("walked must be a one-element int64 tensor on the scan's device")
@@ -726,30 +731,22 @@ def plan_batch_runs(args: RunArgs, init, a_pad: int, even_mode: bool = False):
     init = dict(zip(("used", "collisions", "spread_counts", "spread_present"), init))
     d = _check_cuda({**args._asdict(), **init}, _RUN_SHAPES, device)
     N, C, V = d["N"], d["C"], d["V"]
+    if C < 2:
+        raise ValueError(f"the run planner takes at least 2 resource columns, not {C}")
     used, coll, counts, present = (t.clone() for t in init.values())
     placements = torch.empty(a_pad, dtype=torch.int32, device=device)
     rounds = torch.zeros(1, dtype=torch.int32, device=device)
-    f32 = dict(dtype=torch.float32, device=device)
-    sort_cap = 1 << max(N - 1, 1).bit_length()
-    scratch = (
-        torch.empty(N, **f32),  # score
-        torch.empty(N, **f32),  # plane count
-        torch.empty(N, **f32),  # sweep key
-        torch.empty(N, dtype=torch.int32, device=device),  # class tie rank
-        torch.empty(N, dtype=torch.uint8, device=device),  # flags
-        torch.empty(sort_cap, dtype=torch.int64, device=device),  # sweep sort
-        torch.empty(V + 1, **f32),  # boosts
-        torch.empty(V + 1, **f32),  # key decay per class
-        torch.empty(V + 1, dtype=torch.int32, device=device),  # sweep hits
-    )
     lib = _build.library()
+    size = ctypes.c_longlong(0)
+    _launch_status("runs", lib.ntt_runs_scratch(ctypes.addressof(size), N, C, V, _stream(device)))
+    # what shared memory does not hold: many classes, many positions a block
+    scratch = torch.zeros(max(size.value, 16), dtype=torch.uint8, device=device)
     _launch(
         "runs",
         lib.ntt_runs,
         *(_ptr(t) for t in args),
         _ptr(used), _ptr(coll), _ptr(counts), _ptr(present),
-        _ptr(placements), _ptr(rounds),
-        *(_ptr(t) for t in scratch),
+        _ptr(placements), _ptr(rounds), _ptr(scratch),
         N, C, V, a_pad, int(bool(even_mode)),
         _stream(device),
     )
@@ -789,6 +786,99 @@ def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad
         _stream(device),
     )
     return placements, rounds[0]
+
+
+# ---------------------------------------------------------------------------
+# the score primitives alone (the planners inline them; csrc/primitives.cu
+# applies each to one plane, to hold it against its plain version)
+# ---------------------------------------------------------------------------
+
+def _plane(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
+    if t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} tensor")
+
+
+def binpack(free_cpu: torch.Tensor, free_mem: torch.Tensor) -> torch.Tensor:
+    """ScoreFit per node from its free fractions (``_binpack``)."""
+    if free_cpu.device.type == "cpu":
+        return _binpack(free_cpu, free_mem)
+    from . import _build
+
+    for name, t in (("free_cpu", free_cpu), ("free_mem", free_mem)):
+        _plane(t, name, torch.float32)
+    if free_cpu.shape != free_mem.shape or free_cpu.dim() != 1:
+        raise ValueError("binpack takes two planes of one shape [N]")
+    out = torch.empty_like(free_cpu)
+    _launch("binpack", _build.library().ntt_binpack, _ptr(free_cpu), _ptr(free_mem), _ptr(out),
+            free_cpu.numel(), _stream(free_cpu.device))
+    return out
+
+
+def class_boosts(counts, present, desired, implicit, weight_frac, even_flag, active_flag):
+    """Spread boost per value class plus the missing-value class at index V
+    (``_class_boosts``); the scalars are one-element tensors on the card."""
+    if counts.device.type == "cpu":
+        return _class_boosts(counts, present, desired, implicit, weight_frac, even_flag,
+                             active_flag)
+    from . import _build
+
+    named = dict(counts=counts, present=present, desired=desired, implicit=implicit,
+                 weight_frac=weight_frac, even_flag=even_flag, active_flag=active_flag)
+    d = _check_cuda({k: t.reshape(-1) for k, t in named.items()},
+                    dict(counts="V", present="V", desired="V", implicit="1", weight_frac="1",
+                         even_flag="1", active_flag="1"), counts.device)
+    out = torch.empty(d["V"] + 1, dtype=torch.float32, device=counts.device)
+    _launch("class_boosts", _build.library().ntt_class_boosts,
+            *(_ptr(t.reshape(-1)) for t in named.values()), _ptr(out), d["V"],
+            _stream(counts.device))
+    return out
+
+
+def scores(args: BatchArgs, state: BatchState, g: int, demand: torch.Tensor) -> torch.Tensor:
+    """Final score per node of group ``g`` for one placement (``_scores``)."""
+    device = args.capacity.device
+    if device.type == "cpu":
+        return _scores(args, state, g, demand)
+    from . import _build
+
+    N, C = state.used.shape
+    V = args.spread_desired.shape[1]
+    row = dict(
+        used=state.used, usable=args.usable, collisions=state.collisions[g],
+        group_count=args.group_count[g:g + 1], affinity=args.affinity[g],
+        affinity_present=args.affinity_present[g], node_value=args.node_value[g],
+        demand=demand, counts=state.spread_counts[g], present=state.spread_present[g],
+        desired=args.spread_desired[g], implicit=args.spread_implicit[g:g + 1],
+        weight_frac=args.spread_weight_frac[g:g + 1], even=args.spread_even[g:g + 1],
+        active=args.spread_active[g:g + 1],
+    )
+    _check_cuda(row, dict(used="NC", usable="N2", collisions="N", group_count="1", affinity="N",
+                          affinity_present="N", node_value="N", demand="C", counts="V",
+                          present="V", desired="V", implicit="1", weight_frac="1", even="1",
+                          active="1"), device)
+    if C < 2:
+        raise ValueError(f"scores take at least 2 resource columns, not {C}")
+    out = torch.empty(N, dtype=torch.float32, device=device)
+    _launch("scores", _build.library().ntt_scores, *(_ptr(t) for t in row.values()), _ptr(out),
+            N, C, V, _stream(device))
+    return out
+
+
+def rot_incl(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """Inclusive count of the bool plane ``x`` along the ring that starts at
+    ``offset`` (``_rot_incl`` with the plane's own total)."""
+    if x.device.type == "cpu":
+        positions = torch.arange(x.numel(), dtype=torch.int32)
+        return _rot_incl(x, offset, x.to(torch.int32).sum(dtype=torch.int32), positions)
+    from . import _build
+
+    _plane(x, "x", torch.bool)
+    if x.dim() != 1 or not 0 <= offset < max(x.numel(), 1):
+        raise ValueError("rot_incl takes a bool plane [N] and an offset in [0, N)")
+    out = torch.empty(x.numel(), dtype=torch.int32, device=x.device)
+    _launch("rot_incl", _build.library().ntt_rot_incl, _ptr(x), _ptr(out), int(offset), x.numel(),
+            _stream(x.device))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -282,23 +282,26 @@ def plan_batch_wavefront_ref(args: BatchArgs, init: BatchState, n_real: int, win
     return BatchState(used, coll, counts, present, offset), placements, rounds
 
 
-#: candidates per lane the kernel feeds to the conflict test (its threads
-#: keep their best M - 1 keys in registers); the plain version takes any M
+#: candidates per lane whose best M - 1 keys the kernel's threads keep in
+#: registers; more candidates keep them in a sorted list in global memory
 WAVE_MAX_TOP_M = 4
 
 
-def cluster_shape(window: int, n_classes: int, top_m: int, device: torch.device) -> tuple:
+def cluster_shape(window: int, n_classes: int, top_m: int, device: torch.device,
+                  n_nodes: int = 1) -> tuple:
     """(Q, clusters, scratch ints) of the kernel's launch for a window of
-    ``window`` lanes: the largest power of two Q (at most 16) for which the
-    card co-schedules ``window`` clusters of Q blocks, or Q = 1 and as many
-    clusters as fit, which take the lanes in turn. A card that cannot hold
-    one cluster, or a window whose records do not fit a block's shared
-    memory, raises."""
+    ``window`` lanes over ``n_nodes`` nodes: the largest power of two Q (at
+    most 16) for which the card co-schedules ``window`` clusters of Q
+    blocks, or Q = 1 and as many clusters as fit, which take the lanes in
+    turn. The scratch holds the round's lane slots and, past the shared
+    memory's budgets, each block's window records and each thread's
+    candidate keys (sized by ``n_nodes``). Only a card that cannot hold one
+    cluster raises."""
     from . import _build
 
     lib = _build.library()
-    out = (ctypes.c_int * 3)()
-    rc = lib.ntt_wavefront_shape(ctypes.addressof(out), window, n_classes, top_m,
+    out = (ctypes.c_longlong * 3)()
+    rc = lib.ntt_wavefront_shape(ctypes.addressof(out), n_nodes, window, n_classes, top_m,
                                  kernel._stream(device))
     if rc != 0:
         raise RuntimeError(f"no launch of the wavefront kernel for W={window}, M={top_m}: "
@@ -336,16 +339,10 @@ def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid
     if not 2 <= C <= kernel.SCAN_MAX_COLS:
         raise ValueError(f"the wavefront takes 2 to {kernel.SCAN_MAX_COLS} resource columns, "
                          f"not {C}")
-    if V > kernel.SCAN_MAX_CLASSES:
-        raise ValueError(f"the wavefront takes at most {kernel.SCAN_MAX_CLASSES} spread classes, "
-                         f"not {V}")
-    if M > WAVE_MAX_TOP_M:
-        raise ValueError(f"the wavefront kernel takes at most {WAVE_MAX_TOP_M} candidates a lane, "
-                         f"not {M}")
     if walked is not None and (walked.shape != (1,) or walked.dtype != torch.int64
                                or walked.device != device):
         raise ValueError("walked must be a one-element int64 tensor on the wavefront's device")
-    _, _, scratch_ints = cluster_shape(W, V, M, device)
+    _, _, scratch_ints = cluster_shape(W, V, M, device, N)
     state = BatchState(*(t.clone() for t in init))
     placements = torch.full((A,), -1, dtype=torch.int32, device=device)
     rounds = torch.zeros(1, dtype=torch.int32, device=device)

@@ -235,10 +235,16 @@ def test_exact_scan_many_spread_classes(V, cuda_device):
 
 @pytest.mark.gpu
 def test_exact_scan_refuses_too_many_classes(cuda_device):
+    """Past the classes whose boosts fit shared memory the kernel no longer
+    refuses: it takes each position's boost from the classes' count range,
+    and places as the plain version does."""
     args, init = _many_classes(tk.SCAN_MAX_CLASSES + 1, n=2_000, a=4)
     a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
-    with pytest.raises(ValueError, match="spread classes"):
-        tk.plan_batch(a, s, 2_000)
+    got_state, got = tk.plan_batch(a, s, 2_000)
+    want_state, want = tk.plan_batch_ref(a, s, 2_000)
+    _same(got, want)
+    for g, w in zip(got_state, want_state):
+        _same(g, w)
 
 
 def _runs_case(affinity=True, spread=True, n=96, a=700, seed=4):
@@ -746,19 +752,29 @@ def test_wavefront_counts_its_walk(case, cuda_device):
 
 @pytest.mark.gpu
 def test_wavefront_refuses_what_the_kernel_does_not_take(cuda_device):
-    args, init = _many_classes(tk.SCAN_MAX_CLASSES + 1, n=2_000, a=4)
-    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
-    with pytest.raises(ValueError, match="spread classes"):
-        wavefront.plan_batch_wavefront(a, s, 2_000)
+    """Spread classes and candidates past the shared-memory and register
+    budgets take the kernel's other paths and place as the plain version;
+    what no path takes still raises: a walk counter of the wrong shape, and
+    more resource columns than a lane keeps in registers."""
     args, init = problems.wavefront_problem(problems.build_cluster(200, 64, seed=3), n_groups=4)
     a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
     wavefront.configure(contention_top_m=wavefront.WAVE_MAX_TOP_M + 1)
-    with pytest.raises(ValueError, match="candidates"):
-        wavefront.plan_batch_wavefront(a, s, 200)
+    got_state, got, rounds = wavefront.plan_batch_wavefront(a, s, 200)
+    want_state, want, want_rounds = wavefront.plan_batch_wavefront_ref(
+        a, s, 200, wavefront.window_for(64), wavefront.WAVE_MAX_TOP_M + 1, 1)
+    _same(got, want)
+    assert int(rounds) == want_rounds
     wavefront.reset()
     with pytest.raises(ValueError, match="walked"):
         wavefront.plan_batch_wavefront(a, s, 200, walked=torch.zeros(2, dtype=torch.int64,
                                                                      device=cuda_device))
+    wide = _with_devices(args, init)
+    wide = (dict(wide[0], capacity=np.repeat(wide[0]["capacity"], 2, axis=1)[:, :7],
+                 demands=np.repeat(wide[0]["demands"], 2, axis=1)[:, :7]),
+            dict(wide[1], used=np.repeat(wide[1]["used"], 2, axis=1)[:, :7]))
+    a, s = tk.from_numpy(wide[0], cuda_device), tk.from_numpy(wide[1], cuda_device)
+    with pytest.raises(ValueError, match="resource columns"):
+        wavefront.plan_batch_wavefront(a, s, 200)
 
 
 @pytest.mark.gpu
@@ -794,3 +810,162 @@ def test_scatter_rows_one_launch_per_bucket(rows, cuda_device):
     torch.cuda.synchronize()
     assert tk.LAUNCHES["scatter_rows"] == before + 1
     _same(got, mirror.scatter_rows_ref(used, *t))
+
+
+# ---------------------------------------------------------------------------
+# C1: what the reference plans past the kernels' shared-memory and register
+# budgets, and the run planner as one thread block cluster
+# ---------------------------------------------------------------------------
+
+def _classes_past_shared(V=tk.SCAN_MAX_CLASSES + 1, n=300, a=64, seed=41):
+    """Four groups spread over ``V`` classes (the plane's width), with
+    counts already on a random third of them."""
+    args, init = problems.wavefront_problem(problems.build_cluster(n, a, n_values=V, seed=seed),
+                                            n_groups=4)
+    rng = np.random.default_rng(seed)
+    init["spread_counts"] = (rng.integers(0, 3, init["spread_counts"].shape)
+                             * (rng.random(init["spread_counts"].shape) < 0.3)).astype(np.int32)
+    init["spread_present"] = init["spread_counts"] > 0
+    return args, init
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planner_on", ["exact", "wavefront"])
+def test_scan_and_wavefront_past_shared_classes(planner_on, cuda_device):
+    """V = 49,153: one class more than every block's shared memory holds
+    boosts for; placements and state of the plain version."""
+    args, init = _classes_past_shared()
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    n_real = int(args["ring"].max())
+    if planner_on == "exact":
+        got_state, got = tk.plan_batch(a, s, n_real)
+        want_state, want = tk.plan_batch_ref(a, s, n_real)
+    else:
+        got_state, got, rounds = wavefront.plan_batch_wavefront(a, s, n_real)
+        want_state, want, want_rounds = wavefront.plan_batch_wavefront_ref(
+            a, s, n_real, wavefront.window_for(len(args["groups"])), 1, 1)
+        assert int(rounds) == want_rounds
+    _same(got, want)
+    for g, w in zip(got_state, want_state):
+        _same(g, w)
+    assert (want.cpu() >= 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [8, 32])
+@pytest.mark.parametrize("top_m", [5, 16])
+@pytest.mark.parametrize("case", ["drain_limit14", "few_feasible_replay", "invalid_lanes",
+                                  "nonpositive_heavy", "ring_3000"])
+def test_wavefront_more_candidates_than_registers(case, top_m, window, cuda_device):
+    """M = 5 and 16: each thread's best M - 1 keys in a list in global
+    memory; placements, state and rounds of the plain version."""
+    args, init = SCAN_WALK_CASES[case]()
+    wavefront.configure(max_round=window, contention_top_m=top_m)
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    n_real = int(args["ring"].max())
+    got_state, got, rounds = wavefront.plan_batch_wavefront(a, s, n_real)
+    W = wavefront.window_for(len(args["groups"]))
+    want_state, want, want_rounds = wavefront.plan_batch_wavefront_ref(a, s, n_real, W, top_m, 1)
+    _same(got, want)
+    for g, w in zip(got_state, want_state):
+        _same(g, w)
+    assert int(rounds) == want_rounds
+
+
+@pytest.mark.gpu
+def test_wavefront_window_past_shared_records(cuda_device):
+    """W = 5,462 at M = 1: 5,462 x 9 record ints, past a block's shared
+    memory, so each block keeps its copy of the window's records in global
+    memory; 64 groups on disjoint slices commit up to 64 lanes a round."""
+    W = 5_462
+    args, init = problems.wavefront_problem(problems.build_cluster(2_048, W, seed=42),
+                                            n_groups=64, overlap=0)
+    wavefront.configure(max_round=W, contention_top_m=1)
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    assert wavefront.window_for(W) == W
+    got_state, got, rounds = wavefront.plan_batch_wavefront(a, s, 2_048)
+    want_state, want, want_rounds = wavefront.plan_batch_wavefront_ref(a, s, 2_048, W, 1, 1)
+    _same(got, want)
+    for g, w in zip(got_state, want_state):
+        _same(g, w)
+    assert int(rounds) == want_rounds < W
+
+
+def _uniform_runs(n, a, seed=43):
+    """One group spread over 4 values on ``n`` identical roomy nodes: the
+    first round's sweep accepts a lane on most of them."""
+    c = problems.build_cluster(n, a, seed=seed)
+    c["feasible"][:] = True
+    c["capacity"][:] = [16000, 32768, 100 * 1024, 1000]
+    c["usable"][:] = [15900, 32512]
+    return problems.runs_problem(c, affinity=False, spread=True)
+
+
+#: the cluster's cases: a ring that 16 does not divide, a sweep of more
+#: than one block's 640 positions, more classes than shared memory holds
+#: (class arrays and tie counts in global memory), more than 1,024 positions
+#: a block (round records in global memory)
+RUNS_CLUSTER_CASES = {
+    "ring_3001": lambda: _runs_case(n=3001, a=6000, seed=44),
+    "sweep_past_640": lambda: _uniform_runs(12_000, 30_000),
+    "classes_49153": lambda: problems.runs_problem(
+        problems.build_cluster(300, 1000, n_values=tk.SCAN_MAX_CLASSES + 1, seed=45),
+        affinity=False),
+    "ring_20000": lambda: _runs_case(n=20_000, a=6000, seed=46),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(RUNS_CLUSTER_CASES))
+def test_runs_cluster_matches_plain(case, cuda_device):
+    args, init = RUNS_CLUSTER_CASES[case]()
+    a, i = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    a_pad = problems.bucket(int(args["n_allocs"]))
+    before = tk.LAUNCHES["runs"]
+    got, got_rounds = tk.plan_batch_runs(a, i, a_pad)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["runs"] == before + 1
+    want, want_rounds = tk.plan_batch_runs_ref(a, i, a_pad)
+    _same(got, want)
+    assert int(got_rounds) == want_rounds
+    if case == "sweep_past_640":
+        # rounds follow one trajectory whatever the alloc count, but for
+        # the last one's cut: 100 allocs take as many rounds as 2,000, so
+        # one round placed more than 1,900 lanes, more than a fill run's
+        # RUNCAP: a sweep of more than a block's 640 positions
+        rounds = [tk.plan_batch_runs_ref(
+            a._replace(n_allocs=torch.tensor(k, dtype=torch.int32, device=cuda_device)), i,
+            problems.bucket(k))[1] for k in (100, 2000)]
+        assert rounds[0] == rounds[1]
+
+
+# ---------------------------------------------------------------------------
+# the score primitives alone (csrc/primitives.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V", [4, tk.SCAN_MAX_CLASSES + 1])
+def test_primitives_match_plain(V, cuda_device):
+    """Each primitive over a 10,000-node plane, one launch each: the plain
+    version's bits."""
+    args, init = _classes_past_shared(V=V, n=10_000, a=64)
+    a, s = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    rng = np.random.default_rng(V)
+    before = {k: tk.LAUNCHES[k] for k in ("binpack", "class_boosts", "scores", "rot_incl")}
+    fc, fm = (torch.from_numpy(rng.uniform(-1.5, 1.0, 10_000).astype(np.float32)).to(cuda_device)
+              for _ in range(2))
+    _same(tk.binpack(fc, fm), tk._binpack(fc, fm))
+    for g in range(2):
+        boost_args = (s.spread_counts[g], s.spread_present[g], a.spread_desired[g],
+                      a.spread_implicit[g], a.spread_weight_frac[g], a.spread_even[g],
+                      a.spread_active[g])
+        _same(tk.class_boosts(*boost_args), tk._class_boosts(*boost_args))
+        _same(tk.scores(a, s, g, a.demands[g]), tk._scores(a, s, g, a.demands[g]))
+    x = torch.from_numpy(rng.random(10_000) < 0.3).to(cuda_device)
+    for offset in (0, 4_321):
+        positions = torch.arange(10_000, dtype=torch.int32, device=cuda_device)
+        _same(tk.rot_incl(x, offset),
+              tk._rot_incl(x, offset, x.to(torch.int32).sum(dtype=torch.int32), positions))
+    torch.cuda.synchronize()
+    assert {k: tk.LAUNCHES[k] - n for k, n in before.items()} == dict(
+        binpack=1, class_boosts=2, scores=2, rot_incl=2)
