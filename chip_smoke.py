@@ -40,7 +40,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and fill rounds, nomad_tpu_torch/tools/runs_round_sweep.py; the four
    score primitives the planners inline, each applied alone to the
    headline eval's node plane by csrc/primitives.cu, against its plain
-   version);
+   version; a primitive's ``launches`` counts its own kernel's launches on
+   the paths, none since the planners inline it, and ``inlined_launches``
+   those of the kernels that inline it);
    then, counted on its own, the spread past the kernels' shared memory
    (ROADMAP C1): a 50,000-node eval of 256 allocs in 32 groups over 49,153
    spread values through ``planner.plan_eval``, once by the exact scan and
@@ -137,6 +139,23 @@ PRIMITIVES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: launches of the standalone K1-K4 kernels (csrc/primitives.cu) in the
+#: main paths' runs, added up at each read-out; the planners inline the
+#: primitives, so none is expected
+PRIMITIVES_ON_PATH = dict.fromkeys(PRIMITIVES, 0)
+
+
+def path_launches(names) -> dict:
+    """Launches per kernel of ``names`` since the last reset, read just
+    after a path ran; adds that run's standalone primitive launches to
+    PRIMITIVES_ON_PATH."""
+    from nomad_tpu_torch.tpu import kernel
+
+    for name in PRIMITIVES:
+        PRIMITIVES_ON_PATH[name] += kernel.LAUNCHES[name]
+    return {name: kernel.LAUNCHES[name] for name in names}
 
 
 def fail(msg: str) -> None:
@@ -452,7 +471,7 @@ def c1_phase(dev) -> dict:
             kernel.reset_launches()
             placements, stats = planner.plan_eval(planes, dev)
             name = "wavefront" if top_m is not None else "exact_scan"
-            launches[mode] = kernel.LAUNCHES[name]
+            launches[mode] = path_launches((name,))[name]
             if stats["mode"] != mode or launches[mode] < 1:
                 fail(f"C1 {mode}: planned in mode {stats['mode']}, launches {launches[mode]}")
             if top_m is None:
@@ -499,7 +518,8 @@ def primitive_rows(dev, planes: dict) -> list:
     boost_args = (state.spread_counts[0], state.spread_present[0], args.spread_desired[0],
                   args.spread_implicit[0], args.spread_weight_frac[0], args.spread_even[0],
                   args.spread_active[0])
-    score_bytes = N * (8 * C + 8 + 4 + 4 + 1 + 4 + 4) + V * 9
+    # used, usable, collisions, affinity, its presence, node_value, out
+    score_bytes = N * (4 * C + 8 + 4 + 4 + 1 + 4 + 4) + V * 9
     cases = {
         "binpack": (lambda: kernel.binpack(fc, fm), lambda: kernel._binpack(fc, fm),
                     3 * N * 4, N * BINPACK_OPS, f"N={N}"),
@@ -672,7 +692,7 @@ def server_path(dev) -> tuple:
         np.add.at(grants_t, placements[placed], d["g_demand"][d["gid_real"][placed]])
     rows_t, deltas_t = grant_rows(grants_t)
     fits_t = plan_apply.dense_verify(planes_t, rows_t, deltas_t)
-    launches = {name: kernel.LAUNCHES[name] for name in SERVER_KERNELS}
+    launches = path_launches(SERVER_KERNELS)
     log(f"server path launches: {launches}")
     for name, n in launches.items():
         if n < 1:
@@ -762,7 +782,7 @@ def server_path(dev) -> tuple:
                 fail(f"{label}: the wavefront placed or based differently from the exact scan")
             samples.append((e2e, kms, int(stats["rounds"])))
         wf_samples[label] = samples
-    wf_launches = {name: kernel.LAUNCHES[name] for name in ("wavefront", "used_bases")}
+    wf_launches = path_launches(("wavefront", "used_bases"))
     wavefront.reset()
     log(f"server path, wavefront route launches: {wf_launches}")
     for name, n in wf_launches.items():
@@ -1055,7 +1075,7 @@ def main() -> int:
 
     kernel.reset_launches()
     results = {mode: planner.plan_eval(planes, dev) for mode, planes in evals.items()}
-    launches = {name: kernel.LAUNCHES[name] for name in PLAN_EVAL_KERNELS}
+    launches = path_launches(PLAN_EVAL_KERNELS)
     log(f"main path launches: {launches}")
     for mode, (_, stats) in results.items():
         if stats["mode"] != mode:
@@ -1072,7 +1092,7 @@ def main() -> int:
     wavefront.configure(enabled=True, max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
     kernel.reset_launches()
     wf_placements, wf_stats = planner.plan_eval(tenants, dev)
-    wf_launches = {"wavefront": kernel.LAUNCHES["wavefront"]}
+    wf_launches = path_launches(("wavefront",))
     log(f"main path, wavefront route launches: {wf_launches}")
     if wf_stats["mode"] != "wavefront" or wf_launches["wavefront"] < 1:
         fail(f"the wavefront route planned in mode {wf_stats['mode']}, launches {wf_launches}")
@@ -1102,7 +1122,7 @@ def main() -> int:
         t = time.perf_counter()
         pg_placements, pg_stats = planner.plan_eval(paged, dev)
         pg_e2e = (time.perf_counter() - t) * 1e3
-    paged_launches = {name: kernel.LAUNCHES[name] for name in PAGED_KERNELS}
+    paged_launches = path_launches(PAGED_KERNELS)
     samples = []
     for _ in range(3):
         t = time.perf_counter()
@@ -1368,10 +1388,12 @@ def main() -> int:
         if name in server_wf_launches:
             row["paths"]["server_wavefront"] = server_wf_launches[name]
         row["launches"] = sum(row["paths"].values())
-    # K1-K4 run inside every launch of the kernels that inline them
+    # K1-K4's own kernels are not launched on the paths: the primitives run
+    # inside every launch of the kernels that inline them
     launched = {row["name"]: row["launches"] for row in kernels}
     for row in primitives:
-        row["launches"] = sum(launched[k] for k in row["inlined_in"])
+        row["launches"] = PRIMITIVES_ON_PATH[row["name"]]
+        row["inlined_launches"] = sum(launched[k] for k in row["inlined_in"])
         row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
     kernels = primitives + kernels
 

@@ -11,7 +11,13 @@ Each variant is the committed runs.cu with one exact text replacement:
   global memory);
 - ``sorted_path``: every round takes the sorted path (three more cluster
   barriers and a block sort), instead of exchanging the first-accepted
-  lanes at barrier 2 and resolving them in every block.
+  lanes at barrier 2 and resolving them in every block;
+- ``ranks_general``: the tie ranks of the many-class path (a compacted
+  list of the tied positions, per-class totals in tagged global slots)
+  instead of ballots with the totals riding barrier 1;
+- ``records_global``: the round records in global memory, one a position,
+  instead of registers (``cluster_8`` minus this variant is what the
+  cluster's size alone costs).
 
 The committed source and each variant compile alone (nvcc with the
 library's flags, all at once) into their own shared library under
@@ -47,6 +53,8 @@ VARIANTS = {
     "cluster_8": ("constexpr int RUNS_CLUSTER = 16;", "constexpr int RUNS_CLUSTER = 8;"),
     "sorted_path": ("      const bool overflow = __any_sync(FULL_MASK, h.n0 > SLOTS);\n",
                     "      const bool overflow = true;\n"),
+    "ranks_general": ("  L.rank_small = V + 1 <= RANK_SMALL;", "  L.rank_small = false;"),
+    "records_global": ("  L.reg = L.layers <= 1;", "  L.reg = false;"),
 }
 OUT = ROOT / "build" / "nomad_tpu_torch" / "runs_variants"
 ENTRY_POINTS = ("ntt_runs", "ntt_runs_scratch")

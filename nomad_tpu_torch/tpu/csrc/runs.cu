@@ -21,9 +21,9 @@
 // rank, key, flags) in registers, or, where a block holds more than 1024
 // positions, in a global record per position. Every
 // block keeps its own copy of the spread counts, presence, boosts and key
-// decays (in shared memory, or a global slice per block for many classes),
-// updates it itself from what every block knows, and computes the round's
-// boosts from it (warp 0, or every thread for more than 31 classes).
+// decays in a global slice (its SM's L1 serves it), updates it itself from
+// what every block knows, and computes the round's boosts from it (warp 0,
+// or every thread for more than 31 classes).
 //
 // A round takes two cluster barriers. Exchanges are pushes into every
 // block's shared memory before a barrier (cluster.cuh).
@@ -52,11 +52,11 @@
 //    block. Each block adds the round's placements to its own spread counts.
 // A round in which a block accepted more than SLOTS lanes takes three more
 // barriers: the guard's bad key, the counts of the final acceptance (each
-// block sorts its accepted lanes in shared memory, or a global slice, with
-// a bitonic sort), and the hits, which each block adds into every block's
-// counts; a lane's slot is its rank in its own block plus, for each other
-// block, a binary search in that block's sorted lanes (read through
-// distributed shared memory). Even mode has no sweep: barrier 1 alone.
+// block sorts its accepted lanes in its global slice with a bitonic sort),
+// and the hits, which each block adds into every block's counts; a lane's
+// slot is its rank in its own block plus, for each other block, a binary
+// search in that block's sorted lanes. Even mode has no sweep: barrier 1
+// alone.
 //
 // Integer counts, the max with an index tie-break and the first-k lists
 // combine in any order, and every float is the plain version's operation
@@ -94,9 +94,6 @@ constexpr int SLOTS = 64;
 // classes (V + 1) whose tie ranks come from ballots and whose per-block
 // totals ride barrier 1
 constexpr int RANK_SMALL = 32;
-// dynamic shared memory a block may use (of the 227 KB of sm_90, beside
-// the static arrays)
-constexpr size_t SMEM_BUDGET = 160 * 1024;
 // returned when the card cannot co-schedule the cluster
 constexpr int CLUSTER_REFUSED = 0x4e5401;
 
@@ -154,7 +151,7 @@ struct RunParams {
   unsigned char* present;                 // [V]
   int* placements;                        // [a_pad] out
   int* rounds;                            // scalar out
-  // global scratch, where shared memory does not hold it
+  // global scratch
   unsigned char* cls_g;                   // per block: the class arrays
   unsigned long long* list_g;             // per block: list_cap sort slots
   unsigned long long* tag_g;              // per block: (round << 32 | ties) per class
@@ -162,7 +159,7 @@ struct RunParams {
   int N, C, V, a_pad, even_mode;
   int per, layers, list_cap;
   size_t cls_bytes;                       // one block's class arrays
-  bool cls_smem, list_smem, rank_small;
+  bool rank_small;
   bool rows4;                             // C == 4 and used, capacity 16-byte aligned
 };
 
@@ -249,7 +246,7 @@ __device__ __forceinline__ int class_of(const int* node_value, int p, int V) {
   return v >= 0 ? min(v, V) : V;
 }
 
-// One block's copy of the class arrays (shared memory or its global slice)
+// One block's copy of the class arrays (its global slice)
 struct Classes {
   int* counts;             // [V]
   float* boosts;           // [V+1]
@@ -434,7 +431,6 @@ __global__ void __launch_bounds__(THREADS, 1) runs_kernel(RunParams P) {
   const int4 dem4 = make_int4(__ldg(P.demand), __ldg(P.demand + 1),
                               C > 2 ? __ldg(P.demand + 2) : 0, C > 3 ? __ldg(P.demand + 3) : 0);
 
-  extern __shared__ __align__(16) unsigned char dyn_s[];
   // pushed before barrier 1, by round parity
   __shared__ R1 r1_s[2][RUNS_CLUSTER];
   __shared__ int tot_s[2][RUNS_CLUSTER][RANK_SMALL];  // tie counts per class
@@ -451,18 +447,10 @@ __global__ void __launch_bounds__(THREADS, 1) runs_kernel(RunParams P) {
   __shared__ int n0_s;
   __shared__ R1 wrec_s[WARPS];  // each warp's record
 
-  unsigned char* cls_s = dyn_s;
-  const Classes K = classes_at(P.cls_smem ? cls_s : P.cls_g + (size_t)rank * P.cls_bytes, V);
-  unsigned long long* list =
-      P.list_smem ? reinterpret_cast<unsigned long long*>(cls_s + (P.cls_smem ? P.cls_bytes : 0))
-                  : P.list_g + (size_t)rank * P.list_cap;
-  auto list_of = [&](int b) -> const unsigned long long* {
-    return P.list_smem ? cluster.map_shared_rank(list, b) : P.list_g + (size_t)b * P.list_cap;
-  };
-  auto counts_of = [&](int b) -> Classes {
-    return classes_at(P.cls_smem ? cluster.map_shared_rank(cls_s, b)
-                                 : P.cls_g + (size_t)b * P.cls_bytes, V);
-  };
+  auto counts_of = [&](int b) { return classes_at(P.cls_g + (size_t)b * P.cls_bytes, V); };
+  auto list_of = [&](int b) { return P.list_g + (size_t)b * P.list_cap; };
+  const Classes K = counts_of(rank);
+  unsigned long long* list = list_of(rank);
 
   Recs<REG> recs;
   if constexpr (!REG) recs.g = P.recs_g;
@@ -928,12 +916,12 @@ __global__ void __launch_bounds__(THREADS, 1) runs_kernel(RunParams P) {
   cluster.sync();
 }
 
-// Where a launch keeps what: the positions a block owns, the shared and
-// global bytes
+// Where a launch keeps what: the positions a block owns, the offsets of
+// the global scratch
 struct Layout {
   int per, layers, list_cap;
-  size_t cls_bytes, smem, off_list, off_tag, off_recs, scratch;
-  bool cls_smem, list_smem, rank_small, reg;
+  size_t cls_bytes, off_list, off_tag, off_recs, scratch;
+  bool rank_small, reg;
 };
 
 Layout layout(int N, int V) {
@@ -945,13 +933,9 @@ Layout layout(int N, int V) {
   L.cls_bytes = classes_bytes(V);
   L.rank_small = V + 1 <= RANK_SMALL;
   L.reg = L.layers <= 1;
-  const size_t list_bytes = (size_t)L.list_cap * 8;
-  L.cls_smem = L.cls_bytes <= SMEM_BUDGET / 2;
-  L.list_smem = (L.cls_smem ? L.cls_bytes : 0) + list_bytes <= SMEM_BUDGET;
-  L.smem = (L.cls_smem ? L.cls_bytes : 0) + (L.list_smem ? list_bytes : 0);
-  size_t off = L.cls_smem ? 0 : (size_t)RUNS_CLUSTER * L.cls_bytes;
+  size_t off = (size_t)RUNS_CLUSTER * L.cls_bytes;
   L.off_list = off;
-  off += L.list_smem ? 0 : (size_t)RUNS_CLUSTER * list_bytes;
+  off += (size_t)RUNS_CLUSTER * L.list_cap * 8;
   L.off_tag = off;
   off += L.rank_small ? 0 : (size_t)RUNS_CLUSTER * (V + 1) * 8;
   L.off_recs = off;
@@ -961,12 +945,9 @@ Layout layout(int N, int V) {
 }
 
 template <bool REG>
-int launch(const RunParams& P, const Layout& L, cudaStream_t stream) {
+int launch(const RunParams& P, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(runs_kernel<REG>,
                                          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(runs_kernel<REG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)L.smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -976,7 +957,6 @@ int launch(const RunParams& P, const Layout& L, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(RUNS_CLUSTER);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = L.smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -1046,10 +1026,8 @@ extern "C" int ntt_runs(const void* capacity, const void* usable, const void* fe
               L.layers,
               L.list_cap,
               L.cls_bytes,
-              L.cls_smem,
-              L.list_smem,
               L.rank_small,
               C == 4 && (((uintptr_t)used | (uintptr_t)capacity) & 15) == 0};
   cudaStream_t st = (cudaStream_t)stream;
-  return L.reg ? launch<true>(P, L, st) : launch<false>(P, L, st);
+  return L.reg ? launch<true>(P, st) : launch<false>(P, st);
 }

@@ -739,7 +739,7 @@ def plan_batch_runs(args: RunArgs, init, a_pad: int, even_mode: bool = False):
     lib = _build.library()
     size = ctypes.c_longlong(0)
     _launch_status("runs", lib.ntt_runs_scratch(ctypes.addressof(size), N, C, V, _stream(device)))
-    # what shared memory does not hold: many classes, many positions a block
+    # every block's class arrays and sort list; round records past 1,024 positions a block
     scratch = torch.zeros(max(size.value, 16), dtype=torch.uint8, device=device)
     _launch(
         "runs",

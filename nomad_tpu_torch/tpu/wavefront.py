@@ -288,25 +288,26 @@ WAVE_MAX_TOP_M = 4
 
 
 def cluster_shape(window: int, n_classes: int, top_m: int, device: torch.device,
-                  n_nodes: int = 1) -> tuple:
+                  n_nodes: int | None = None) -> tuple:
     """(Q, clusters, scratch ints) of the kernel's launch for a window of
     ``window`` lanes over ``n_nodes`` nodes: the largest power of two Q (at
     most 16) for which the card co-schedules ``window`` clusters of Q
     blocks, or Q = 1 and as many clusters as fit, which take the lanes in
     turn. The scratch holds the round's lane slots and, past the shared
     memory's budgets, each block's window records and each thread's
-    candidate keys (sized by ``n_nodes``). Only a card that cannot hold one
-    cluster raises."""
+    candidate keys, so it depends on ``n_nodes``: without it the scratch
+    is None. Only a card that cannot hold one cluster raises."""
     from . import _build
 
     lib = _build.library()
     out = (ctypes.c_longlong * 3)()
-    rc = lib.ntt_wavefront_shape(ctypes.addressof(out), n_nodes, window, n_classes, top_m,
-                                 kernel._stream(device))
+    rc = lib.ntt_wavefront_shape(ctypes.addressof(out), 1 if n_nodes is None else n_nodes,
+                                 window, n_classes, top_m, kernel._stream(device))
     if rc != 0:
         raise RuntimeError(f"no launch of the wavefront kernel for W={window}, M={top_m}: "
                            f"{lib.ntt_error_string(rc).decode()} ({rc})")
-    return tuple(out)
+    q, clusters, scratch = out
+    return q, clusters, None if n_nodes is None else scratch
 
 
 def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid: int = None,
