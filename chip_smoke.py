@@ -35,9 +35,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its result needs, with the positions the kernel counts itself walking
    beside them; the wavefront's microseconds a round, cluster shape and
    ring positions walked against needed; each one-shot wrapper's host
-   microseconds beside its event and device time; the run planner's round
+   microseconds beside its event and device time, the tile count's as the
+   paged drive calls it, through its per-eval launcher, with the public
+   wrapper's host time beside it; the run planner's round
    split by clock64 stamps from a second, stamped build, with its sweep
-   and fill rounds, nomad_tpu_torch/tools/runs_round_sweep.py; the four
+   and fill rounds, nomad_tpu_torch/tools/runs_round_sweep.py; the
+   windowed planner's the same way, nomad_tpu_torch/tools/
+   windowed_round_sweep.py, with its launch's shape, its times at mid
+   size and on the paged eval's planes, and ``plan_eval`` end to end at
+   the windowed cell; the four
    score primitives the planners inline, each applied alone to the
    headline eval's node plane by csrc/primitives.cu, against its plain
    version; a primitive's ``launches`` counts its own kernel's launches on
@@ -187,20 +193,37 @@ def cuda_ms(fn, samples: int = 3) -> tuple:
 
 def device_us(fn, calls: int = 20):
     """Device microseconds per call from a torch.profiler trace of
-    ``calls`` calls after a warm-up: the self device time of every kernel,
-    copy and memset the calls put on the card, without the host's dispatch
-    gaps between them (which CUDA events around a call include). None when
-    the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    ``calls`` calls: the durations of the kernel, copy and memset records
+    the calls put on the card, summed over the trace and divided by the
+    calls, without the host's dispatch gaps between them (which CUDA events
+    around a call include). The torch operations that launched some of
+    them are not counted again. The trace is the second step of a profiler
+    schedule whose first step, ``calls`` more calls, is traced and thrown
+    away: a session's first records can be lost (on the H100, 7 of a
+    session's first kernels in a process that had traced before). Every
+    call puts the same records on the card, so each record's count is a
+    multiple of the calls; a trace with fewer is taken again with twice the
+    calls, then four times. None when no trace holds every record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    return total / calls if total > 0 else None
+    for n in (calls, 2 * calls, 4 * calls):
+        traces = []
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        records = [e for e in traces[0] if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation and not e.key.startswith("ProfilerStep")]
+        if records and all(e.count % n == 0 for e in records):
+            return sum(e.self_device_time_total for e in records) / n
+    return None
 
 
 def host_ms(fn) -> tuple:
@@ -418,11 +441,13 @@ def check_capacity(planes: dict, placements: np.ndarray, what: str) -> int:
 @contextlib.contextmanager
 def recorded_sweeps():
     """Record every tile sweep the paged planner launches as (name,
-    arguments, outputs); the launches still go through the wrappers."""
+    arguments, outputs); the launches still go through the wrappers (sweep
+    1 through the drive's per-eval launcher, ``paging._tile_counter``)."""
     from nomad_tpu_torch.tpu import paging
 
     calls = []
-    wrapped = {name: getattr(paging, name) for name in PAGED_KERNELS}
+    names = (*PAGED_KERNELS, "_tile_counter")
+    wrapped = {name: getattr(paging, name) for name in names}
 
     def recorder(name, fn):
         def call(*args, **kwargs):
@@ -431,8 +456,18 @@ def recorded_sweeps():
             return out
         return call
 
+    def counter(cap, feas, used, demand, counts):
+        count = wrapped["_tile_counter"](cap, feas, used, demand, counts)
+
+        def call(t, cap, feas, used, t0, offset, n_real):
+            count(t, cap, feas, used, t0, offset, n_real)
+            # the drive reuses ``counts`` every round: keep this tile's row
+            calls.append(("tile_count", (cap, feas, used, demand, t0, offset, n_real),
+                          (counts[t].clone(),)))
+        return call
+
     for name, fn in wrapped.items():
-        setattr(paging, name, recorder(name, fn))
+        setattr(paging, name, counter if name == "_tile_counter" else recorder(name, fn))
     try:
         yield calls
     finally:
@@ -955,7 +990,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 2
-    from nomad_tpu_torch.tools import runs_round_sweep
+    from nomad_tpu_torch.tools import runs_round_sweep, windowed_round_sweep
     from nomad_tpu_torch.tpu import _build, exact_np, kernel, paging, planner, problems, wavefront
 
     dev = torch.device("cuda")
@@ -1061,7 +1096,9 @@ def main() -> int:
     err = max_abs_err([(got, want)]) + abs(int(got_rounds) - want_rounds)
     if err:
         fail(f"windowed: kernel differs from the plain version ({err})")
-    log(f"mid windowed: N=4096 A=8192 L={LIMIT} identical, rounds {want_rounds}")
+    windowed_mid_ms, _ = cuda_ms(lambda: kernel.plan_batch_windowed(wa, wu, wc, 4000, 8192))
+    log(f"mid windowed: N=4096 A=8192 L={LIMIT} identical, rounds {want_rounds}, "
+        f"{windowed_mid_ms:.4f} ms")
 
     # ---- 4. the main path at full width ------------------------------------
     cluster = problems.build_cluster(NODES, ALLOCS, n_values=VALUES, seed=0)
@@ -1137,11 +1174,14 @@ def main() -> int:
         fail(f"paged route: {pg_stats}")
     p = planner.pad_planes(paged)
     wargs, wused, wcoll = planner.window_inputs(p, dev)
-    flat, flat_rounds = kernel.plan_batch_windowed(wargs, wused, wcoll, p["n_real"],
-                                                   p["demands"].shape[0])
+    windowed_million_ms, (flat, flat_rounds) = cuda_ms(lambda: kernel.plan_batch_windowed(
+        wargs, wused, wcoll, p["n_real"], p["demands"].shape[0]))
+    windowed_million_shape = kernel.windowed_shape(*p["capacity"].shape, p["n_real"])
     if not (np.array_equal(pg_placements, flat[: p["a_real"]].cpu().numpy())
             and pg_stats["rounds"] == int(flat_rounds)):
         fail("the paged route differs from the flat windowed kernel on the same planes")
+    log(f"flat windowed kernel on the paged eval's planes: {windowed_million_ms:.4f} ms, rounds "
+        f"{int(flat_rounds)}, launch {windowed_million_shape}")
     placed = check_capacity(paged, pg_placements, "paged")
     log(f"main paged: {PAGED_ALLOCS} allocs x {PAGED_NODES} nodes, planes {plane_bytes} bytes "
         f"over a {PAGED_BUDGET_MB} MB budget, placed {placed}, rounds {pg_stats['rounds']}, "
@@ -1163,6 +1203,9 @@ def main() -> int:
         samples.append(((time.perf_counter() - t) * 1e3, stats["kernel_s"] * 1e3))
     log("headline plan_eval 10K x 50K spread (e2e ms, kernel ms): "
         + ", ".join(f"({e:.2f}, {k:.2f})" for e, k in samples))
+    windowed_e2e = windowed_round_sweep.plan_eval_samples(planner, windowed, dev)
+    log(f"windowed plan_eval 10K x 50K limit {LIMIT} (e2e ms, kernel ms): "
+        + ", ".join(f"({e:.2f}, {k:.2f})" for e, k in windowed_e2e))
 
     # parity of the fast planners against the exact-scan kernel
     for mode in ("runs", "windowed"):
@@ -1234,6 +1277,13 @@ def main() -> int:
                  "nomad_tpu/tpu/kernel.py:954", ms, plain_ms, nbytes(wargs, wused, wcoll, got),
                  rounds * scan_ops(N, int(p["feasible"][0].sum()), C), rounds,
                  f"N={N} A={A} L={LIMIT}"))
+    # its round split by clock64 stamps, from a second, stamped build
+    windowed_split = windowed_round_sweep.split_report(_build, kernel, wargs, wused, wcoll,
+                                                       p["n_real"], A)
+    windowed_split["launch"] = kernel.windowed_shape(N, C, p["n_real"])
+    log(f"windowed round split (us a round of {windowed_split['us_per_round']:.3f}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in windowed_split["split_us"].items())
+        + f"; launch {windowed_split['launch']}")
 
     p = planner.pad_planes(tenants)
     bargs, bstate = planner.exact_inputs(p, dev)
@@ -1289,8 +1339,13 @@ def main() -> int:
     T, C = cap.shape
     pos = t0_c + torch.arange(T, dtype=torch.int32, device=dev)
 
+    # the call the paged drive makes a tile: its launcher, checked once an eval
+    tile_counts = torch.full((1, 2), -1, dtype=torch.int32, device=dev)
+    count_tile = paging._tile_counter(cap, feas, used, demand, tile_counts)
+
     def count_kernel():
-        return paging.tile_count(*cargs)
+        count_tile(0, cap, feas, used, t0_c, off_c, n_real_c)
+        return tile_counts[0]
 
     def count_library():  # a mask and two sums
         fit = feas & (used + demand[None, :] <= cap).all(dim=1) & (pos < n_real_c)
@@ -1299,8 +1354,10 @@ def main() -> int:
     ms, got_c = cuda_ms(count_kernel)
     plain_ms, want_c = cuda_ms(lambda: paging.tile_count_ref(*cargs))
     lib_ms, lib_c = cuda_ms(count_library)
-    errs["tile_count"] = max(errs["tile_count"], max_abs_err([(got_c, want_c), (got_c, lib_c)]))
+    errs["tile_count"] = max(errs["tile_count"], max_abs_err(
+        [(got_c, want_c), (got_c, lib_c), (paging.tile_count(*cargs), want_c)]))
     n_fit = int(want_c[0])
+    count_public_us = wrapper_host_us(lambda: paging.tile_count(*cargs))
     sweep_rows = [("tile_count", "nomad_tpu_torch/tpu/csrc/paging.cu",
                    "nomad_tpu/tpu/paging.py:344", ms, plain_ms, lib_ms,
                    (device_us(count_kernel), device_us(count_library),
@@ -1353,6 +1410,11 @@ def main() -> int:
     next(row for row in kernels if row["name"] == "runs").update(
         {k: runs_split[k] for k in ("us_per_round", "split_us", "sweep_rounds", "fill_rounds",
                                     "sweep_placed", "fill_placed", "n_acc_pow2")})
+    next(row for row in kernels if row["name"] == "windowed").update(
+        us_per_round=windowed_split["us_per_round"], split_us=windowed_split["split_us"],
+        launch=windowed_split["launch"], mid_ms=windowed_mid_ms,
+        million_ms=windowed_million_ms, million_launch=windowed_million_shape,
+        plan_eval_ms=windowed_e2e)
     scan_row = next(row for row in kernels if row["name"] == "exact_scan")
     scan_row.update(positions_needed=scan_pos["needed"], positions_walked=scan_pos["walked"])
     wf_json = next(row for row in kernels if row["name"] == "wavefront")
@@ -1367,10 +1429,14 @@ def main() -> int:
             device_us=dev_us[0], library_device_us=dev_us[1], host_us=dev_us[2], shape=shape,
             paths={"plan_eval_paged": paged_launches[name]},
         ))
+        public = ""
+        if name == "tile_count":  # the drive's call above; the public wrapper's beside it
+            kernels[-1]["public_host_us"] = count_public_us
+            public = f" (the paged drive's; public wrapper {count_public_us:.1f} us)"
         us = ["not measured" if u is None else f"{u:.2f} us" for u in dev_us[:2]]
         log(f"{name}: {ms:.4f} ms per launch (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
             f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
-            f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us; {shape}")
+            f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us{public}; {shape}")
 
     primitives = primitive_rows(dev, spread)
 

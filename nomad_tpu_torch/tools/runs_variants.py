@@ -32,10 +32,7 @@ placements and rounds. Prints the card's name and power limit, then one
 JSON line of microseconds per round by variant and shape.
 """
 
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 from unittest import mock
@@ -46,6 +43,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from nomad_tpu_torch.tools import variants  # noqa: E402
 from nomad_tpu_torch.tpu import _build, kernel, planner, problems  # noqa: E402
 
 #: variant name -> (committed text, replacement), each found exactly once
@@ -61,42 +59,9 @@ ENTRY_POINTS = ("ntt_runs", "ntt_runs_scratch")
 
 
 def build_all() -> dict:
-    """name -> loaded library of the committed kernel and of each variant
-    (with exact_scan.cu, which holds the library's error strings)."""
-    source = (_build.CSRC / "runs.cu").read_text()
-    jobs = {}
-    for name, swap in {"committed": None, **VARIANTS}.items():
-        d = OUT / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for header in _build.CSRC.glob("*.cuh"):
-            shutil.copy(header, d)
-        shutil.copy(_build.CSRC / "exact_scan.cu", d)
-        text = source
-        if swap is not None:
-            if text.count(swap[0]) != 1:
-                raise SystemExit(f"runs_variants: {name}: its text is not in runs.cu once")
-            text = text.replace(*swap)
-        (d / "runs.cu").write_text(text)
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "runs.so"),
-               str(d / "runs.cu"), str(d / "exact_scan.cu")]
-        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True)
-    libs = {}
-    for name, proc in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"runs_variants: {name} did not build:\n{log}")
-        lib = ctypes.CDLL(str(OUT / name / "runs.so"))
-        for entry in ENTRY_POINTS:
-            n_ptr, n_int = _build._ENTRY_POINTS[entry]
-            fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.ntt_error_string.argtypes = [ctypes.c_int]
-        lib.ntt_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
+    """name -> loaded library of the committed kernel and of each variant."""
+    swaps = {name: [swap] for name, swap in VARIANTS.items()}
+    return variants.build("runs_variants", "runs.cu", swaps, ENTRY_POINTS, OUT)
 
 
 def shapes(dev):

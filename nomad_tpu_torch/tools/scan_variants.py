@@ -28,10 +28,7 @@ and power limit, then one JSON line of microseconds per valid lane's step
 by variant and shape, with the ring positions each kernel walked a step.
 """
 
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 from unittest import mock
@@ -43,6 +40,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from nomad_tpu_torch.tools import variants  # noqa: E402
 from nomad_tpu_torch.tpu import _build, drain, kernel, planner, problems  # noqa: E402
 
 #: variant name -> (committed text, replacement), each found exactly once
@@ -59,38 +57,8 @@ OUT = ROOT / "build" / "nomad_tpu_torch" / "variants"
 
 def build_all() -> dict:
     """name -> loaded library of the committed kernel and of each variant."""
-    source = (_build.CSRC / "exact_scan.cu").read_text()
-    jobs = {}
-    for name, swap in {"committed": None, **VARIANTS}.items():
-        d = OUT / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for header in _build.CSRC.glob("*.cuh"):
-            shutil.copy(header, d)
-        text = source
-        if swap is not None:
-            if text.count(swap[0]) != 1:
-                raise SystemExit(f"scan_variants: {name}: its text is not in exact_scan.cu once")
-            text = text.replace(*swap)
-        (d / "exact_scan.cu").write_text(text)
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "scan.so"),
-               str(d / "exact_scan.cu")]
-        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True)
-    libs = {}
-    n_ptr, n_int = _build._ENTRY_POINTS["ntt_exact_scan"]
-    for name, proc in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"scan_variants: {name} did not build:\n{log}")
-        lib = ctypes.CDLL(str(OUT / name / "scan.so"))
-        lib.ntt_exact_scan.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                                       + [ctypes.c_void_p])
-        lib.ntt_exact_scan.restype = ctypes.c_int
-        lib.ntt_error_string.argtypes = [ctypes.c_int]
-        lib.ntt_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
+    swaps = {name: [swap] for name, swap in VARIANTS.items()}
+    return variants.build("scan_variants", "exact_scan.cu", swaps, ("ntt_exact_scan",), OUT)
 
 
 def shapes(dev):

@@ -29,10 +29,7 @@ by variant and shape, with the ring positions each kernel's committed
 lanes walked a round.
 """
 
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 from unittest import mock
@@ -44,6 +41,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from nomad_tpu_torch.tools import variants  # noqa: E402
 from nomad_tpu_torch.tpu import _build, drain, planner, problems, wavefront  # noqa: E402
 
 #: variant name -> (committed text, replacement), each found exactly once
@@ -63,38 +61,9 @@ ENTRY_POINTS = ("ntt_wavefront", "ntt_wavefront_shape")
 
 def build_all() -> dict:
     """name -> loaded library of the committed kernel and of each variant."""
-    source = (_build.CSRC / "wavefront.cu").read_text()
-    jobs = {}
-    for name, swap in {"committed": None, **VARIANTS}.items():
-        d = OUT / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for header in _build.CSRC.glob("*.cuh"):
-            shutil.copy(header, d)
-        text = source
-        if swap is not None:
-            if text.count(swap[0]) != 1:
-                raise SystemExit(f"wavefront_variants: {name}: its text is not in "
-                                 f"wavefront.cu once")
-            text = text.replace(*swap)
-        (d / "wavefront.cu").write_text(text)
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "wavefront.so"),
-               str(d / "wavefront.cu")]
-        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True)
-    libs = {}
-    for name, proc in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"wavefront_variants: {name} did not build:\n{log}")
-        lib = ctypes.CDLL(str(OUT / name / "wavefront.so"))
-        for entry in ENTRY_POINTS:
-            n_ptr, n_int = _build._ENTRY_POINTS[entry]
-            fn = getattr(lib, entry)
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+    swaps = {name: [swap] for name, swap in VARIANTS.items()}
+    return variants.build("wavefront_variants", "wavefront.cu", swaps, ENTRY_POINTS, OUT,
+                          errors=False)
 
 
 def shapes(dev):

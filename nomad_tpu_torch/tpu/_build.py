@@ -29,13 +29,15 @@ _ENTRY_POINTS = {
     "ntt_exact_scan": (26, 6),
     "ntt_runs": (22, 5),
     "ntt_runs_scratch": (1, 3),
-    "ntt_windowed": (15, 4),
+    "ntt_windowed": (13, 4),
+    "ntt_windowed_scratch": (1, 3),
+    "ntt_windowed_shape": (1, 3),
     "ntt_used_bases": (5, 5),
     "ntt_scatter_rows": (4, 3),
     "ntt_verify_rows": (6, 3),
     "ntt_wavefront": (29, 8),
     "ntt_wavefront_shape": (1, 4),
-    "ntt_tile_count": (5, 5),
+    "ntt_tile_count": (6, 5),
     "ntt_tile_window": (16, 11),
     "ntt_binpack": (3, 1),
     "ntt_class_boosts": (8, 1),

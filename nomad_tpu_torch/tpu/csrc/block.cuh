@@ -35,9 +35,10 @@ __device__ __forceinline__ ChunkRange chunk_of(int n) {
 }
 
 // Exclusive prefix (over threads, in thread order) and block totals of K
-// per-thread counts.
+// per-thread counts, in a block of ``nwarps`` warps.
 template <int K, int TAG>
-__device__ __forceinline__ void block_scan(const int (&x)[K], int (&excl)[K], int (&total)[K]) {
+__device__ __forceinline__ void block_scan(const int (&x)[K], int (&excl)[K], int (&total)[K],
+                                           int nwarps = WARPS) {
   __shared__ int sh[WARPS][K];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int incl[K];
@@ -54,7 +55,7 @@ __device__ __forceinline__ void block_scan(const int (&x)[K], int (&excl)[K], in
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int w = sh[lane][k];
+    const int w = lane < nwarps ? sh[lane][k] : 0;
     int s = w;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {

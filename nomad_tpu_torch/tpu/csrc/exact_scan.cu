@@ -497,5 +497,7 @@ extern "C" const char* ntt_error_string(int code) {
     return "the card cannot co-schedule the exact scan's cluster of blocks";
   if (code == CLUSTER_REFUSED + 1)
     return "the card cannot co-schedule the run planner's cluster of blocks";
+  if (code == CLUSTER_REFUSED + 2)
+    return "the card cannot co-schedule the windowed planner's cluster of blocks";
   return cudaGetErrorString((cudaError_t)code);
 }

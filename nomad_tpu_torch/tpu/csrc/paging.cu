@@ -6,9 +6,16 @@
 //
 // tile_count: the tile's feasible count and its count before the ring
 // offset. What bounds it: bytes (the tile's capacity, used and feasible
-// planes, read once; two integers out). Design: a grid of 1024-thread
-// blocks, one position per thread and pass, a block reduction and one
-// integer atomicAdd per block into the zeroed output.
+// planes, read once; two integers out). Design: one launch of a grid of
+// 256-thread blocks (128 at a 65,536-row tile), TC_ROWS rows a thread with
+// all their loads issued before the first is used (a 4-column row is one
+// 16-byte load of each plane), a block reduction, and one 64-bit atomicAdd
+// a block into a ticket word that carries the block's two counts and a
+// ticket of 1 (fields of ``bits`` bits, T < 2^bits, under a ticket field
+// wide enough for the grid). The block that draws the last ticket holds
+// the grid's sums in the atomic's result: it writes ``out`` and clears
+// the word, so ``out`` needs no zeroing and the launch is the call's only
+// device operation. The wrapper keeps one zeroed word a stream.
 //
 // tile_window: per window that meets the tile, the partial winner (max
 // score, then least feasible rank, and its node), in two straddle groups
@@ -54,21 +61,69 @@ __device__ __forceinline__ bool tile_fit(const int* cap, const unsigned char* fe
   return pos < n_real && feas[q] && fits(used + (size_t)q * C, cap + (size_t)q * C, dem, 1, C);
 }
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int TC_THREADS = 256;
+constexpr int TC_ROWS = 2;
+
+template <bool ROWS4>
+__global__ void __launch_bounds__(TC_THREADS)
     tile_count_kernel(const int* cap, const unsigned char* feas, const int* used,
-                      const int* demand, int* out, int T, int C, int t0, int offset, int n_real) {
+                      const int* demand, int* out, unsigned long long* ticket, int T, int C,
+                      int t0, int offset, int n_real, int bits) {
+  int d[4] = {0, 0, 0, 0};
+  if (ROWS4)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) d[c] = __ldg(demand + c);
   int cnt = 0, before = 0;
-  for (int q = blockIdx.x * THREADS + threadIdx.x; q < T; q += gridDim.x * THREADS) {
-    const int pos = t0 + q;
-    const bool fit = tile_fit(cap, feas, used, demand, q, C, pos, n_real);
-    cnt += fit;
-    before += fit && pos < offset;
+  const int stride = gridDim.x * TC_THREADS * TC_ROWS;
+  for (int q0 = blockIdx.x * TC_THREADS * TC_ROWS + threadIdx.x; q0 < T; q0 += stride) {
+    unsigned char f[TC_ROWS];
+    int4 c4[TC_ROWS], u4[TC_ROWS];
+#pragma unroll
+    for (int r = 0; r < TC_ROWS; ++r) {
+      const int q = q0 + r * TC_THREADS;
+      f[r] = q < T ? __ldg(feas + q) : 0;
+      if (ROWS4 && q < T) {
+        c4[r] = __ldg(reinterpret_cast<const int4*>(cap) + q);
+        u4[r] = __ldg(reinterpret_cast<const int4*>(used) + q);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < TC_ROWS; ++r) {
+      const int q = q0 + r * TC_THREADS;
+      const int pos = t0 + q;
+      bool fit = q < T && pos < n_real && f[r];
+      if (ROWS4)
+        fit = fit && u4[r].x + d[0] <= c4[r].x && u4[r].y + d[1] <= c4[r].y &&
+              u4[r].z + d[2] <= c4[r].z && u4[r].w + d[3] <= c4[r].w;
+      else
+        fit = fit && fits(used + (size_t)q * C, cap + (size_t)q * C, demand, 1, C);
+      cnt += fit;
+      before += fit && pos < offset;
+    }
   }
-  cnt = block_allreduce<50>(cnt, SumI());
-  before = block_allreduce<51>(before, SumI());
-  if (threadIdx.x == 0) {
-    atomicAdd(out, cnt);
-    atomicAdd(out + 1, before);
+  __shared__ int sh[TC_THREADS / 32][2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  cnt = __reduce_add_sync(FULL_MASK, cnt);
+  before = __reduce_add_sync(FULL_MASK, before);
+  if (lane == 0) {
+    sh[warp][0] = cnt;
+    sh[warp][1] = before;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    cnt = __reduce_add_sync(FULL_MASK, lane < TC_THREADS / 32 ? sh[lane][0] : 0);
+    before = __reduce_add_sync(FULL_MASK, lane < TC_THREADS / 32 ? sh[lane][1] : 0);
+    if (lane == 0) {
+      const unsigned long long mine =
+          (1ull << (2 * bits)) | ((unsigned long long)before << bits) | (unsigned long long)cnt;
+      const unsigned long long old = atomicAdd(ticket, mine);
+      if ((old >> (2 * bits)) == gridDim.x - 1) {  // the last block: every count is in
+        const unsigned long long sum = old + mine, mask = (1ull << bits) - 1;
+        out[0] = (int)(sum & mask);
+        out[1] = (int)((sum >> bits) & mask);
+        *ticket = 0ull;
+      }
+    }
   }
 }
 
@@ -230,15 +285,23 @@ __global__ void __launch_bounds__(THREADS) tile_winner_kernel(WindowParams P) {
 }  // namespace
 
 extern "C" int ntt_tile_count(const void* cap, const void* feas, const void* used,
-                              const void* demand, void* out, int T, int C, int t0, int offset,
-                              int n_real, void* stream) {
+                              const void* demand, void* out, void* ticket, int T, int C, int t0,
+                              int offset, int n_real, void* stream) {
+  if (T < 0 || C < 1) return (int)cudaErrorInvalidValue;
+  // count fields of ``bits`` bits (T < 2^bits); the ticket takes the rest
+  int bits = 1;
+  while (bits < 31 && (1ll << bits) <= T) ++bits;
+  const int ticket_bits = 64 - 2 * bits;
+  const int max_blocks = ticket_bits >= 31 ? INT_MAX : (1 << ticket_bits) - 1;
+  const int blocks = min(max(1, (T + TC_THREADS * TC_ROWS - 1) / (TC_THREADS * TC_ROWS)),
+                         max_blocks);
+  const bool rows4 = C == 4 && (((uintptr_t)cap | (uintptr_t)used) & 15) == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(out, 0, 2 * sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = max(1, (T + THREADS - 1) / THREADS);
-  tile_count_kernel<<<blocks, THREADS, 0, s>>>((const int*)cap, (const unsigned char*)feas,
-                                               (const int*)used, (const int*)demand, (int*)out, T,
-                                               C, t0, offset, n_real);
+  auto kernel = rows4 ? tile_count_kernel<true> : tile_count_kernel<false>;
+  kernel<<<blocks, TC_THREADS, 0, s>>>((const int*)cap, (const unsigned char*)feas,
+                                       (const int*)used, (const int*)demand, (int*)out,
+                                       (unsigned long long*)ticket, T, C, t0, offset, n_real,
+                                       bits);
   return (int)cudaGetLastError();
 }
 

@@ -753,10 +753,34 @@ def plan_batch_runs(args: RunArgs, init, a_pad: int, even_mode: bool = False):
     return placements, rounds[0]
 
 
+def _check_perm(perm: torch.Tensor, n: int) -> None:
+    """The windowed kernel keeps each node's state with its one ring
+    position: ``perm`` must be a permutation of [0, n). The check waits for
+    the card."""
+    ring = torch.arange(n, dtype=perm.dtype, device=perm.device)
+    if not torch.equal(torch.sort(perm).values, ring):
+        raise ValueError(f"perm is not a permutation of [0, {n})")
+
+
+def windowed_shape(N: int, C: int, n_real: int) -> dict:
+    """The windowed kernel's launch at this shape: its cluster's blocks,
+    threads a block, ring positions a thread, and whether the positions'
+    state stays in registers."""
+    from . import _build
+
+    out = (ctypes.c_int * 4)()
+    _launch_status("windowed", _build.library().ntt_windowed_shape(out, N, C, n_real, None))
+    return dict(blocks=out[0], threads=out[1], positions_a_thread=out[2],
+                state_in_registers=bool(out[3]))
+
+
 def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad: int):
     """Place ``n_allocs`` identical asks in windows of ``limit`` feasible
     ring positions; returns (node index per alloc slot [a_pad], -1 =
-    unplaced; rounds). On the card ``rounds`` is a device tensor."""
+    unplaced; rounds). On the card it is one launch of one thread block
+    cluster (``csrc/windowed.cu``) that reads ``used0`` and ``collisions0``
+    and writes neither; ``rounds`` is a device tensor, so the call does not
+    wait for the kernel."""
     device = args.capacity.device
     if device.type == "cpu":
         return plan_batch_windowed_ref(args, used0, collisions0, n_real, a_pad)
@@ -765,23 +789,24 @@ def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad
     d = _check_cuda({**args._asdict(), "used": used0, "collisions": collisions0},
                     _WINDOW_SHAPES, device)
     N, C = d["N"], d["C"]
-    _check_index(args.perm, N, "perm")
+    _check_perm(args.perm, N)
     if not 0 < n_real <= N:
         raise ValueError(f"n_real {n_real} outside (0, {N}]")
-    used = used0.clone()
-    coll = collisions0.clone()
+    if C < 2:
+        raise ValueError(f"the windowed planner takes at least 2 resource columns, not {C}")
     placements = torch.empty(a_pad, dtype=torch.int32, device=device)
-    rounds = torch.zeros(1, dtype=torch.int32, device=device)
-    score_s = torch.empty(N, dtype=torch.float32, device=device)
-    rank_s = torch.empty(N, dtype=torch.int32, device=device)
-    win_s = torch.empty(N, dtype=torch.int64, device=device)
+    rounds = torch.empty(1, dtype=torch.int32, device=device)
     lib = _build.library()
+    size = ctypes.c_longlong(0)
+    _launch_status("windowed", lib.ntt_windowed_scratch(ctypes.addressof(size), N, C, n_real,
+                                                        _stream(device)))
+    # the window keys and, past the register path, a record a ring position
+    scratch = torch.empty(size.value, dtype=torch.uint8, device=device)
     _launch(
         "windowed",
         lib.ntt_windowed,
         *(_ptr(t) for t in args),
-        _ptr(used), _ptr(coll), _ptr(placements), _ptr(rounds),
-        _ptr(score_s), _ptr(rank_s), _ptr(win_s),
+        _ptr(used0), _ptr(collisions0), _ptr(placements), _ptr(rounds), _ptr(scratch),
         N, C, n_real, a_pad,
         _stream(device),
     )

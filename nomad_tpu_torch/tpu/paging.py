@@ -43,6 +43,7 @@ this route.
 
 from __future__ import annotations
 
+import ctypes
 import os
 import threading
 
@@ -366,14 +367,18 @@ def tile_window_ref(cap, usable, feas, used, coll, nodes, demand, group_count: i
     return (bases, *_segment_winners(score, feas_rank, active, seg, nodes), last)
 
 
-_COUNT_SHAPES = dict(cap="TC", feas="T", used="TC", demand="C", out="2")
+_COUNT_SHAPES = dict(cap="TC", feas="T", used="TC", demand="C", counts="K2")
 _WINDOW_SHAPES = dict(cap="TC", usable="T2", feas="T", used="TC", coll="T", nodes="T", demand="C")
+
+#: (device index, stream) -> the zeroed ticket word sweep 1's kernel draws
+#: its blocks' tickets from (the last block clears it)
+_TICKETS: dict = {}
 
 
 def tile_count(cap, feas, used, demand, t0: int, offset: int, n_real: int, out=None):
     """Sweep 1 over one tile; int32 [2] (count, count before the offset),
-    written into ``out`` when given (a row of a per-sweep buffer, so the
-    host reads all tiles' counts at once). Does not wait for the card."""
+    written into ``out`` when given. On the card one launch, whatever
+    ``out`` held before. Does not wait for the card."""
     if cap.device.type == "cpu":
         res = tile_count_ref(cap, feas, used, demand, t0, offset, n_real)
         return res if out is None else out.copy_(res)
@@ -383,14 +388,56 @@ def tile_count(cap, feas, used, demand, t0: int, offset: int, n_real: int, out=N
     if out is None:
         out = torch.empty(2, dtype=torch.int32, device=device)
     d = kernel._check_cuda(dict(cap=cap, feas=feas, used=used, demand=demand, out=out),
-                           _COUNT_SHAPES, device)
+                           dict(_COUNT_SHAPES, out="2"), device)
+    stream = torch.cuda.current_stream(device).cuda_stream
     kernel._launch(
         "tile_count", _build.library().ntt_tile_count,
-        *(kernel._ptr(t) for t in (cap, feas, used, demand, out)),
+        *(kernel._ptr(t) for t in (cap, feas, used, demand, out, _ticket(device, stream))),
         d["T"], d["C"], t0, offset, n_real,
-        kernel._stream(device),
+        ctypes.c_void_p(stream),
     )
     return out
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    """The zeroed ticket word of a stream of the device."""
+    ticket = _TICKETS.get((device.index, stream))
+    if ticket is None:
+        ticket = _TICKETS[(device.index, stream)] = torch.zeros(1, dtype=torch.int64,
+                                                                 device=device)
+    return ticket
+
+
+def _tile_counter(cap, feas, used, demand, counts):
+    """Sweep 1 for the tiles of one paged eval: a callable ``(t, cap, feas,
+    used, t0, offset, n_real)`` that writes tile t's counts into row t of
+    ``counts`` [K, 2]. On the card the shapes, dtypes and device are
+    checked here, once, against the first tile's planes: every tile of the
+    eval has those, and the calls pass pointers only."""
+    if cap.device.type == "cpu":
+        def count(t, cap, feas, used, t0, offset, n_real):
+            tile_count(cap, feas, used, demand, t0, offset, n_real, out=counts[t])
+        return count
+    from . import _build
+
+    device = cap.device
+    d = kernel._check_cuda(dict(cap=cap, feas=feas, used=used, demand=demand, counts=counts),
+                           _COUNT_SHAPES, device)
+    T, C, K = d["T"], d["C"], d["K"]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = _build.library().ntt_tile_count
+    fixed = (demand.data_ptr(), counts.data_ptr(), _ticket(device, stream).data_ptr())
+    launches = kernel.LAUNCHES
+
+    def count(t, cap, feas, used, t0, offset, n_real, _keep=(demand, counts)):
+        if not 0 <= t < K:
+            raise IndexError(f"tile {t} has no row in counts [{K}, 2]")
+        rc = fn(cap.data_ptr(), feas.data_ptr(), used.data_ptr(), fixed[0], fixed[1] + 8 * t,
+                fixed[2], T, C, t0, offset, n_real, stream)
+        if rc:
+            kernel._launch_status("tile_count", rc)
+        launches["tile_count"] += 1
+    return count
 
 
 def tile_window(cap, usable, feas, used, coll, nodes, demand, group_count: int, limit: int,
@@ -504,12 +551,15 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
     offset = 0
     placed = 0
     rounds = 0
+    n_real = int(n_real)
+    # sweep 1's counts a tile (read back once a round) and its launcher
+    counts = torch.empty((n_tiles, 2), dtype=torch.int32, device=dev)
+    count = None
     while placed < a:
         rounds += 1
 
         # sweep 1: per-tile feasible counts, read once for the sweep (tile
         # t+1 uploads while tile t computes)
-        counts = torch.empty((n_tiles, 2), dtype=torch.int32, device=dev)
         ent = cache.ensure(0)
         for t in range(n_tiles):
             cur = ent
@@ -518,9 +568,11 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
             cache.wait(cur)
             cap_t, _, feas_t, _ = cur["static"]
             used_t, _ = cur["dyn"]
-            tile_count(cap_t, feas_t, used_t, demand_d, t * tn, offset, int(n_real), out=counts[t])
-        counts = counts.cpu().numpy().astype(np.int64)
-        cnts, befs = counts[:, 0], counts[:, 1]
+            if count is None:
+                count = _tile_counter(cap_t, feas_t, used_t, demand_d, counts)
+            count(t, cap_t, feas_t, used_t, t * tn, offset, n_real)
+        tile_counts = counts.cpu().numpy().astype(np.int64)
+        cnts, befs = tile_counts[:, 0], tile_counts[:, 1]
 
         total = int(cnts.sum())
         x0 = int(befs.sum())

@@ -234,7 +234,7 @@ def test_exact_scan_many_spread_classes(V, cuda_device):
 
 
 @pytest.mark.gpu
-def test_exact_scan_refuses_too_many_classes(cuda_device):
+def test_exact_scan_plans_classes_past_shared_memory(cuda_device):
     """Past the classes whose boosts fit shared memory the kernel no longer
     refuses: it takes each position's boost from the classes' count range,
     and places as the plain version does."""
@@ -295,6 +295,113 @@ def test_windowed_kernel_matches_plain(n, a, limit, cuda_device):
     want, want_rounds = tk.plan_batch_windowed_ref(wa, u, cl, n, a_pad)
     _same(got, want)
     assert int(got_rounds) == want_rounds
+
+
+def _small_nodes(n, a, seed):
+    """Nodes that hold 2-3 allocs each: the ring exhausts."""
+    c = problems.build_cluster(n, a, seed=seed)
+    c["capacity"][:, 0] = np.where(np.arange(n) % 2, 400, 300)
+    c["usable"][:, 0] = c["capacity"][:, 0] - c["reserved"][:, 0]
+    return c
+
+
+def _wide_rows(c, cols):
+    """The cluster with ``cols`` resource columns (roomy extra columns)."""
+    n = c["capacity"].shape[0]
+    extra = cols - c["capacity"].shape[1]
+    c = dict(c, capacity=np.concatenate([c["capacity"], np.full((n, extra), 50, np.int32)], 1),
+             reserved=np.concatenate([c["reserved"], np.zeros((n, extra), np.int32)], 1))
+    return dict(c, demand=np.concatenate([c["demand"], np.ones(extra, np.int32)]))
+
+
+#: the cluster kernel's edge shapes (tests/test_torch_windowed_walk.py
+#: models them against JAX): (cluster, n_real, allocs padded, limit).
+#: With 16 blocks of 6 positions, L = 10 spans three blocks; the cursor
+#: lands inside blocks; L = 200 exceeds a round's feasible count; the
+#: small nodes exhaust the ring; 5 columns stay in registers, 7 take the
+#: rows from global records; 20,000 positions hold 2 a thread and 40,000
+#: (2,500 a block) take the global records and window keys.
+WINDOWED_EDGE_CASES = {
+    "l2": (lambda: problems.build_cluster(96, 127, seed=8), 96, 128, 2),
+    "l10_spans_3": (lambda: problems.build_cluster(96, 127, seed=8), 96, 128, 10),
+    "l1": (lambda: problems.build_cluster(96, 127, seed=9), 96, 128, 1),
+    "l0": (lambda: problems.build_cluster(96, 127, seed=9), 96, 128, 0),
+    "short_l200": (lambda: problems.build_cluster(96, 40, seed=10), 96, 64, 200),
+    "exhaust_l3": (lambda: _small_nodes(96, 400, seed=11), 96, 512, 3),
+    "padded_l4": (lambda: problems.pad_cluster(problems.build_cluster(90, 200, seed=12), 96),
+                  90, 256, 4),
+    "ring_97_l7": (lambda: problems.build_cluster(97, 300, seed=13), 97, 512, 7),
+    "c5": (lambda: _wide_rows(problems.build_cluster(3000, 5000, seed=14), 5), 3000, 8192, 10),
+    "c7": (lambda: _wide_rows(problems.build_cluster(3000, 5000, seed=14), 7), 3000, 8192, 10),
+    "two_a_thread": (lambda: problems.build_cluster(20_000, 30_000, seed=15), 20_000, 32768, 3),
+    "past_registers": (lambda: problems.build_cluster(40_000, 60_000, seed=16), 40_000, 65536,
+                       3),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WINDOWED_EDGE_CASES))
+def test_windowed_cluster_edge_shapes(case, cuda_device):
+    build, n_real, a_pad, limit = WINDOWED_EDGE_CASES[case]
+    args, used0, coll0 = problems.window_problem(build(), limit=limit)
+    wa = tk.from_numpy(args, cuda_device)
+    u, cl = tk.from_numpy((used0, coll0), cuda_device)
+    before = tk.LAUNCHES["windowed"]
+    got, got_rounds = tk.plan_batch_windowed(wa, u, cl, n_real, a_pad)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["windowed"] == before + 1
+    want, want_rounds = tk.plan_batch_windowed_ref(wa, u, cl, n_real, a_pad)
+    _same(got, want)
+    assert int(got_rounds) == want_rounds
+    _same(u, tk.from_numpy(used0, cuda_device))  # the kernel writes no input
+    if case == "exhaust_l3":
+        assert (want.cpu() < 0).any()  # the ring ran out before the allocs
+
+
+def _count_tile(T, C, seed, aligned=True):
+    """One tile of sweep 1's inputs on the card: T rows of C columns;
+    ``aligned=False`` starts the row planes 4 bytes past a 16-byte
+    boundary."""
+    rng = np.random.default_rng(seed)
+    cap = rng.integers(8, 64, size=(T, C)).astype(np.int32)
+    used = (cap * rng.uniform(0.5, 1.1, size=(T, C))).astype(np.int32)
+    feas = rng.random(T) < 0.9
+    demand = rng.integers(1, 4, size=C).astype(np.int32)
+
+    def put(x):
+        t = torch.from_numpy(x)
+        if aligned:
+            return t.to(cuda)
+        flat = torch.empty(x.size + 1, dtype=t.dtype, device=cuda)
+        flat[1:] = t.reshape(-1).to(cuda)
+        return flat[1:].view(x.shape)
+
+    cuda = torch.device("cuda")
+    return put(cap), torch.from_numpy(feas).to(cuda), put(used), torch.from_numpy(demand).to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C,aligned", [(1000, 4, True), (1000, 4, False), (1000, 3, True),
+                                         (1000, 5, True), (70_000, 4, True), (3, 4, True)])
+def test_tile_count_one_launch(T, C, aligned, cuda_device):
+    """Sweep 1 into an ``out`` full of garbage, on a tile whose ring ends
+    inside it (t0 + T > n_real) with the cursor inside it, twice in a row
+    (the ticket word is cleared by the launch's last block): one launch a
+    call and the plain version's counts."""
+    cap, feas, used, demand = _count_tile(T, C, seed=T + C, aligned=aligned)
+    t0, n_real, offset = 5_000, 5_000 + T - T // 3, 5_000 + T // 2
+    want = paging.tile_count_ref(cap, feas, used, demand, t0, offset, n_real)
+    assert int(want[1]) > 0 or T < 10
+    for _ in range(2):
+        out = torch.full((2,), -123_456, dtype=torch.int32, device=cuda_device)
+        before = tk.LAUNCHES["tile_count"]
+        got = paging.tile_count(cap, feas, used, demand, t0, offset, n_real, out=out)
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["tile_count"] == before + 1 and got is out
+        _same(got, want)
+    with pytest.raises(ValueError):
+        paging.tile_count(cap, feas, used, demand, t0, offset, n_real,
+                          out=torch.empty(3, dtype=torch.int32, device=cuda_device))
 
 
 @pytest.mark.gpu
@@ -751,7 +858,7 @@ def test_wavefront_counts_its_walk(case, cuda_device):
 
 
 @pytest.mark.gpu
-def test_wavefront_refuses_what_the_kernel_does_not_take(cuda_device):
+def test_wavefront_plans_past_its_budgets(cuda_device):
     """Spread classes and candidates past the shared-memory and register
     budgets take the kernel's other paths and place as the plain version;
     what no path takes still raises: a walk counter of the wrong shape, and
