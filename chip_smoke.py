@@ -78,7 +78,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    phase 4); and the usage-base, dirty-row scatter and dense-verify
    kernels against their plain versions and the nearest PyTorch calls at
    the main-path shapes, with the scatter's launches a call (one) and its
-   host microseconds by part;
+   host microseconds by part; the usage bases and the verify timed as the
+   server path calls them (the collector's call once a batch,
+   dense_verify's once a plan, each through the public wrapper), with
+   the device operations a call beside them (each must be one), and the
+   usage bases again at the drain-bench batch;
 6. one JSON line of per-kernel numbers, the card's name and power limit,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -191,19 +195,9 @@ def cuda_ms(fn, samples: int = 3) -> tuple:
     return float(np.median(times)), out
 
 
-def device_us(fn, calls: int = 20):
-    """Device microseconds per call from a torch.profiler trace of
-    ``calls`` calls: the durations of the kernel, copy and memset records
-    the calls put on the card, summed over the trace and divided by the
-    calls, without the host's dispatch gaps between them (which CUDA events
-    around a call include). The torch operations that launched some of
-    them are not counted again. The trace is the second step of a profiler
-    schedule whose first step, ``calls`` more calls, is traced and thrown
-    away: a session's first records can be lost (on the H100, 7 of a
-    session's first kernels in a process that had traced before). Every
-    call puts the same records on the card, so each record's count is a
-    multiple of the calls; a trace with fewer is taken again with twice the
-    calls, then four times. None when no trace holds every record."""
+def _device_trace(fn, calls: int):
+    """(device records, calls) of a torch.profiler trace whose every record
+    count is a multiple of its calls (see ``device_us``), or None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -222,8 +216,39 @@ def device_us(fn, calls: int = 20):
         records = [e for e in traces[0] if e.device_type == DeviceType.CUDA
                    and not e.is_user_annotation and not e.key.startswith("ProfilerStep")]
         if records and all(e.count % n == 0 for e in records):
-            return sum(e.self_device_time_total for e in records) / n
+            return records, n
     return None
+
+
+def device_us(fn, calls: int = 20):
+    """Device microseconds per call from a torch.profiler trace of
+    ``calls`` calls: the durations of the kernel, copy and memset records
+    the calls put on the card, summed over the trace and divided by the
+    calls, without the host's dispatch gaps between them (which CUDA events
+    around a call include). The torch operations that launched some of
+    them are not counted again. The trace is the second step of a profiler
+    schedule whose first step, ``calls`` more calls, is traced and thrown
+    away: a trace's first records can be lost (on the H100, 7 of a
+    trace's first kernels in a process that had traced before). Every
+    call puts the same records on the card, so each record's count is a
+    multiple of the calls; a trace with fewer is taken again with twice the
+    calls, then four times. None when no trace holds every record."""
+    trace = _device_trace(fn, calls)
+    if trace is None:
+        return None
+    records, n = trace
+    return sum(e.self_device_time_total for e in records) / n
+
+
+def device_ops(fn, calls: int = 10):
+    """Device operations (kernel, copy and memset records) one call puts on
+    the card, by ``device_us``'s trace; None when no trace holds every
+    record."""
+    trace = _device_trace(fn, calls)
+    if trace is None:
+        return None
+    records, n = trace
+    return sum(e.count for e in records) / n
 
 
 def host_ms(fn) -> tuple:
@@ -862,6 +887,9 @@ def server_path(dev) -> tuple:
         + ("not measured" if us is None else f"{us:.2f} us")
         + f"; {pos['lanes']} lanes, {pos['needed']} ring positions needed, {pos['walked']} "
         f"walked; {scan_bench['shape']}")
+    # K9 at the same batch: (used, placements, demands, eval_of, E)
+    bench_bases = (init.used, got, bargs.demands,
+                   kernel.from_numpy(args_np["group_eval"][args_np["groups"]], dev), E)
     # the wavefront kernel on the same batch, against its plain version
     wavefront.configure(max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
     wf_drain = {"drain_bench": wavefront_walk("drain-bench", bargs, init, NODES, pos, plain=True)}
@@ -869,6 +897,7 @@ def server_path(dev) -> tuple:
 
     # ---- the server kernels at the main-path shapes -------------------------
     rows_out = []
+    extras = {}  # name -> the row's fields past the common ones
     C = 4
     # K10: the 3,000-row refresh
     r_np, v_np = mirror.dirty_lanes(np.sort(dirty), used1)
@@ -894,6 +923,7 @@ def server_path(dev) -> tuple:
         fail(f"scatter_rows: {scatter_extra['launches_per_call']} launches a call")
     log(f"scatter_rows: {scatter_extra['launches_per_call']} launch a call; host us by part "
         + ", ".join(f"{k} {u:.1f}" for k, u in scatter_extra["host_split_us"].items()))
+    extras["scatter_rows"] = scatter_extra
     rows_out.append(("scatter_rows", "nomad_tpu_torch/tpu/csrc/scatter.cu",
                      "nomad_tpu/tpu/mirror.py:251", err, ms, plain_ms, lib_ms,
                      (device_us(scatter_kernel), device_us(scatter_library),
@@ -917,7 +947,7 @@ def server_path(dev) -> tuple:
     eval_of = kernel.from_numpy(args_np["group_eval"][args_np["groups"]], dev)
     used_t = init.used
 
-    def bases_kernel():
+    def bases_kernel():  # the collector's call, once a batch
         return drain.used_bases(used_t, placements, bargs.demands, eval_of, E, NODES)
 
     ms, got = cuda_ms(bases_kernel)
@@ -936,6 +966,26 @@ def server_path(dev) -> tuple:
     bases_host = np.stack([out_t[p.eval_id][1] for p in order])
     err = max_abs_err([(got, want), (got, lib), (got[: len(order)], bases_host)])
     n_valid = int(valid.sum())
+    # the same kernel at the drain-bench batch (E 32, A 128)
+    b_used, b_placements, b_demands, b_eval_of, b_E = bench_bases
+
+    def bench_kernel():
+        return drain.used_bases(b_used, b_placements, b_demands, b_eval_of, b_E, NODES)
+
+    b_ms, b_got = cuda_ms(bench_kernel)
+    b_err = max_abs_err([(b_got, drain.used_bases_ref(b_used, b_placements, b_demands, b_eval_of,
+                                                      b_E, NODES))])
+    if b_err:
+        fail(f"used_bases: kernel differs from its plain version at drain-bench ({b_err})")
+    b_A = b_placements.shape[0]
+    extras["used_bases"] = dict(
+        device_ops=device_ops(bases_kernel),
+        drain_bench=dict(ms=b_ms, device_us=device_us(bench_kernel),
+                         host_us=wrapper_host_us(bench_kernel),
+                         device_ops=device_ops(bench_kernel), max_abs_err=b_err,
+                         bound_ms=bound(N * C * 4 + b_A * 4 * 2 + b_A * C * 4 + b_E * N * C * 4,
+                                        b_E * N * C, I32_OPS_PER_S)[0],
+                         shape=f"E={b_E} N={N} A={b_A}"))
     rows_out.append(("used_bases", "nomad_tpu_torch/tpu/csrc/bases.cu",
                      "nomad_tpu/tpu/drain.py:181", err, ms, plain_ms, lib_ms,
                      (device_us(bases_kernel), device_us(library_bases),
@@ -943,13 +993,14 @@ def server_path(dev) -> tuple:
                      N * C * 4 + A * 4 + A * C * 4 + A * 4 + E * N * C * 4,
                      n_valid * C + E * N * C, f"E={E} N={N} A={A} ({n_valid} placed)"))
 
-    # K8: the multi-tenant batch's verify
+    # K8: the multi-tenant batch's verify, as dense_verify calls it on the
+    # DeviceState's planes
     p_np, d_np = plan_apply.verify_lanes(rows_t, deltas_t)
     pr, pd = torch.from_numpy(p_np).to(dev), torch.from_numpy(d_np).to(dev)
     pr_long = pr.long()
     cap_t, used_v = planes_t[0], planes_t[2]
 
-    def verify_kernel():
+    def verify_kernel():  # dense_verify's call, once a plan
         return kernel.verify_rows(cap_t, used_v, pr, pd)
 
     def verify_library():
@@ -960,6 +1011,8 @@ def server_path(dev) -> tuple:
     lib_ms, lib = cuda_ms(verify_library)
     err = max_abs_err([(got, want), (got, lib), (got[: len(rows_t)], fits_t)])
     R, k = len(p_np), len(rows_t)
+    extras["verify_rows"] = dict(device_ops=device_ops(verify_kernel),
+                                 launch=kernel.verify_shape(N, C))
     rows_out.append(("verify_rows", "nomad_tpu_torch/tpu/csrc/verify.cu",
                      "nomad_tpu/tpu/kernel.py:1061", err, ms, plain_ms, lib_ms,
                      (device_us(verify_kernel), device_us(verify_library),
@@ -967,6 +1020,13 @@ def server_path(dev) -> tuple:
                      k * C * 4 * 2 + R * 4 + R * C * 4 + R, R * C * FIT_OPS_PER_COL,
                      f"N={N} R={R} ({k} rows)"))
 
+    # one launch a call and nothing else on the card, measured or failed
+    for name, ops in (("used_bases", extras["used_bases"]["device_ops"]),
+                      ("used_bases at drain-bench", extras["used_bases"]["drain_bench"]["device_ops"]),
+                      ("verify_rows", extras["verify_rows"]["device_ops"])):
+        if ops != 1:
+            fail(f"{name}: {'no trace held every record of' if ops is None else ops} "
+                 "device operations a call")
     server_rows = []
     for name, source, replaces, err, ms, plain_ms, lib_ms, dev_us, moved, ops, shape in rows_out:
         if err:
@@ -976,12 +1036,21 @@ def server_path(dev) -> tuple:
             name=name, route="cuda", source=source, replaces=replaces, max_abs_err=err,
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
             device_us=dev_us[0], library_device_us=dev_us[1], host_us=dev_us[2], shape=shape,
-            **(scatter_extra if name == "scatter_rows" else {}),
+            **extras.get(name, {}),
         ))
         us = ["not measured" if u is None else f"{u:.2f} us" for u in dev_us[:2]]
+        more = extras.get(name, {})
+        public = ("" if "device_ops" not in more else
+                  f" (the server path's), {more['device_ops']} device operations a call")
         log(f"{name}: {ms:.4f} ms per launch (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
             f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
-            f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us; {shape}")
+            f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us{public}; {shape}")
+        if "drain_bench" in more:
+            b = more["drain_bench"]
+            log(f"{name} at drain-bench ({b['shape']}): {b['ms']:.4f} ms per launch, on the card "
+                + ("not measured" if b["device_us"] is None else f"{b['device_us']:.2f} us")
+                + f", host {b['host_us']:.1f} us, {b['device_ops']} device operations a call, "
+                f"bound {b['bound_ms']:.5f} ms")
     return launches, wf_launches, server_rows, scan_bench, wf_drain
 
 

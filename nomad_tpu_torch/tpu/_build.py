@@ -34,7 +34,8 @@ _ENTRY_POINTS = {
     "ntt_windowed_shape": (1, 3),
     "ntt_used_bases": (5, 5),
     "ntt_scatter_rows": (4, 3),
-    "ntt_verify_rows": (6, 3),
+    "ntt_verify_rows": (5, 3),
+    "ntt_verify_shape": (1, 3),
     "ntt_wavefront": (29, 8),
     "ntt_wavefront_shape": (1, 4),
     "ntt_tile_count": (6, 5),

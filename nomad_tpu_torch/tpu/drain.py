@@ -138,31 +138,49 @@ def used_bases_ref(used0, placements, demands, eval_of, E: int, n_real: int):
 _BASES_SHAPES = dict(used0="NC", placements="A", demands="AC", eval_of="A")
 
 
+def _bases_dims(used0, placements, demands, eval_of) -> tuple:
+    """(N, C, A) of what the usage-base kernel takes: int32 planes,
+    contiguous, on one device, of shapes [N,C], [A], [A,C] and [A]. One
+    combined test; where it fails, the full check names the fault and
+    raises."""
+    i32 = torch.int32
+    if (used0.dtype is placements.dtype is demands.dtype is eval_of.dtype is i32
+            and used0.device == placements.device == demands.device == eval_of.device
+            and used0.is_contiguous() and placements.is_contiguous()
+            and demands.is_contiguous() and eval_of.is_contiguous() and len(used0.shape) == 2
+            and placements.shape == eval_of.shape == demands.shape[:1]
+            and demands.shape[1:] == used0.shape[1:]):
+        return used0.shape[0], used0.shape[1], placements.shape[0]
+    d = kernel._check_int32(
+        dict(used0=used0, placements=placements, demands=demands, eval_of=eval_of),
+        _BASES_SHAPES, used0.device,
+    )
+    return d["N"], d["C"], d["A"]
+
+
 def used_bases(used0, placements, demands, eval_of, E: int, n_real: int):
     """Each eval's usage base: ``used0`` plus every earlier eval's granted
-    demands; i32[E,N,C]. On the card it reads ``placements`` where the
-    scan left them, on the same stream, and does not wait for the card."""
+    demands; i32[E,N,C]. Checks what the kernel takes on either device; on
+    the CPU the plain version, on the card one launch (``csrc/bases.cu``)
+    that reads ``placements`` where the scan left them, on the same stream,
+    and does not wait for the card."""
+    N, C, A = _bases_dims(used0, placements, demands, eval_of)
     device = used0.device
-    if not 0 < n_real <= used0.shape[0]:
-        raise ValueError(f"n_real {n_real} outside (0, {used0.shape[0]}]")
+    if not 0 < n_real <= N:
+        raise ValueError(f"n_real {n_real} outside (0, {N}]")
     if device.type == "cpu":
         return used_bases_ref(used0, placements, demands, eval_of, E, n_real)
     from . import _build
 
-    d = kernel._check_int32(
-        dict(used0=used0, placements=placements, demands=demands, eval_of=eval_of),
-        _BASES_SHAPES, device,
-    )
-    N, C, A = d["N"], d["C"], d["A"]
-    out = torch.empty((E, N, C), dtype=torch.int32, device=device)
-    kernel._launch(
-        "used_bases",
-        _build.library().ntt_used_bases,
-        kernel._ptr(used0), kernel._ptr(placements), kernel._ptr(demands),
-        kernel._ptr(eval_of), kernel._ptr(out),
-        N, C, A, E, n_real,
-        kernel._stream(device),
-    )
+    out = used0.new_empty((E, N, C))
+    if out.numel() == 0:  # no eval or no column: nothing to write
+        return out
+    rc = _build.library().ntt_used_bases(used0.data_ptr(), placements.data_ptr(),
+                                         demands.data_ptr(), eval_of.data_ptr(), out.data_ptr(),
+                                         N, C, A, E, n_real, kernel._stream_ptr(device))
+    if rc:
+        kernel._launch_status("used_bases", rc)
+    kernel.LAUNCHES["used_bases"] += 1
     return out
 
 

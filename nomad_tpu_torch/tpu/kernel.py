@@ -667,8 +667,21 @@ def _launch(name: str, fn, *call_args) -> None:
     LAUNCHES[name] += 1
 
 
+#: torch's query of a device's current stream as a pointer (CUDA builds),
+#: which makes no Stream object
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_ptr(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as an int."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
 def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return ctypes.c_void_p(_stream_ptr(device))
 
 
 #: resource columns the exact-scan kernel keeps in registers
@@ -928,24 +941,53 @@ def verify_rows_ref(capacity, used, rows, deltas):
 _VERIFY_SHAPES = dict(capacity="NC", used="NC", rows="R", deltas="RC")
 
 
+def _verify_dims(capacity, used, rows, deltas) -> tuple:
+    """(N, C, R) of what the verify kernel takes: int32 planes,
+    contiguous, on one device, of shapes [N,C], [N,C], [R] and [R,C]. One
+    combined test; where it fails, the full check names the fault and
+    raises."""
+    i32 = torch.int32
+    if (capacity.dtype is used.dtype is rows.dtype is deltas.dtype is i32
+            and capacity.device == used.device == rows.device == deltas.device
+            and capacity.is_contiguous() and used.is_contiguous() and rows.is_contiguous()
+            and deltas.is_contiguous() and len(capacity.shape) == 2
+            and used.shape == capacity.shape and len(rows.shape) == 1
+            and deltas.shape == (rows.shape[0], capacity.shape[1])):
+        return capacity.shape[0], capacity.shape[1], rows.shape[0]
+    d = _check_int32(dict(capacity=capacity, used=used, rows=rows, deltas=deltas),
+                     _VERIFY_SHAPES, capacity.device)
+    return d["N"], d["C"], d["R"]
+
+
 def verify_rows(capacity, used, rows, deltas):
     """Per-lane fit of ``used`` plus the summed deltas of every lane on the
-    same row, against ``capacity``; bool[R]. Does not wait for the card."""
+    same row, against ``capacity``; bool[R]. Checks what the kernel takes
+    on either device; on the CPU the plain version, on the card one launch
+    (``csrc/verify.cu``) that does not wait for the card."""
+    N, C, R = _verify_dims(capacity, used, rows, deltas)
     device = capacity.device
     if device.type == "cpu":
         return verify_rows_ref(capacity, used, rows, deltas)
     from . import _build
 
-    d = _check_int32(dict(capacity=capacity, used=used, rows=rows, deltas=deltas),
-                     _VERIFY_SHAPES, device)
-    N, C, R = d["N"], d["C"], d["R"]
-    fits = torch.empty(R, dtype=torch.bool, device=device)
-    acc = torch.empty((N, C), dtype=torch.int32, device=device)  # per-row sums
-    _launch(
-        "verify_rows",
-        _build.library().ntt_verify_rows,
-        _ptr(capacity), _ptr(used), _ptr(rows), _ptr(deltas), _ptr(fits), _ptr(acc),
-        N, C, R,
-        _stream(device),
-    )
+    fits = rows.new_empty(R, dtype=torch.bool)
+    if R == 0:
+        return fits
+    rc = _build.library().ntt_verify_rows(capacity.data_ptr(), used.data_ptr(), rows.data_ptr(),
+                                          deltas.data_ptr(), fits.data_ptr(), N, C, R,
+                                          _stream_ptr(device))
+    if rc:
+        _launch_status("verify_rows", rc)
+    LAUNCHES["verify_rows"] += 1
     return fits
+
+
+def verify_shape(N: int, C: int) -> dict:
+    """The verify's launch on the current card over N rows of C columns:
+    its ``blocks`` and the ``rows`` each owns (their sums in its shared
+    memory)."""
+    from . import _build
+
+    out = (ctypes.c_int * 2)()
+    _launch_status("verify_rows", _build.library().ntt_verify_shape(out, N, C, 0, None))
+    return dict(blocks=out[0], rows=out[1])

@@ -9,10 +9,11 @@ comparison is exact.
 import dataclasses
 import random
 import threading
+import time
 
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 import nomad_tpu.mock as mock
 from nomad_tpu.core.overload import DeadlineExceeded as JaxDeadlineExceeded
@@ -77,6 +78,81 @@ def test_used_bases_match_jax(E):
     assert (got.numpy()[:, n_real:] == 2**30).all()
 
 
+def _bases_edge(kind):
+    """(used0, placements, demands, eval_of, E, n_real) at an edge the
+    kernel must take: C 2 or 5, no lane, every lane on one node, the
+    lanes' evals out of order."""
+    rng = np.random.default_rng(60)
+    E, N, n_real, A, C = 6, 40, 33, 120, 4
+    if kind in ("C2", "C5"):
+        C = int(kind[1])
+    if kind == "A0":
+        A = 0
+    used0 = rng.integers(0, 5000, (N, C)).astype(np.int32)
+    used0[n_real:] = 2**30
+    placements = rng.integers(-1, N, A).astype(np.int32)
+    eval_of = np.sort(rng.integers(0, E, A)).astype(np.int32)
+    if kind == "one_node":
+        placements[:] = 7
+    if kind == "out_of_order":
+        eval_of = eval_of[::-1].copy()
+        rng.shuffle(eval_of)
+    demands = rng.integers(0, 900, (A, C)).astype(np.int32)
+    return used0, placements, demands, eval_of, E, n_real
+
+
+@pytest.mark.parametrize("kind", ["C2", "C5", "A0", "one_node", "out_of_order"])
+def test_used_bases_edges_match_jax(kind):
+    used0, placements, demands, eval_of, E, n_real = _bases_edge(kind)
+    want = np.asarray(jdrain._used_bases_fn()(used0, placements, demands, eval_of, E, n_real))
+    got = tdrain.used_bases(*(torch.from_numpy(a) for a in (used0, placements, demands, eval_of)),
+                            E, n_real)
+    assert got.dtype == torch.int32 and got.shape == (E,) + used0.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _bad_bases(case):
+    """The wrapper's arguments with one thing the kernel does not take,
+    and the error the wrapper raises for it."""
+    used0, placements, demands, eval_of, n_real = (
+        torch.from_numpy(a) if isinstance(a, np.ndarray) else a for a in _bases_case(4))
+    args = dict(used0=used0, placements=placements, demands=demands, eval_of=eval_of, E=4,
+                n_real=n_real)
+    if case == "eval_of int64":
+        return dict(args, eval_of=eval_of.long()), TypeError
+    if case == "demands width":
+        return dict(args, demands=torch.cat([demands, demands[:, :1]], 1)), ValueError
+    if case == "eval_of length":
+        return dict(args, eval_of=eval_of[1:]), ValueError
+    if case == "used0 flat":
+        return dict(args, used0=used0.reshape(-1)), ValueError
+    if case == "demands int64":
+        return dict(args, demands=demands.long()), TypeError
+    if case == "n_real":
+        return dict(args, n_real=used0.shape[0] + 1), ValueError
+    if case == "placements int64":
+        return dict(args, placements=placements.long()), TypeError
+    if case == "placements length":
+        return dict(args, placements=torch.cat([placements, placements[:1]])), ValueError
+    if case == "placements elsewhere":
+        return dict(args, placements=placements.to("meta")), ValueError
+    assert case == "placements strided"
+    return dict(args, placements=torch.stack([placements, placements], 1)[:, 0]), ValueError
+
+
+BAD_BASES = ["eval_of int64", "demands width", "eval_of length", "used0 flat", "demands int64",
+             "n_real", "placements int64", "placements length", "placements elsewhere",
+             "placements strided"]
+
+
+@pytest.mark.parametrize("case", BAD_BASES)
+def test_used_bases_refuses_what_the_kernel_does_not_take(case):
+    """The wrapper checks what the kernel takes on the CPU as on the card."""
+    args, error = _bad_bases(case)
+    with pytest.raises(error):
+        tdrain.used_bases(**args)
+
+
 # ---------------------------------------------------------------------------
 # the fused batch against the JAX collector
 # ---------------------------------------------------------------------------
@@ -123,9 +199,17 @@ def _jax_prep(d):
     return jdrain.DrainPrep(**{**d, "planes_list": [jcol.GroupPlanes(**g) for g in d["planes_list"]]})
 
 
+#: seconds a collector here waits for its batch, and a drive for all its
+#: threads: a healthy batch of these tests takes about 2 s on the CPU, so a
+#: stuck one fails in seconds instead of holding the run for minutes
+COLLECT_S = 20.0
+DRIVE_S = 30.0
+
+
 def _drive(collector, preps, make, leave=()):
     """One thread per eval: ``submit`` (or ``leave`` for ids in ``leave``);
-    returns eval id -> (placements, base) as numpy, or the exception."""
+    returns eval id -> (placements, base) as numpy, or the exception. All
+    the threads share one deadline."""
     out = {}
 
     def one(d):
@@ -138,12 +222,13 @@ def _drive(collector, preps, make, leave=()):
         except Exception as e:  # compared below: both sides must raise alike
             out[d["eval_id"]] = e
 
-    threads = [threading.Thread(target=one, args=(d,)) for d in preps]
+    threads = [threading.Thread(target=one, args=(d,), daemon=True) for d in preps]
     for t in threads:
         t.start()
+    deadline = time.monotonic() + DRIVE_S
     for t in threads:
-        t.join(timeout=60)
-    assert not any(t.is_alive() for t in threads)
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+    assert not any(t.is_alive() for t in threads), f"a drain batch took over {DRIVE_S} s"
     return out
 
 
@@ -151,7 +236,7 @@ def _port_batch(shared, preps, pad_evals, leave=(), route="host"):
     ds = _device_state(tmirror, shared, device="cpu") if route == "device-state" else None
     collector = tdrain.KernelBatchCollector(
         tdrain.SharedCluster(shared["capacity"], shared["usable"], shared["used0"], ds),
-        expected=len(preps), pad_evals=pad_evals, device="cpu",
+        expected=len(preps), timeout=COLLECT_S, pad_evals=pad_evals, device="cpu",
     )
     out = _drive(collector, preps, tdrain.DrainPrep.from_dict, leave)
     return out, collector
@@ -160,7 +245,8 @@ def _port_batch(shared, preps, pad_evals, leave=(), route="host"):
 def _jax_batch(shared, preps, pad_evals, leave=(), route="host"):
     ds = _device_state(jmirror, shared) if route == "device-state" else None
     jshared = _JaxShared(shared, ds)
-    collector = jdrain.KernelBatchCollector(jshared, expected=len(preps), pad_evals=pad_evals)
+    collector = jdrain.KernelBatchCollector(jshared, expected=len(preps), timeout=COLLECT_S,
+                                            pad_evals=pad_evals)
     with jk.deterministic_scope():
         out = _drive(collector, preps, _jax_prep, leave)
     assert ds is None or jshared.mirror.calls == 1

@@ -1076,3 +1076,185 @@ def test_primitives_match_plain(V, cuda_device):
     torch.cuda.synchronize()
     assert {k: tk.LAUNCHES[k] - n for k, n in before.items()} == dict(
         binpack=1, class_boosts=2, scores=2, rot_incl=2)
+
+
+# ---------------------------------------------------------------------------
+# the usage bases as one launch that writes each base once, and the dense
+# verify as one launch with its row sums in shared memory
+# ---------------------------------------------------------------------------
+
+def _bases_lanes(E, C=4, A=2048, N=4096, n_real=4000, kind="mid", seed=0):
+    """(used0, placements, demands, eval_of, n_real) as numpy: ``mid`` random
+    lanes with unplaced ones and lanes on pad nodes, ``one_node`` every lane
+    on one node, ``unplaced`` no lane placed, ``out_of_order`` evals in
+    descending order with some outside [0, E)."""
+    rng = np.random.default_rng(seed)
+    used0 = rng.integers(0, 10**5, (N, C)).astype(np.int32)
+    used0[n_real:] = 2**30
+    placements = rng.integers(0, N, A).astype(np.int32)
+    placements[::7] = -1
+    eval_of = np.sort(rng.integers(0, E, A)).astype(np.int32)
+    if kind == "one_node":
+        placements[:] = 7
+    elif kind == "unplaced":
+        placements[:] = -1
+    elif kind == "out_of_order":
+        eval_of = eval_of[::-1].copy()
+        eval_of[::5] = rng.choice([-1, E, E + 3, -(2**31)], len(eval_of[::5]))
+    demands = rng.integers(0, 900, (A, C)).astype(np.int32)
+    return used0, placements, demands, eval_of, n_real
+
+
+#: (E, C, A, N, kind): E 1, the drain batches' 32, the evals around the
+#: shared-memory budget at a block's first width (82 fit 124 ints, 83 take
+#: half), an E past it at the narrowest slice (4,000: two chunks of
+#: evals); C 1, 2, 5 (a node's columns straddle two blocks) and 6; A 0;
+#: the edge lanes
+BASES_CASES = [
+    (1, 4, 2048, 4096, "mid"), (32, 4, 4096, 10_240, "mid"), (82, 4, 512, 4096, "mid"),
+    (83, 4, 512, 4096, "mid"), (4_000, 4, 300, 64, "mid"), (32, 1, 1024, 4096, "mid"),
+    (32, 2, 1024, 4096, "mid"), (32, 5, 1024, 4096, "mid"), (32, 6, 1024, 4096, "mid"),
+    (32, 4, 0, 4096, "mid"), (32, 4, 2048, 4096, "one_node"), (32, 4, 2048, 4096, "unplaced"),
+    (32, 4, 2048, 4096, "out_of_order"), (16, 5, 777, 4097, "mid"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,C,A,N,kind", BASES_CASES)
+def test_used_bases_one_launch(E, C, A, N, kind, cuda_device):
+    """The plain version's bases bit for bit, from one launch."""
+    from nomad_tpu_torch.tpu import drain
+
+    used0, placements, demands, eval_of, n_real = _bases_lanes(
+        E, C, A, N, N - 96 if N > 96 else N, kind)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (used0, placements, demands, eval_of)]
+    want = drain.used_bases_ref(*t, E, n_real)
+    before = tk.LAUNCHES["used_bases"]
+    got = drain.used_bases(*t, E, n_real)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["used_bases"] == before + 1
+    _same(got, want)
+
+
+@pytest.mark.gpu
+def test_used_bases_unaligned_planes(cuda_device):
+    """Planes and lanes that start off a 16-byte boundary (the lanes take
+    the kernel's 4-byte loads) give the same bases."""
+    from nomad_tpu_torch.tpu import drain
+
+    E, C, A, N = 8, 4, 1001, 2048
+    used0, placements, demands, eval_of, n_real = _bases_lanes(E, C, A, N, 2000)
+    flat = torch.from_numpy(np.concatenate([[0], used0.ravel()]).astype(np.int32)).to(cuda_device)
+    lanes = torch.from_numpy(np.concatenate([[0], placements]).astype(np.int32)).to(cuda_device)
+    u, p = flat[1:].view(N, C), lanes[1:]
+    d, e = (torch.from_numpy(a).to(cuda_device) for a in (demands, eval_of))
+    assert u.data_ptr() % 16 and p.data_ptr() % 16
+    got = drain.used_bases(u, p, d, e, E, n_real)
+    torch.cuda.synchronize()
+    _same(got, drain.used_bases_ref(u, p, d, e, E, n_real))
+
+
+def _verify_lanes_case(R, N=10_240, C=4, kind="mid", seed=0):
+    """(capacity, used, rows, deltas) as numpy, R lanes: ``mid`` a
+    quarter real rows with duplicates and the rest pad lanes (row 0, a
+    delta of 0), ``one_row`` every lane on one row with deltas that sum to
+    its room, ``outside`` rows outside [0, N) among the real ones."""
+    rng = np.random.default_rng(seed + R)
+    capacity = rng.integers(1000, 9000, (N, C)).astype(np.int32)
+    used = (capacity - rng.integers(0, 700, (N, C))).astype(np.int32)
+    k = max(1, R // 4)
+    rows = np.zeros(R, np.int32)
+    rows[:k] = rng.integers(0, N, k)
+    if k > 4:
+        rows[1:4] = rows[0]
+    deltas = np.zeros((R, C), np.int32)
+    deltas[:k] = rng.integers(-300, 300, (k, C))
+    if kind == "one_row":  # the deltas sum to the row's room exactly: every lane fits
+        rows[:] = one = min(5, N - 1)
+        deltas = rng.integers(-3, 4, (R, C)).astype(np.int32)
+        deltas[-1] = capacity[one] - used[one] - deltas[:-1].sum(axis=0)
+    elif kind == "outside":
+        rows[: k: 3] = rng.choice([-1, N, N + 7, -(2**31)], len(rows[: k: 3]))
+    return capacity, used, rows, deltas
+
+
+#: (R, N, C, kind): R 1, 512 and 4,096 (a thread's lanes in registers)
+#: and 8,192, 65,536 and 69,632 (read again) over N 10,240 (8 blocks),
+#: 100,000 (the rows' sums past one block's shared memory), 1,000,000 and
+#: 5 (fewer rows than blocks); C 5 and 1
+VERIFY_CASES = [
+    (1, 10_240, 4, "mid"), (512, 10_240, 4, "mid"), (4096, 10_240, 4, "mid"),
+    (8192, 10_240, 4, "mid"), (65_536, 100_000, 4, "mid"), (69_632, 100_000, 4, "mid"),
+    (4096, 1_000_000, 4, "mid"), (512, 5, 4, "one_row"), (4096, 10_240, 4, "one_row"),
+    (4096, 100_000, 4, "one_row"), (4096, 10_240, 4, "outside"), (8192, 10_240, 4, "outside"),
+    (69_632, 100_000, 4, "outside"), (4096, 10_240, 5, "mid"), (4096, 100_000, 5, "mid"),
+    (512, 10_240, 1, "mid"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N,C,kind", VERIFY_CASES)
+def test_verify_rows_one_launch(R, N, C, kind, cuda_device):
+    """The plain version's verdicts, from one launch whose blocks own every
+    row, twice in a row with the lanes reversed."""
+    shape = tk.verify_shape(N, C)
+    limit = torch.cuda.get_device_properties(cuda_device).shared_memory_per_block_optin
+    assert shape["blocks"] >= min(8, N) and shape["blocks"] * shape["rows"] >= N
+    assert shape["rows"] * C * 4 <= limit
+    t = [torch.from_numpy(a).to(cuda_device) for a in _verify_lanes_case(R, N, C, kind)]
+    kept = t[1].clone()
+    want = tk.verify_rows_ref(*t)
+    before = tk.LAUNCHES["verify_rows"]
+    got = tk.verify_rows(*t)
+    again = tk.verify_rows(t[0], t[1], t[2].flip(0).contiguous(), t[3].flip(0).contiguous())
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["verify_rows"] == before + 2
+    _same(got, want)
+    _same(again, want.flip(0))
+    _same(t[1], kept)
+    if kind == "outside":
+        assert not bool(want[t[2] < 0].any()) and not bool(want[t[2] >= N].any())
+    assert bool(want.any())
+
+
+@pytest.mark.gpu
+def test_verify_rows_unaligned_lanes(cuda_device):
+    """Deltas that start off a 16-byte boundary take the general path."""
+    capacity, used, rows, deltas = _verify_lanes_case(4096)
+    flat = torch.from_numpy(np.concatenate([[0], deltas.ravel()]).astype(np.int32)).to(cuda_device)
+    d = flat[1:].view(4096, 4)
+    c, u, r = (torch.from_numpy(a).to(cuda_device) for a in (capacity, used, rows))
+    assert d.data_ptr() % 16
+    got = tk.verify_rows(c, u, r, d)
+    torch.cuda.synchronize()
+    _same(got, tk.verify_rows_ref(c, u, r, d))
+
+
+@pytest.mark.gpu
+def test_dense_verify_on_device_state(cuda_device):
+    """``dense_verify`` on a DeviceState's planes on the card against the
+    same call on the CPU's, before and after a refresh."""
+    from nomad_tpu_torch.core import plan_apply
+    from nomad_tpu_torch.tpu import mirror
+
+    rng = np.random.default_rng(5)
+    n = 3000
+    capacity = rng.integers(1000, 9000, (n, 4))
+    used = capacity - rng.integers(0, 700, (n, 4))
+    rows = rng.choice(n, 600, replace=False)
+    deltas = list(rng.integers(-300, 400, (600, 4)))
+    used_host = np.full((3072, 4), 2**30, np.int64)
+    used_host[:n] = used + rng.integers(0, 300, (n, 4))
+    dirty = rng.choice(n, 900, replace=False)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        ds = mirror.DeviceState(0, 3072, capacity, np.ones((n, 2)), used, device=dev)
+        first = plan_apply.dense_verify(ds.arrays(), rows, deltas)
+        ds.pending.update(int(r) for r in dirty)
+        ds.refresh(used_host)
+        out[str(dev)] = (first, plan_apply.dense_verify(ds.arrays(), rows, deltas))
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    for want, got in zip(cpu, card):
+        np.testing.assert_array_equal(got, want)
+        assert want.any() and not want.all()
+    assert not np.array_equal(cpu[0], cpu[1])

@@ -8,7 +8,7 @@ import sys
 
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 from nomad_tpu_torch import resolve_device
 from nomad_tpu_torch.core import plan_apply

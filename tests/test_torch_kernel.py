@@ -10,7 +10,7 @@ holds the CUDA kernels against these plain versions on the card.
 import jax
 import numpy as np
 import pytest
-from torch_for_tests import multi_eval_problem, runcap_problem, torch
+from torch_for_tests import gil_handoff, multi_eval_problem, runcap_problem, torch  # noqa: F401
 
 from nomad_tpu.tpu import exact_np as jexact_np
 from nomad_tpu.tpu import kernel as jk

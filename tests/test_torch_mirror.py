@@ -5,7 +5,7 @@ every row bucket, copy-not-donate, and the plain scatter against
 
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 from nomad_tpu.tpu import mirror as jmirror
 from nomad_tpu_torch.tpu import mirror as tmirror

@@ -10,7 +10,7 @@ both. Inputs are the JAX suite's seeded cases (tests/test_paging.py).
 
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 import bench
 from nomad_tpu.state import planes as state_planes

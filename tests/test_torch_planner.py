@@ -17,7 +17,7 @@ tiles (the windowed evals go to the paged planner), in both packages.
 import jax
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 import test_tpu_devices as devices
 import test_tpu_parity as parity

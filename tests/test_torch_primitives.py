@@ -10,7 +10,7 @@ On the CPU each wrapper runs its plain version; on the card it launches
 import jax
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 from nomad_tpu.tpu import kernel as jk
 from nomad_tpu.tpu import multichip as mc

@@ -19,7 +19,7 @@ planner's rounds.
 
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 from nomad_tpu.tpu import kernel as jk
 from nomad_tpu.tpu import paging as jpaging

@@ -13,7 +13,7 @@ import random
 
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 import test_plan_apply as tpa
 from nomad_tpu.core.plan_apply import Planner
@@ -21,6 +21,7 @@ from nomad_tpu.tpu import kernel as jk
 from nomad_tpu.tpu import mirror as jmirror
 from nomad_tpu_torch.core import plan_apply as tapply
 from nomad_tpu_torch.tpu import kernel as tk
+from nomad_tpu_torch.tpu import mirror as tmirror
 
 
 def _verify_case(seed):
@@ -54,6 +55,97 @@ def test_verify_rows_ref_matches_jax(seed):
     np.testing.assert_array_equal(got.numpy(), want)
     assert want.any() and not want.all()
     assert torch.equal(t[1], kept)  # used is never written
+
+
+def _verify_edge(kind):
+    """(capacity, used, rows, deltas) at an edge the kernel must take:
+    one lane, every lane on one row (the deltas sum to its room exactly),
+    pad lanes only."""
+    rng = np.random.default_rng(8)
+    N, C = 48, 4
+    capacity = rng.integers(1000, 9000, (N, C)).astype(np.int32)
+    used = (capacity * rng.uniform(0.2, 1.0, (N, C))).astype(np.int32)
+    R = 1 if kind == "one_lane" else 64
+    rows = rng.integers(0, N, R).astype(np.int32)
+    deltas = rng.integers(-400, 400, (R, C)).astype(np.int32)
+    if kind == "one_row":
+        rows[:] = 9
+        deltas[-1] = capacity[9] - used[9] - deltas[:-1].sum(axis=0)
+    if kind == "pads_only":
+        rows[:], deltas[:] = 0, 0
+    return capacity, used, rows, deltas
+
+
+@pytest.mark.parametrize("kind", ["one_lane", "one_row", "pads_only"])
+def test_verify_rows_edges_match_jax(kind):
+    capacity, used, rows, deltas = _verify_edge(kind)
+    want = np.asarray(jk._verify_rows_jit(capacity, used, rows, deltas))
+    got = tk.verify_rows(*(torch.from_numpy(a) for a in (capacity, used, rows, deltas)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    if kind != "one_lane":
+        assert want.all()
+
+
+BAD_VERIFY = ["rows int64", "deltas int64", "deltas width", "deltas length", "rows 2-D",
+              "rows strided", "used int64", "used short", "capacity strided",
+              "rows elsewhere"]
+
+
+def _bad_verify(case):
+    """The wrapper's arguments with one thing the kernel does not take,
+    and the error the wrapper raises for it."""
+    capacity, used, rows, deltas = (torch.from_numpy(a) for a in _verify_case(0))
+    error = ValueError
+    if case == "rows int64":
+        rows, error = rows.long(), TypeError
+    elif case == "deltas int64":
+        deltas, error = deltas.long(), TypeError
+    elif case == "deltas width":
+        deltas = deltas[:, :3].contiguous()
+    elif case == "deltas length":
+        deltas = deltas[1:]
+    elif case == "rows 2-D":
+        rows = rows[:, None]
+    elif case == "rows strided":
+        rows = torch.stack([rows, rows], 1)[:, 0]
+    elif case == "used int64":
+        used, error = used.long(), TypeError
+    elif case == "used short":
+        used = used[1:]
+    elif case == "capacity strided":
+        capacity = torch.cat([capacity, capacity], 1)[:, :4]
+    else:
+        assert case == "rows elsewhere"
+        rows = rows.to("meta")
+    return (capacity, used, rows, deltas), error
+
+
+@pytest.mark.parametrize("case", BAD_VERIFY)
+def test_verify_rows_refuses_what_the_kernel_does_not_take(case):
+    """The wrapper checks planes and lanes on the CPU as on the card."""
+    args, error = _bad_verify(case)
+    with pytest.raises(error):
+        tk.verify_rows(*args)
+
+
+def test_dense_verify_on_device_state_planes():
+    """``dense_verify`` on a DeviceState's planes gives the JAX program's
+    verdicts, and refuses planes the kernel does not take."""
+    rng = np.random.default_rng(6)
+    n = 40
+    capacity = rng.integers(1000, 9000, (n, 4))
+    used = capacity - rng.integers(0, 700, (n, 4))
+    rows = rng.choice(n, 25, replace=False)
+    deltas = list(rng.integers(-300, 400, (25, 4)))
+    ds = tmirror.DeviceState(0, 64, capacity, np.ones((n, 2)), used, device="cpu")
+    planes = ds.arrays()
+    got = tapply.dense_verify(planes, rows, deltas)
+    padded, lanes = tapply.verify_lanes(rows, deltas)
+    want = np.asarray(jk._verify_rows_jit(planes[0].numpy(), planes[2].numpy(), padded, lanes))
+    np.testing.assert_array_equal(got, want[:25])
+    assert got.any() and not got.all()
+    with pytest.raises(TypeError):
+        tapply.dense_verify((planes[0], planes[1], planes[2].long()), rows, deltas)
 
 
 def test_dense_verify_flags_exactly_the_rows_over_capacity():

@@ -10,7 +10,7 @@ tests/test_torch_gpu.py holds the CUDA kernel against the plain version.
 import jax
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 from nomad_tpu.tpu import kernel as jk
 from nomad_tpu.tpu import multichip as mc

@@ -25,7 +25,7 @@ import functools
 import numpy as np
 import pytest
 from test_torch_scan_walk import WALK_CASES
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 from nomad_tpu.tpu import kernel as jk
 from nomad_tpu.tpu import wavefront as jwf

@@ -27,7 +27,7 @@ import functools
 import jax
 import numpy as np
 import pytest
-from torch_for_tests import torch
+from torch_for_tests import gil_handoff, torch  # noqa: F401
 
 from nomad_tpu.tpu import kernel as jk
 from nomad_tpu.tpu import multichip as mc

@@ -10,11 +10,20 @@ with ``--noconftest`` on a machine without JAX), torch imports plainly.
 The builders return dicts keyed by the planner args' field names, made
 with numpy only, so the CPU tests hand them to the JAX package and the
 GPU tests to the port alone.
+
+``gil_handoff`` is an autouse fixture for the port's CPU test modules
+(each imports it): the plain versions make thousands of small torch calls,
+each of which releases the GIL, and a busy Python thread left running by
+an earlier test keeps the GIL for the whole switch interval (5 ms) after
+each release. The fixture shortens the interval while the module's tests
+run, so such a thread costs them microseconds a call instead of
+milliseconds.
 """
 
 import sys
 
 import numpy as np
+import pytest
 
 _lockdep = sys.modules.get("nomad_tpu.testing.lockdep")
 _witness_on = _lockdep is not None and _lockdep.installed()
@@ -26,6 +35,18 @@ try:
 finally:
     if _witness_on:
         _lockdep.install()
+
+
+#: the interpreter's switch interval while a port test runs, in seconds
+GIL_SWITCH_S = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def gil_handoff():
+    before = sys.getswitchinterval()
+    sys.setswitchinterval(GIL_SWITCH_S)
+    yield
+    sys.setswitchinterval(before)
 
 
 def multi_eval_problem():
