@@ -83,14 +83,42 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    dense_verify's once a plan, each through the public wrapper), with
    the device operations a call beside them (each must be one), and the
    usage bases again at the drain-bench batch;
-6. one JSON line of per-kernel numbers, the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+6. the scheduler front, with every launch counter set to 0 before and
+   read after: real evals through the port's ``tpu-batch`` scheduler
+   (``Harness(seed=5, device="cuda").process("tpu-batch", eval)``) from
+   state stores carried from the same ``to_dict()`` documents: the
+   headline eval (10,000 mock nodes in 4 datacenters with
+   tests/test_tpu_parity.py's cpu and memory tiers, one group of 50,000
+   allocs spread over the datacenters by target; the run planner), a
+   service eval of 50,000 allocs with no spread (limit 14; the windowed
+   planner), an 8-group eval of 1,024 allocs (the exact scan) and again
+   with the wavefront stanza on (W = 32, M = 1), the service eval with the
+   paging stanza on (1,024-row tiles, a budget of half its planes; the
+   paged planner), a device-ask eval (two groups of 300 allocs asking one
+   TPU instance each on 4,000 nodes, C = 5; the exact scan) and a drain
+   batch of 8 evals on 8 threads through one collector on a DeviceState
+   (brought to the snapshot's usage by one dirty-row refresh) on the
+   service eval's final state. Checks: each eval's placements and failure
+   metrics equal those of the same documents, seed and eval through the
+   port's scheduler on the CPU; no node over capacity after a plan; the
+   scheduler counted exactly the expected modes and no fallback, and each
+   of the path's kernels launched. Then the headline eval three more times
+   on fresh stores. ``process()`` is timed as bench.py's ``run_once`` times
+   it, with the plan recorded and not applied, and split into the columnar
+   build, the dispatch (padding, upload, launch, the overlapped template
+   and id build, the sync; within it the planner from launch to sync and
+   by CUDA events), the materialize and the rest (reconcile); the
+   harness's plan apply follows on its own clock;
+7. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
+   scheduler launches), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
 """
 
 import contextlib
 import json
+import random
 import subprocess
 import sys
 import threading
@@ -1054,6 +1082,392 @@ def server_path(dev) -> tuple:
     return launches, wf_launches, server_rows, scan_bench, wf_drain
 
 
+# ---------------------------------------------------------------------------
+# the scheduler front: real evals through the port's tpu-batch scheduler
+# ---------------------------------------------------------------------------
+
+#: the scheduler phase's shapes: nodes and datacenters of its cluster, the
+#: headline eval's allocs (spread over the datacenters; also the service
+#: eval's, whose limit is then ceil(log2(nodes)) = 14), the 8-group eval,
+#: the device eval (nodes, groups, allocs a group) and the drain batch
+#: (evals, allocs an eval)
+SCHED = dict(nodes=10_000, dcs=4, allocs=50_000, groups=8, group_allocs=128,
+             dev_nodes=4_000, dev_groups=2, dev_allocs=300, drain_evals=8, drain_allocs=256)
+SCHED_SEED = 5
+#: the kernels the scheduler phase must launch
+SCHED_KERNELS = ("runs", "windowed", "exact_scan", "wavefront", "tile_count", "tile_window",
+                 "used_bases", "scatter_rows")
+
+
+def sched_nodes(n: int, dcs: int) -> list:
+    """tests/test_tpu_parity.py's cluster: cpu and memory tiers from a seeded
+    rng, the datacenters in turn."""
+    from nomad_tpu_torch import mock
+
+    rng = random.Random(99)
+    nodes = []
+    for i in range(n):
+        node = mock.node()
+        node.node_resources.cpu.cpu_shares = rng.choice([2000, 4000, 8000])
+        node.node_resources.memory.memory_mb = rng.choice([4096, 8192, 16384])
+        node.datacenter = f"dc{i % dcs + 1}"
+        nodes.append(node)
+    return nodes
+
+
+def sched_device_nodes(n: int) -> list:
+    """tests/test_tpu_devices.py's cluster: every 4th node carries two TPU
+    instances, the rest one of two cpu/memory tiers."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs import compute_class
+    from nomad_tpu_torch.structs.model import generate_uuid
+
+    rng = random.Random(7)
+    templates = []
+    for make, cpu, mem in ((mock.node, 4000, 8192), (mock.node, 8000, 16384),
+                           (mock.tpu_node, None, None)):
+        t = make()
+        if cpu is not None:
+            t.node_resources.cpu.cpu_shares = cpu
+            t.node_resources.memory.memory_mb = mem
+        t.node_resources.networks = []
+        t.reserved_resources.networks.reserved_host_ports = ""
+        compute_class(t)
+        templates.append(t)
+    nodes = []
+    for i in range(n):
+        node = (templates[2] if i % 4 == 0 else templates[rng.randrange(2)]).copy()
+        node.id = generate_uuid()
+        nodes.append(node)
+    return nodes
+
+
+def sched_job(count: int, dcs: int, spread: bool = False, groups: int = 1, device: bool = False):
+    """A mock service job over ``dcs`` datacenters with no network ask:
+    ``count`` allocs in each of ``groups`` groups (each group its own cpu
+    ask), spread evenly over the datacenters by target when ``spread``,
+    one TPU instance an alloc when ``device``."""
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs.model import RequestedDevice, Spread, SpreadTarget, TaskGroup
+
+    job = mock.job()
+    job.datacenters = [f"dc{i + 1}" for i in range(dcs)]
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.tasks[0].resources.networks = []
+    if device:
+        tg.tasks[0].resources.cpu, tg.tasks[0].resources.memory_mb = 100, 64
+        tg.tasks[0].resources.devices = [RequestedDevice(name="tpu", count=1)]
+    if spread:
+        job.spreads = [Spread(attribute="${node.datacenter}", weight=100, spread_target=[
+            SpreadTarget(value=d, percent=100 // dcs) for d in job.datacenters])]
+    for g in range(1, groups):
+        other = TaskGroup.from_dict(tg.to_dict())
+        other.name = f"web{g}"
+        other.tasks[0].resources.cpu = tg.tasks[0].resources.cpu + 50 * g
+        job.task_groups.append(other)
+    return job
+
+
+def sched_eval(job, eval_id: str):
+    from nomad_tpu_torch.structs.model import Evaluation
+
+    return Evaluation(id=eval_id, namespace=job.namespace, priority=job.priority,
+                      type="service", triggered_by="job-register", job_id=job.id,
+                      status="pending")
+
+
+class SchedCase:
+    """One eval's documents: the nodes in one transaction, then each job
+    and its eval. ``harness(dev)`` carries them into a new state store."""
+
+    def __init__(self, node_docs: list, jobs: list, evals: list):
+        self.records = [(1, "nodes", node_docs)]
+        for job, ev in zip(jobs, evals):
+            self.records.append((len(self.records) + 1, "job", job.to_dict()))
+            self.records.append((len(self.records) + 1, "evals", [ev.to_dict()]))
+        self.jobs, self.evals = jobs, evals
+
+    def harness(self, dev):
+        from nomad_tpu_torch.scheduler import Harness
+        from nomad_tpu_torch.state.carry import carry_state
+
+        h = Harness(state=carry_state(self.records), seed=SCHED_SEED, device=dev)
+        while h.next_index() < len(self.records):
+            pass
+        return h
+
+
+def sched_process(h, ev):
+    """(scheduler, process() seconds, the scheduler's LAST_KERNEL_STATS with
+    ``apply_s``). As bench.py's ``run_once`` does, only ``process()`` is
+    timed, with a planner that records the plan without applying it
+    (bench.py's NullPlanner); the plan is then applied to the harness's
+    store on its own clock, ``apply_s``."""
+    from nomad_tpu_torch.scheduler.scheduler import new_scheduler
+    from nomad_tpu_torch.structs.model import Evaluation, PlanResult
+    from nomad_tpu_torch.tpu import batch_sched
+
+    ev = Evaluation.from_dict(ev.to_dict())
+    recorded = []
+
+    class Recorder:
+        def submit_plan(self, plan):
+            result = PlanResult(
+                node_update=plan.node_update, node_allocation=plan.node_allocation,
+                node_preemptions=plan.node_preemptions, deployment=plan.deployment,
+                deployment_updates=plan.deployment_updates, alloc_index=h.next_index())
+            recorded.append((plan, result))
+            return result, None
+
+        def update_eval(self, ev):
+            pass
+
+        create_eval = reblock_eval = update_eval
+
+    h.planner = Recorder()
+    sched = new_scheduler("tpu-batch", h.snapshot(), h, rng=random.Random(h.seed),
+                          device=h.device)
+    t0 = time.perf_counter()
+    sched.process(ev)
+    secs = time.perf_counter() - t0
+    h.planner = None
+    t0 = time.perf_counter()
+    for plan, result in recorded:
+        h.state.upsert_plan_results(result.alloc_index, plan, result)
+    return sched, secs, dict(batch_sched.LAST_KERNEL_STATS, apply_s=time.perf_counter() - t0)
+
+
+def sched_outcome(h, jobs, scheds) -> dict:
+    """What the phase compares: placements (job, alloc name) -> node id and
+    each scheduler's failure metrics, without their wall-clock field."""
+    placements = {(job.id, a.name): a.node_id
+                  for job in jobs for a in h.state.allocs_by_job(job.namespace, job.id)}
+    failed = {}
+    for sched in scheds:
+        for name, m in sched.failed_tg_allocs.items():
+            d = m.to_dict()
+            d.pop("allocation_time")
+            failed[(sched.job.id if sched.job else "", name)] = d
+    return dict(placements=placements, failed=failed)
+
+
+def sched_over_capacity(h, device_ask=None) -> int:
+    """Nodes of ``h``'s state whose allocs ask more than the node has, in
+    any resource column (and, with ``device_ask``, in matching device
+    instances)."""
+    from nomad_tpu_torch.tpu.columnar import ColumnarCluster
+
+    snap = h.state.snapshot()
+    cluster = ColumnarCluster(list(snap.nodes()))
+    over = (cluster.initial_used(snap) > cluster.capacity).any(axis=1)
+    if device_ask is not None:
+        cap, match_sets, _ = cluster.device_plane(device_ask)
+        over |= cluster.device_used(snap, match_sets) > cap
+    return int(over.sum())
+
+
+def sched_drain(h, evs, dev, wavefront_on: bool) -> list:
+    """The drain batch: ``evs`` on one thread each through one collector
+    whose shared planes live in a DeviceState, brought up to the snapshot's
+    usage by one dirty-row refresh (from the bare reserved planes). Returns
+    the schedulers."""
+    from nomad_tpu_torch.structs.model import Evaluation
+    from nomad_tpu_torch.tpu import batch_sched, drain, mirror, problems
+
+    snap = h.state.snapshot()
+    shared = drain.SharedCluster.from_snapshot(snap)
+    ds = mirror.DeviceState(0, problems.bucket(shared.n_real), shared.capacity, shared.usable,
+                            shared.cluster.reserved, device=dev)
+    dirty = np.flatnonzero((shared.used0 != shared.cluster.reserved).any(axis=1))
+    if not len(dirty):
+        fail("the drain batch's state holds no allocation: its refresh would scatter nothing")
+    ds.pending.update(dirty.tolist())
+    ds.refresh(shared.used0)
+    shared.device_state = ds
+    collector = drain.KernelBatchCollector(shared, expected=len(evs), timeout=120, device=dev)
+    scheds, errors = [None] * len(evs), []
+
+    def run_one(i, ev):
+        sched = batch_sched.TPUBatchScheduler(snap, h, rng=random.Random(SCHED_SEED), device=dev)
+        sched.drain_collector = collector
+        scheds[i] = sched
+        try:
+            sched.process(Evaluation.from_dict(ev.to_dict()))
+        except BaseException as e:  # reported below: the phase fails
+            errors.append(e)
+        finally:
+            if not collector.consumed(ev.id):
+                collector.leave(ev.id)
+
+    threads = [threading.Thread(target=run_one, args=(i, ev), daemon=True)
+               for i, ev in enumerate(evs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads):
+        fail("a drain eval of the scheduler phase did not finish")
+    if errors:
+        raise errors[0]
+    if collector.invocations != 1:
+        fail(f"the drain evals took {collector.invocations} batches, not one")
+    want = "wavefront" if wavefront_on else "exact"
+    if drain.LAST_DRAIN_STATS["planner"] != want:
+        fail(f"the drain batch ran {drain.LAST_DRAIN_STATS['planner']}, not {want}")
+    return scheds
+
+
+def scheduler_phase(dev, size: dict = SCHED) -> tuple:
+    """Six evals through the port's Harness on ``dev`` (see the module
+    docstring, phase 6), each against the same documents, seed and eval
+    through the port's scheduler on the CPU. Returns (launches per kernel
+    in the counted run, the headline eval's timings)."""
+    from nomad_tpu_torch.native import fastobj
+    from nomad_tpu_torch.tpu import batch_sched, kernel, paging, problems, wavefront
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    log(f"scheduler: the host materialize loop is "
+        f"{'the C module' if fastobj() is not None else 'pure Python (no C toolchain)'}")
+    n, dcs, a = size["nodes"], size["dcs"], size["allocs"]
+    node_docs = [nd.to_dict() for nd in sched_nodes(n, dcs)]
+    dev_docs = [nd.to_dict() for nd in sched_device_nodes(size["dev_nodes"])]
+
+    headline = sched_job(a, dcs, spread=True)
+    service = sched_job(a, dcs)
+    groups = sched_job(size["group_allocs"], dcs, groups=size["groups"])
+    device = sched_job(size["dev_allocs"], dcs, groups=size["dev_groups"], device=True)
+    device.datacenters = ["dc1"]
+    drains = [sched_job(size["drain_allocs"], dcs) for _ in range(size["drain_evals"])]
+    for i, job in enumerate(drains):
+        job.priority = 50 + 10 * (i % 2)
+    cases = {
+        "headline": (SchedCase(node_docs, [headline], [sched_eval(headline, "ev-headline")]),
+                     "runs", False, False),
+        "service": (SchedCase(node_docs, [service], [sched_eval(service, "ev-service")]),
+                    "windowed", False, False),
+        "groups": (SchedCase(node_docs, [groups], [sched_eval(groups, "ev-groups")]),
+                   "exact-scan", False, False),
+        "groups_wavefront": (SchedCase(node_docs, [groups], [sched_eval(groups, "ev-groups")]),
+                             "wavefront", True, False),
+        "paged": (SchedCase(node_docs, [service], [sched_eval(service, "ev-service")]),
+                  "paged", False, True),
+        "device": (SchedCase(dev_docs, [device], [sched_eval(device, "ev-device")]),
+                   "exact-scan", False, False),
+    }
+    drain_evs = [sched_eval(job, f"ev-drain-{i}") for i, job in enumerate(drains)]
+
+    @contextlib.contextmanager
+    def stanzas(wf_on: bool, paged_on: bool):
+        if wf_on:
+            wavefront.configure(enabled=True, max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
+        if paged_on:  # a budget of half the planes
+            planes = paging.plane_bytes(problems.bucket(n), 4)
+            paging.configure(enabled=True, tile_nodes=1024)
+            patch = mock.patch.object(paging, "budget_mb", lambda: planes / 2 / (1 << 20))
+        else:
+            patch = contextlib.nullcontext()
+        try:
+            with patch:
+                yield
+        finally:
+            wavefront.reset()
+            paging.reset()
+
+    def run_all(on) -> dict:
+        """Every case on ``on``; returns name -> (outcome, stats, seconds,
+        over-capacity nodes)."""
+        out = {}
+        service_h = None
+        for name, (case, mode, wf_on, paged_on) in cases.items():
+            h = case.harness(on)
+            with stanzas(wf_on, paged_on):
+                sched, secs, stats = sched_process(h, case.evals[0])
+            if stats.get("mode") != mode:
+                fail(f"scheduler {name}: planned in mode {stats.get('mode')}, expected {mode}")
+            ask = device.task_groups[0].tasks[0].resources.devices[0] if name == "device" else None
+            out[name] = (sched_outcome(h, case.jobs, [sched]), stats, secs,
+                         sched_over_capacity(h, ask))
+            if name == "service":
+                service_h = h
+        # the drain batch, on the service eval's final state
+        for job, ev in zip(drains, drain_evs):
+            service_h.state.upsert_job(service_h.next_index(), job.copy())
+            ev.create_index = service_h.next_index()
+            service_h.state.upsert_evals(ev.create_index, [ev.copy()])
+        t0 = time.perf_counter()
+        scheds = sched_drain(service_h, drain_evs, on, wavefront_on=False)
+        out["drain"] = (sched_outcome(service_h, drains, scheds), {"mode": "drain"},
+                        time.perf_counter() - t0, sched_over_capacity(service_h))
+        return out
+
+    # ---- the counted run on the card --------------------------------------
+    before = batch_sched.counters_snapshot()
+    kernel.reset_launches()
+    got = run_all(dev)
+    launches = path_launches(SCHED_KERNELS)
+    after = batch_sched.counters_snapshot()
+    log(f"scheduler path launches: {launches}")
+    modes = {k: v - before["modes"].get(k, 0) for k, v in after["modes"].items()
+             if v != before["modes"].get(k, 0)}
+    reasons = {k: v - before["fallback_reasons"].get(k, 0)
+               for k, v in after["fallback_reasons"].items()
+               if v != before["fallback_reasons"].get(k, 0)}
+    want_modes = {"runs": 1, "windowed": 1, "exact-scan": 2, "wavefront": 1, "paged": 1}
+    if modes != want_modes:
+        fail(f"scheduler modes {modes}, expected {want_modes}")
+    if reasons:
+        fail(f"scheduler fallbacks {reasons}: every eval must ride its planner")
+    drained = after["drain_evals"] - before["drain_evals"]
+    if drained != size["drain_evals"]:
+        fail(f"{drained} evals rode the drain batch, expected {size['drain_evals']}")
+    if dev.type == "cuda":
+        for name, count in launches.items():
+            if count < 1:
+                fail(f"kernel {name} was not launched on the scheduler path")
+
+    # ---- the same documents, seed and evals through the plain versions ----
+    want = run_all(cpu)
+    for name, (outcome, stats, secs, over) in got.items():
+        ref = want[name][0]
+        if outcome["placements"] != ref["placements"]:
+            diff = sum(ref["placements"].get(k) != v for k, v in outcome["placements"].items())
+            fail(f"scheduler {name}: {diff} of {len(ref['placements'])} placements differ from "
+                 f"the plain versions' ({len(outcome['placements'])} placed)")
+        if outcome["failed"] != ref["failed"]:
+            fail(f"scheduler {name}: failure metrics differ from the plain versions'")
+        if over:
+            fail(f"scheduler {name}: {over} nodes over capacity after the plan")
+        log(f"scheduler {name}: mode {stats['mode']}, {len(outcome['placements'])} placed, "
+            f"{len(outcome['failed'])} groups failed, identical to the plain versions; "
+            f"process {secs * 1e3:.1f} ms (plain {want[name][2] * 1e3:.1f} ms)")
+
+    # ---- the headline eval's timings: three more runs on fresh stores -------
+    case = cases["headline"][0]
+    timings = [got["headline"]]
+    for _ in range(3):
+        h = case.harness(dev)
+        sched, secs, stats = sched_process(h, case.evals[0])
+        timings.append((sched_outcome(h, case.jobs, [sched]), stats, secs, 0))
+        if timings[-1][0] != got["headline"][0]:
+            fail("a rerun of the headline eval placed differently")
+    runs = []
+    for _, stats, secs, _ in timings:
+        ms = {k[:-2] + "_ms": stats[k] * 1e3 if stats[k] is not None else None for k in (
+            "columnar_s", "dispatch_s", "kernel_s", "device_s", "materialize_s", "apply_s")}
+        rest = secs * 1e3 - ms["columnar_ms"] - ms["dispatch_ms"] - ms["materialize_ms"]
+        runs.append(dict(process_ms=secs * 1e3, **ms, reconcile_ms=rest, rounds=stats["rounds"],
+                         launches=stats["launches"]))
+        log(f"scheduler headline: process {secs * 1e3:.1f} ms = columnar "
+            f"{ms['columnar_ms']:.1f} + dispatch {ms['dispatch_ms']:.1f} (planner launch to "
+            f"sync {ms['kernel_ms']:.1f}, by events {ms['device_ms']}) + materialize "
+            f"{ms['materialize_ms']:.1f} + reconcile and the rest {rest:.1f} ms; rounds "
+            f"{stats['rounds']}; then plan apply {ms['apply_ms']:.1f} ms")
+    log(f"scheduler phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(nodes=n, allocs=a, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1258,7 +1672,7 @@ def main() -> int:
         f"planner {pg_stats['kernel_s'] * 1e3:.2f} ms; 3 more (e2e ms, planner ms): "
         + ", ".join(f"({e:.2f}, {k:.2f})" for e, k in samples) + "; cache "
         + json.dumps({k: v for k, v in pg_stats.items()
-                      if k not in ("mode", "kernel_s", "launches", "rounds")}))
+                      if k not in ("mode", "kernel_s", "device_s", "launches", "rounds")}))
 
     # C1: spread past the kernels' shared memory, counted on its own
     c1_phase(dev)
@@ -1523,6 +1937,13 @@ def main() -> int:
         if name in server_wf_launches:
             row["paths"]["server_wavefront"] = server_wf_launches[name]
         row["launches"] = sum(row["paths"].values())
+    # ---- 6. the scheduler front ---------------------------------------------
+    sched_launches, sched_timings = scheduler_phase(dev)
+    for row in kernels:
+        if row["name"] in sched_launches:
+            row["paths"]["scheduler"] = sched_launches[row["name"]]
+            row["launches"] = sum(row["paths"].values())
+    log(f"scheduler timings: {json.dumps(sched_timings)}")
     # K1-K4's own kernels are not launched on the paths: the primitives run
     # inside every launch of the kernels that inline them
     launched = {row["name"]: row["launches"] for row in kernels}

@@ -21,8 +21,10 @@ Modules: ``problems`` (seeded synthetic clusters and drain batches),
 ``exact_np`` (the float64 host oracle), ``kernel`` (args, plain versions,
 kernel wrappers), ``planner`` (one eval's planner dispatch), ``wavefront``
 (the wavefront planner and its stanza), ``paging`` (the paged windowed
-planner, its tile cache, stanza and numpy oracle), ``columnar``
-(per-group planes), ``mirror`` (device-resident node planes and the
+planner, its tile cache, stanza and numpy oracle), ``columnar`` (the
+columnar cluster and per-group planes built from a state snapshot),
+``batch_sched`` (the ``tpu-batch`` scheduler, whose placement loop calls
+``planner.launch_eval``), ``mirror`` (device-resident node planes and the
 dirty-row scatter), ``drain`` (the fused multi-eval drain batch and the
 per-eval usage bases) and ``_build`` (nvcc build of ``csrc/``). The
 applier's dense verify is ``nomad_tpu_torch.core.plan_apply``.

@@ -18,10 +18,11 @@ runs the wavefront planner in the scan's place, as the JAX collector does;
 the usage bases read its placements the same way.
 
 The inputs are the numpy records that cross the JAX package's own
-host/device boundary: ``DrainPrep`` per eval (what
-``batch_sched._prepare_drain`` builds) and the shared node planes. The
-JAX module's tracing, metrics, device ledger, mesh and paging fallback
-are not ported here.
+host/device boundary: ``DrainPrep`` per eval (what the port's
+``batch_sched._prepare_drain`` builds, as the JAX scheduler's does) and
+the shared node planes (``SharedCluster.from_snapshot`` builds them from
+a state snapshot). The JAX module's tracing, metrics, device ledger, mesh
+and paging fallback are not ported here.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 
 from .. import resolve_device
 from . import kernel, wavefront
-from .columnar import R_COLS, GroupPlanes
+from .columnar import R_COLS, ColumnarCluster, GroupPlanes
 from .problems import bucket
 
 logger = logging.getLogger("nomad_tpu_torch.tpu.drain")
@@ -66,7 +67,9 @@ class SharedCluster:
     ``capacity`` [n,C], ``usable`` [n,2] and the committed usage ``used0``
     [n,C] of the n real nodes. With a ``device_state`` (the server path)
     the batch reads the planes from that device-resident copy instead of
-    uploading these."""
+    uploading these. Built ``from_snapshot``, it also carries the ready
+    ``nodes`` and their ``ColumnarCluster`` (``cluster``), which the
+    ``tpu-batch`` scheduler's drain branch reads."""
 
     def __init__(self, capacity, usable, used0, device_state=None):
         self.capacity = np.asarray(capacity)
@@ -74,6 +77,23 @@ class SharedCluster:
         self.used0 = np.asarray(used0)
         self.n_real = self.capacity.shape[0]
         self.device_state = device_state
+        self.nodes: Optional[list] = None
+        self.cluster = None
+
+    @classmethod
+    def from_snapshot(cls, snapshot, device_state=None) -> "SharedCluster":
+        """The planes of a state snapshot's ready nodes, as the JAX
+        package's ``SharedCluster(snapshot)`` builds them without a mirror:
+        ``ColumnarCluster.shared`` over the ready nodes in store order and
+        the snapshot's usage ``initial_used``. ``device_state``, where
+        given, must hold these planes."""
+        nodes = [n for n in snapshot.nodes() if n.ready()]
+        cluster = ColumnarCluster.shared(snapshot, nodes)
+        used0 = cluster.initial_used(snapshot).astype(np.int64)
+        shared = cls(cluster.capacity, cluster.usable, used0, device_state)
+        shared.nodes = nodes
+        shared.cluster = cluster
+        return shared
 
 
 @dataclass
@@ -369,6 +389,10 @@ class KernelBatchCollector:
         self._parked: list[_Parked] = []
         self._consumed: set[str] = set()
         self.invocations = 0
+        #: per-node port indexes shared by the batch's evals (the
+        #: scheduler's dynamic-port post-pass), under ``net_lock``
+        self.net_indexes: dict = {}
+        self.net_lock = threading.Lock()
 
     def consumed(self, eval_id: str) -> bool:
         with self._lock:

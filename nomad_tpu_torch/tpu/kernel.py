@@ -36,6 +36,14 @@ NEG_INF = -1e30
 RUNCAP = 512  # max placements resolved by a single fill run
 
 
+class KernelFault(ValueError):
+    """An input the planners' kernels do not take, refused by a wrapper
+    before any launch (today: a resource column count outside what a
+    kernel keeps). The ``tpu-batch`` scheduler degrades exactly this to
+    its exact-np host oracle; a CUDA build, launch or sync error is not
+    one and propagates."""
+
+
 class BatchArgs(NamedTuple):
     """Static planes of one batch of G groups across E evals (``C`` is the
     resource column count: 4, or 5 when devices ride the kernel)."""
@@ -712,7 +720,7 @@ def plan_batch(args: BatchArgs, init: BatchState, n_real: int, walked: torch.Ten
     _check_index(args.groups, G, "groups")
     _check_index(args.group_eval, E, "group_eval")
     if not 2 <= C <= SCAN_MAX_COLS:
-        raise ValueError(f"the exact scan takes 2 to {SCAN_MAX_COLS} resource columns, not {C}")
+        raise KernelFault(f"the exact scan takes 2 to {SCAN_MAX_COLS} resource columns, not {C}")
     if walked is not None and (walked.shape != (1,) or walked.dtype != torch.int64
                                or walked.device != device):
         raise ValueError("walked must be a one-element int64 tensor on the scan's device")
@@ -745,7 +753,7 @@ def plan_batch_runs(args: RunArgs, init, a_pad: int, even_mode: bool = False):
     d = _check_cuda({**args._asdict(), **init}, _RUN_SHAPES, device)
     N, C, V = d["N"], d["C"], d["V"]
     if C < 2:
-        raise ValueError(f"the run planner takes at least 2 resource columns, not {C}")
+        raise KernelFault(f"the run planner takes at least 2 resource columns, not {C}")
     used, coll, counts, present = (t.clone() for t in init.values())
     placements = torch.empty(a_pad, dtype=torch.int32, device=device)
     rounds = torch.zeros(1, dtype=torch.int32, device=device)
@@ -806,7 +814,7 @@ def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad
     if not 0 < n_real <= N:
         raise ValueError(f"n_real {n_real} outside (0, {N}]")
     if C < 2:
-        raise ValueError(f"the windowed planner takes at least 2 resource columns, not {C}")
+        raise KernelFault(f"the windowed planner takes at least 2 resource columns, not {C}")
     placements = torch.empty(a_pad, dtype=torch.int32, device=device)
     rounds = torch.empty(1, dtype=torch.int32, device=device)
     lib = _build.library()

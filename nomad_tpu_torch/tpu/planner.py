@@ -11,17 +11,22 @@ scheduler's do: a windowed eval whose node planes exceed the paging
 budget goes to the paged planner (``paging.should_page``, mode
 ``paged``), and with the wavefront on the exact scan's place is taken by
 the wavefront planner (mode ``wavefront``). There is no fallback: a
-kernel failure raises.
+kernel failure raises. ``launch_eval`` launches without waiting for the
+card, so the port's ``tpu-batch`` scheduler (``batch_sched.py``) builds
+its allocation templates while the planner runs; it degrades an eval to
+its exact-np oracle only on ``kernel.KernelFault``.
 
 The planes are numpy arrays under the ``BatchArgs`` field names (G groups,
 E evals), plus ``used0`` [N,C], ``collisions0`` [G,N], ``counts0`` [G,V],
 ``present0`` [G,V] and the real node and alloc counts ``n_real`` and
-``a_real``; ``problems.eval_planes`` builds them from a synthetic cluster.
+``a_real``; ``problems.eval_planes`` builds them from a synthetic cluster,
+the scheduler from a state snapshot.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -72,14 +77,15 @@ def pad_planes(planes: dict) -> dict:
     return out
 
 
-def choose_mode(planes: dict) -> str:
+def choose_mode(planes: dict, exact_only: bool = False) -> str:
     """``runs``, ``windowed``, ``paged``, ``exact-scan`` or ``wavefront``, by
     the scheduler's predicates (batch_sched.py:690, :768, :785 and :917)
-    on padded planes."""
+    on padded planes; ``exact_only`` (the scheduler's ``EXACT_ONLY``)
+    leaves out the runs and windowed planners."""
     G = planes["feasible"].shape[0]
     E = planes["perm"].shape[0]
     exact = "wavefront" if wavefront.enabled() else "exact-scan"
-    if G != 1 or E != 1:
+    if exact_only or G != 1 or E != 1:
         return exact
     has_aff_or_spread = bool(planes["affinity_present"][0].any() or planes["spread_active"][0])
     limit, n_real, a_real = int(planes["limits"][0]), planes["n_real"], planes["a_real"]
@@ -149,23 +155,67 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def plan_eval(planes: dict, device=None):
-    """Plan one eval; returns (node id per real alloc, -1 = unplaced, as
-    numpy int32; stats ``{mode, rounds, kernel_s, launches}``, and for the
-    paged planner its tile cache's stats with ``tiles`` and ``tile_nodes``).
-    ``kernel_s`` is the planner call on the device, from
-    launch to synchronized result (for the paged planner the whole
-    host-driven tile stream); ``launches`` counts the kernel launches it
-    made (0 on the CPU)."""
+def _event(device: torch.device):
+    """A CUDA event recorded now on the current stream (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+@dataclass
+class PendingPlan:
+    """A launched plan: its mode, padded sizes, kernel launches and the
+    paged planner's ``extra`` stats are known at launch; ``wait()`` syncs
+    and returns what ``plan_eval`` returns. ``events`` are the CUDA events
+    recorded around the launch on the card (None on the CPU)."""
+
+    mode: str
+    n_pad: int
+    a_pad: int
+    launches: int
+    extra: dict
+    placements: torch.Tensor
+    rounds: object  # an int, or a device scalar read at the sync
+    a_real: int
+    t0: float
+    device: torch.device
+    events: object = None
+
+    def wait(self):
+        _sync(self.device)
+        kernel_s = time.perf_counter() - self.t0
+        device_s = None
+        if self.events is not None:
+            start, end = self.events
+            device_s = start.elapsed_time(end) / 1e3
+        stats = dict(
+            mode=self.mode,
+            rounds=int(self.rounds),
+            kernel_s=kernel_s,
+            device_s=device_s,
+            launches=self.launches,
+            **self.extra,
+        )
+        return self.placements[: self.a_real].cpu().numpy(), stats
+
+
+def launch_eval(planes: dict, device=None, exact_only: bool = False) -> PendingPlan:
+    """Pad the planes, choose the planner and launch it without waiting for
+    the card (the paged planner's host-driven tile stream waits inside).
+    A kernel's refusal of its input raises ``kernel.KernelFault`` here,
+    before any launch."""
     dev = resolve_device(device)
     p = pad_planes(planes)
-    mode = choose_mode(p)
+    mode = choose_mode(p, exact_only)
     n_real, a_real = p["n_real"], p["a_real"]
     A = p["demands"].shape[0]
+    N = p["capacity"].shape[0]
     before = sum(kernel.LAUNCHES.values())
     extra = {}
     if mode == "paged":
-        t0 = time.perf_counter()
+        t0, start = time.perf_counter(), _event(dev)
         placements, rounds, pstats = paging.plan_batch_paged(
             p["capacity"], p["usable"], p["feasible"][0], p["perm"][0], p["demands"][0],
             int(p["group_count"][0]), int(p["limits"][0]), a_real, p["used0"],
@@ -173,34 +223,40 @@ def plan_eval(planes: dict, device=None):
         )
         placements = torch.from_numpy(placements)
         extra = {k: v for k, v in pstats.items() if k != "rounds"}
+        N = pstats["n_pad"]
     elif mode == "runs":
         args, init = runs_inputs(p, dev)
         _sync(dev)
-        t0 = time.perf_counter()
+        t0, start = time.perf_counter(), _event(dev)
         placements, rounds = kernel.plan_batch_runs(args, init, A, bool(p["spread_even"][0]))
     elif mode == "windowed":
         args, used0, coll0 = window_inputs(p, dev)
         _sync(dev)
-        t0 = time.perf_counter()
+        t0, start = time.perf_counter(), _event(dev)
         placements, rounds = kernel.plan_batch_windowed(args, used0, coll0, n_real, A)
     elif mode == "wavefront":
         args, state = exact_inputs(p, dev)
         _sync(dev)
-        t0 = time.perf_counter()
+        t0, start = time.perf_counter(), _event(dev)
         _, placements, rounds = wavefront.plan_batch_wavefront(args, state, n_real)
     else:
         args, state = exact_inputs(p, dev)
         _sync(dev)
-        t0 = time.perf_counter()
+        t0, start = time.perf_counter(), _event(dev)
         _, placements = kernel.plan_batch(args, state, n_real)
         rounds = a_real  # one scan step per alloc
-    _sync(dev)
-    kernel_s = time.perf_counter() - t0
-    stats = dict(
-        mode=mode,
-        rounds=int(rounds),
-        kernel_s=kernel_s,
-        launches=sum(kernel.LAUNCHES.values()) - before,
-        **extra,
-    )
-    return placements[:a_real].cpu().numpy(), stats
+    launches = sum(kernel.LAUNCHES.values()) - before
+    events = (start, _event(dev)) if start is not None else None
+    return PendingPlan(mode, N, A, launches, extra, placements, rounds, a_real, t0, dev, events)
+
+
+def plan_eval(planes: dict, device=None):
+    """Plan one eval; returns (node id per real alloc, -1 = unplaced, as
+    numpy int32; stats ``{mode, rounds, kernel_s, device_s, launches}``,
+    and for the paged planner its tile cache's stats with ``tiles``,
+    ``tile_nodes`` and ``n_pad``). ``kernel_s`` is the planner call on the
+    device, from launch to synchronized result (for the paged planner the
+    whole host-driven tile stream); ``device_s`` the same span by CUDA
+    events on the card (None on the CPU); ``launches`` counts the kernel
+    launches it made (0 on the CPU)."""
+    return launch_eval(planes, device).wait()

@@ -338,7 +338,7 @@ def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid
     kernel._check_index(args.groups, G, "groups")
     kernel._check_index(args.group_eval, E, "group_eval")
     if not 2 <= C <= kernel.SCAN_MAX_COLS:
-        raise ValueError(f"the wavefront takes 2 to {kernel.SCAN_MAX_COLS} resource columns, "
+        raise kernel.KernelFault(f"the wavefront takes 2 to {kernel.SCAN_MAX_COLS} resource columns, "
                          f"not {C}")
     if walked is not None and (walked.shape != (1,) or walked.dtype != torch.int64
                                or walked.device != device):

@@ -1258,3 +1258,107 @@ def test_dense_verify_on_device_state(cuda_device):
         np.testing.assert_array_equal(got, want)
         assert want.any() and not want.all()
     assert not np.array_equal(cpu[0], cpu[1])
+
+
+# ---------------------------------------------------------------------------
+# the scheduler front: the port's tpu-batch on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _sched_cluster(n, dcs, devices=False):
+    import random
+
+    from nomad_tpu_torch import mock
+
+    rng = random.Random(99)
+    nodes = []
+    for i in range(n):
+        node = mock.tpu_node() if devices and i % 4 == 0 else mock.node()
+        node.node_resources.cpu.cpu_shares = rng.choice([2000, 4000, 8000])
+        node.node_resources.memory.memory_mb = rng.choice([4096, 8192, 16384])
+        node.datacenter = f"dc{i % dcs + 1}"
+        nodes.append(node)
+    return [nd.to_dict() for nd in nodes]
+
+
+def _sched_job(count, dcs, spread=False, groups=1, device=False):
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs.model import RequestedDevice, Spread, SpreadTarget, TaskGroup
+
+    job = mock.job()
+    job.datacenters = [f"dc{i + 1}" for i in range(dcs)]
+    tg = job.task_groups[0]
+    tg.count = count
+    tg.tasks[0].resources.networks = []
+    if device:
+        tg.tasks[0].resources.devices = [RequestedDevice(name="tpu", count=1)]
+    if spread:
+        job.spreads = [Spread(attribute="${node.datacenter}", weight=100, spread_target=[
+            SpreadTarget(value=d, percent=100 // dcs) for d in job.datacenters])]
+    for g in range(1, groups):
+        other = TaskGroup.from_dict(tg.to_dict())
+        other.name = f"web{g}"
+        other.tasks[0].resources.cpu += 50 * g
+        job.task_groups.append(other)
+    return job
+
+
+#: shape -> (nodes, dcs, job kwargs, stanza, the mode the scheduler must count)
+SCHED_SHAPES = {
+    "runs": (300, 4, dict(count=1200, spread=True), None, "runs"),
+    "windowed": (300, 4, dict(count=1200), None, "windowed"),
+    "exact-scan": (300, 4, dict(count=40, groups=4), None, "exact-scan"),
+    "wavefront": (300, 4, dict(count=40, groups=4), "wavefront", "wavefront"),
+    "paged": (3000, 4, dict(count=2000), "paged", "paged"),
+    "device": (300, 1, dict(count=30, groups=2, device=True), None, "exact-scan"),
+}
+
+
+def _sched_place(dev, node_docs, job, stanza, monkeypatch):
+    from nomad_tpu_torch.scheduler import Harness
+    from nomad_tpu_torch.state.carry import carry_state
+    from nomad_tpu_torch.structs.model import Evaluation
+    from nomad_tpu_torch.tpu import batch_sched
+
+    ev = Evaluation(id="eval-1", namespace=job.namespace, priority=job.priority, type="service",
+                    triggered_by="job-register", job_id=job.id, status="pending")
+    h = Harness(state=carry_state([(1, "nodes", node_docs), (2, "job", job.to_dict()),
+                                   (3, "evals", [ev.to_dict()])]), seed=5, device=dev)
+    for _ in range(3):
+        h.next_index()
+    if stanza == "wavefront":
+        wavefront.configure(enabled=True, max_round=32, contention_top_m=1)
+    elif stanza == "paged":  # a budget below the planes
+        paging.configure(enabled=True, tile_nodes=1024)
+        monkeypatch.setattr(paging, "budget_mb", lambda: 0)
+    before = batch_sched.counters_snapshot()["modes"]
+    sched = h.process("tpu-batch", ev)
+    after = batch_sched.counters_snapshot()["modes"]
+    modes = {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+    placements = {a.name: a.node_id for a in h.state.allocs_by_job(job.namespace, job.id)}
+    failed = {k: {f: x for f, x in m.to_dict().items() if f != "allocation_time"}
+              for k, m in sched.failed_tg_allocs.items()}
+    return placements, failed, modes, dict(batch_sched.LAST_KERNEL_STATS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(SCHED_SHAPES))
+def test_tpu_batch_on_the_card_places_as_on_the_cpu(shape, cuda_device, monkeypatch):
+    """A real eval through the port's Harness on the card: the same
+    placements, failure metrics and mode as through the plain versions,
+    and the planner's kernels launched."""
+    n, dcs, kw, stanza, mode = SCHED_SHAPES[shape]
+    node_docs, job = _sched_cluster(n, dcs, devices=kw.get("device", False)), _sched_job(dcs=dcs, **kw)
+    tk.reset_launches()
+    got = _sched_place(cuda_device, node_docs, job, stanza, monkeypatch)
+    launches = sum(tk.LAUNCHES.values())
+    wavefront.reset()
+    paging.reset()
+    want = _sched_place("cpu", node_docs, job, stanza, monkeypatch)
+    assert got[2] == want[2] == {mode: 1}
+    assert got[0] == want[0] and got[0]
+    assert got[1] == want[1]
+    assert got[3]["launches"] == launches >= 1
+    # one timing of the planner: its launches by events lie inside its
+    # launch-to-sync span, which lies inside the dispatch
+    assert 0 < got[3]["device_s"] <= got[3]["kernel_s"] <= got[3]["dispatch_s"]
+    assert want[3]["device_s"] is None

@@ -31,6 +31,37 @@ MODULES = [
     "nomad_tpu_torch.tpu.paging",
     "nomad_tpu_torch.core",
     "nomad_tpu_torch.core.plan_apply",
+    "nomad_tpu_torch.structs",
+    "nomad_tpu_torch.structs.attribute",
+    "nomad_tpu_torch.structs.bitmap",
+    "nomad_tpu_torch.structs.model",
+    "nomad_tpu_torch.structs.network",
+    "nomad_tpu_torch.structs.node_class",
+    "nomad_tpu_torch.structs.devices",
+    "nomad_tpu_torch.structs.funcs",
+    "nomad_tpu_torch.native",
+    "nomad_tpu_torch.state",
+    "nomad_tpu_torch.state.planes",
+    "nomad_tpu_torch.state.store",
+    "nomad_tpu_torch.state.carry",
+    "nomad_tpu_torch.scheduler",
+    "nomad_tpu_torch.scheduler.context",
+    "nomad_tpu_torch.scheduler.version",
+    "nomad_tpu_torch.scheduler.feasible",
+    "nomad_tpu_torch.scheduler.rank",
+    "nomad_tpu_torch.scheduler.select",
+    "nomad_tpu_torch.scheduler.spread",
+    "nomad_tpu_torch.scheduler.propertyset",
+    "nomad_tpu_torch.scheduler.preemption",
+    "nomad_tpu_torch.scheduler.stack",
+    "nomad_tpu_torch.scheduler.util",
+    "nomad_tpu_torch.scheduler.reconcile",
+    "nomad_tpu_torch.scheduler.device",
+    "nomad_tpu_torch.scheduler.generic",
+    "nomad_tpu_torch.scheduler.scheduler",
+    "nomad_tpu_torch.scheduler.testing",
+    "nomad_tpu_torch.mock",
+    "nomad_tpu_torch.tpu.batch_sched",
 ]
 
 
