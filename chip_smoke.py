@@ -109,9 +109,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and id build, the sync; within it the planner from launch to sync and
    by CUDA events), the materialize and the rest (reconcile); the
    harness's plan apply follows on its own clock;
-7. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
-   scheduler launches), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+7. the server, with every launch counter set to 0 before and read after:
+   the port's ``Server(config, device="cuda")`` on the soak scenario's
+   server config (nomad_tpu/loadgen/scenarios.py:125-190: seed 42,
+   ``tpu-batch``, ``batch_drain`` 8, ``plan_apply_batch`` 8, the event
+   broker on) with 10,000 mock nodes registered through
+   ``node_register`` (the scheduler phase's tiers, 4 datacenters); with
+   no worker running, 8 batch jobs of 7,500-10,000 allocs (cpu 50/100,
+   memory 32/64, the soak's preload) are registered, then two drain
+   workers start; after them a system job (``tpu-system``, one alloc a
+   ready node) and a service job of 5,000 allocs that a worker plans solo
+   (the windowed planner). Checks: every eval completes, every job has
+   its count, no node over capacity, no scheduler fallback, and the fused
+   drain's scan (or wavefront) and usage bases, the mirror's dirty-row
+   scatter, the applier's dense verify and the solo eval's planner each
+   launched; every call of the run to the usage bases, the dirty-row
+   scatter and the dense verify, and the planners' calls from the fewest
+   lanes up (within 30 s of replays a kernel, at least one), equal their
+   plain versions on the card on a copy of the same inputs. Printed: each
+   drained eval's registration-to-complete time, the fused batches and
+   modes, the applier's plans, device verifies and degrades, the stages'
+   counts, summed times and wall covered (``StageClock``, over the whole
+   run), the mirror's uploads, refreshes and rows scattered, raft
+   applies, each kernel's calls by CUDA events and the calls held
+   against the plain versions. Then the same phase
+   at 1,000 nodes, 8 batch jobs of 200 allocs and one drain worker, on
+   the card and on the CPU, must place identically;
+8. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
+   scheduler and server launches), the card's name and power limit, and
+   last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
 """
@@ -231,7 +257,7 @@ def _device_trace(fn, calls: int):
 
     fn()
     torch.cuda.synchronize()
-    for n in (calls, 2 * calls, 4 * calls):
+    for n in (calls, 2 * calls, 4 * calls) * 2:
         traces = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
@@ -260,7 +286,8 @@ def device_us(fn, calls: int = 20):
     trace's first kernels in a process that had traced before). Every
     call puts the same records on the card, so each record's count is a
     multiple of the calls; a trace with fewer is taken again with twice the
-    calls, then four times. None when no trace holds every record."""
+    calls, then four times, and that round once more (a loaded host has
+    lost records of all three). None when no trace holds every record."""
     trace = _device_trace(fn, calls)
     if trace is None:
         return None
@@ -1468,6 +1495,439 @@ def scheduler_phase(dev, size: dict = SCHED) -> tuple:
     return launches, dict(nodes=n, allocs=a, runs=runs)
 
 
+#: the server phase's full-width run: the soak scenario's server config
+#: (nomad_tpu/loadgen/scenarios.py:125-190) and its preload of batch jobs
+SERVER = dict(nodes=10_000, dcs=4, batch_jobs=8, batch_allocs=(7_500, 10_000),
+              service_allocs=5_000, workers=2)
+#: the smaller run, placed on the card and on the CPU: one drain worker, so
+#: the batch's evals fuse the same way in both runs
+SERVER_SMALL = dict(nodes=1_000, dcs=4, batch_jobs=8, batch_allocs=(200, 200),
+                    service_allocs=1_000, workers=1)
+SERVER_CONFIG = {"seed": 42, "heartbeat_ttl": 86400.0, "default_scheduler": "tpu-batch",
+                 "batch_drain": 8, "plan_apply_batch": 8, "nack_timeout": 120.0,
+                 "event_broker": {"event_buffer_size": 16384}}
+#: the kernels the server phase must launch: the fused drain's scan (or the
+#: wavefront) and usage bases, the mirror's dirty-row scatter, the
+#: applier's dense verify and the solo service eval's windowed planner
+SERVER_RUN_KERNELS = ("exact_scan", "wavefront", "used_bases", "scatter_rows", "verify_rows",
+                      "windowed")
+
+
+def server_jobs(size: dict, seed: int = 42) -> tuple:
+    """(batch jobs, system job, service job) as documents: the soak's
+    preload of batch jobs (counts from ``batch_allocs``, cpu 50/100,
+    memory 32/64), one system job and one service job, all over the
+    ``dcs`` datacenters with no network ask."""
+    from nomad_tpu_torch import mock
+
+    rng = random.Random(seed)
+    dcs = [f"dc{i + 1}" for i in range(size["dcs"])]
+    batch = []
+    for _ in range(size["batch_jobs"]):
+        job = mock.batch_job()
+        job.datacenters = dcs
+        task = job.task_groups[0].tasks[0]
+        job.task_groups[0].count = rng.randint(*size["batch_allocs"])
+        task.resources.cpu, task.resources.memory_mb = rng.choice((50, 100)), rng.choice((32, 64))
+        batch.append(job.to_dict())
+    system = mock.system_job()
+    system.datacenters = dcs
+    system.task_groups[0].tasks[0].resources.networks = []
+    service = mock.job()
+    service.datacenters = dcs
+    service.task_groups[0].count = size["service_allocs"]
+    service.task_groups[0].tasks[0].resources.networks = []
+    return batch, system.to_dict(), service.to_dict()
+
+
+def _snapshot(x):
+    """``x`` with every tensor in it cloned (namedtuples, tuples and lists
+    kept); on the caller's stream, so the clone is what the kernel just
+    read or wrote."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_snapshot(t) for t in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_snapshot(t) for t in x)
+    return x
+
+
+def _flat(x) -> list:
+    """The tensors and numbers of a kernel's output, in order."""
+    if isinstance(x, (tuple, list)):
+        return [t for part in x for t in _flat(part)]
+    return [x]
+
+
+class ServerProbe:
+    """Records every call of the server path's kernel wrappers during a
+    run: its CUDA events on the caller's stream (the server launches on
+    the default stream from every thread) and a copy of its inputs and
+    output, which ``check`` replays through the kernel's plain version on
+    the same device after the run."""
+
+    #: the wrappers the server path calls: (module, attribute, kernel)
+    TARGETS = (("kernel", "plan_batch", "exact_scan"),
+               ("wavefront", "plan_batch_wavefront", "wavefront"),
+               ("kernel", "plan_batch_windowed", "windowed"), ("kernel", "plan_batch_runs", "runs"),
+               ("drain", "used_bases", "used_bases"), ("mirror", "scatter_rows", "scatter_rows"),
+               ("kernel", "verify_rows", "verify_rows"))
+    #: the planners, whose plain versions walk the lanes one by one: their
+    #: calls replay from the fewest lanes up while the replays of the
+    #: kernel have taken under this many seconds (at least one call each);
+    #: every call of the other kernels replays
+    PLANNER_REPLAY_S = 30.0
+    PLANNERS = ("exact_scan", "wavefront", "windowed", "runs")
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.spans: dict = {}
+        self.calls: dict = {}
+        self._lock = threading.Lock()
+
+    def _wrap(self, name, fn):
+        def probed(*args, **kwargs):
+            timed = self.dev.type == "cuda"
+            if timed:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            out = fn(*args, **kwargs)
+            if timed:
+                end.record()
+            call = (_snapshot(args), _snapshot(out))
+            with self._lock:
+                if timed:
+                    self.spans.setdefault(name, []).append((start, end))
+                self.calls.setdefault(name, []).append(call)
+            return out
+        return probed
+
+    @contextlib.contextmanager
+    def installed(self):
+        from nomad_tpu_torch.tpu import drain, kernel, mirror, wavefront
+
+        modules = dict(kernel=kernel, wavefront=wavefront, drain=drain, mirror=mirror)
+        with contextlib.ExitStack() as stack:
+            for module, attr, name in self.TARGETS:
+                m = modules[module]
+                stack.enter_context(mock.patch.object(m, attr, self._wrap(name, getattr(m, attr))))
+            yield self
+
+    def event_ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {name: [s.elapsed_time(e) for s, e in pairs] for name, pairs in self.spans.items()}
+
+    @staticmethod
+    def _lanes(name, args) -> int:
+        """The lanes a planner's plain version walks in this call."""
+        if name in ("exact_scan", "wavefront"):
+            return int(args[0].valid.sum())
+        return int(args[0].n_allocs)
+
+    @staticmethod
+    def _plain(name, args):
+        from nomad_tpu_torch.tpu import drain, kernel, mirror, wavefront
+
+        if name == "exact_scan":
+            return kernel.plan_batch_ref(*args[:3])
+        if name == "wavefront":
+            bargs, init, n_real = args[:3]
+            return wavefront.plan_batch_wavefront_ref(
+                bargs, init, n_real, wavefront.window_for(int(bargs.demands.shape[0])),
+                wavefront.contention_top_m(), wavefront.shards_for(bargs.capacity.shape[0], 1))
+        return dict(windowed=kernel.plan_batch_windowed_ref, runs=kernel.plan_batch_runs_ref,
+                    used_bases=drain.used_bases_ref, scatter_rows=mirror.scatter_rows_ref,
+                    verify_rows=kernel.verify_rows_ref)[name](*args)
+
+    def check(self) -> dict:
+        """Replays the recorded calls through the plain versions; returns
+        kernel -> {calls, replayed, lanes replayed, max_abs_err, seconds}.
+        The caller fails on any error."""
+        out = {}
+        for name, calls in self.calls.items():
+            t0 = time.perf_counter()
+            order = list(range(len(calls)))
+            lanes = [0] * len(calls)
+            if name in self.PLANNERS:
+                lanes = [self._lanes(name, args) for args, _ in calls]
+                order.sort(key=lanes.__getitem__)
+            err, replayed = 0, []
+            for i in order:
+                if (replayed and name in self.PLANNERS
+                        and time.perf_counter() - t0 > self.PLANNER_REPLAY_S):
+                    break
+                args, got = calls[i]
+                want = self._plain(name, args)
+                err = max(err, max_abs_err(zip(_flat(got), _flat(want))))
+                replayed.append(i)
+            out[name] = dict(calls=len(calls), replayed=len(replayed),
+                             lanes_replayed=sum(lanes[i] for i in replayed),
+                             lanes_left=sum(lanes) - sum(lanes[i] for i in replayed),
+                             max_abs_err=err, seconds=time.perf_counter() - t0)
+        return out
+
+
+class StageClock:
+    """Sums the server's stage timers over a run, whatever the metrics'
+    window keeps: every ``metrics.sample`` of a named stage adds its
+    seconds to the stage's total and its interval (ending at the sample)
+    to the stage's intervals, whose union is the wall time in which at
+    least one such stage ran (commits of one applier overlap)."""
+
+    STAGES = ("eval.e2e", "plan.submit", "plan.queue_wait", "plan.evaluate",
+              "plan.verify_device", "plan.raft_apply", "drain.batch_build")
+
+    def __init__(self):
+        self.spans = {name: [] for name in self.STAGES}
+        self._lock = threading.Lock()
+
+    @contextlib.contextmanager
+    def installed(self):
+        from nomad_tpu_torch import metrics
+
+        real = metrics.sample
+
+        def sample(name, seconds, exemplar=None):
+            if name in self.spans:
+                now = time.monotonic()
+                with self._lock:
+                    self.spans[name].append((now - seconds, now))
+            return real(name, seconds, exemplar)
+
+        with mock.patch.object(metrics, "sample", sample):
+            yield self
+
+    def stats(self, wall_s: float) -> dict:
+        """stage -> {count, sum_ms, wall_ms, wall_share of ``wall_s``}."""
+        out = {}
+        for name, spans in self.spans.items():
+            covered, end = 0.0, float("-inf")
+            for a, b in sorted(spans):
+                if b > end:
+                    covered += b - max(a, end)
+                    end = b
+            out[name] = dict(count=len(spans), sum_ms=1e3 * sum(b - a for a, b in spans),
+                             wall_ms=1e3 * covered, wall_share=covered / wall_s if wall_s else None)
+        return out
+
+
+def server_run(dev, size: dict, node_docs: list, jobs: tuple) -> dict:
+    """One run of the server phase on ``dev`` (module docstring, phase 7):
+    returns its placements, the checks' findings and its numbers."""
+    from nomad_tpu_torch import metrics
+    from nomad_tpu_torch.core.server import Server
+    from nomad_tpu_torch.structs.model import Job, Node
+    from nomad_tpu_torch.tpu import batch_sched, drain
+
+    batch_docs, system_doc, service_doc = jobs
+    drain0, modes0 = dict(drain.DRAIN_COUNTERS), batch_sched.counters_snapshot()
+    metrics0 = metrics.snapshot()
+    threads0 = set(threading.enumerate())
+    server = Server(dict(SERVER_CONFIG), device=dev)
+    out: dict = {}
+    clock = StageClock()
+    with clock.installed():
+        try:
+            server.start(num_workers=0, wait_for_leader=5.0)
+            t0 = time.perf_counter()
+            for d in node_docs:
+                server.node_register(Node.from_dict(d))
+            out["register_s"] = time.perf_counter() - t0
+
+            def wait(ids: list, registered: dict, limit_s: float) -> dict:
+                """Poll until every eval completes; returns eval id -> seconds
+                from its registration to the first poll that saw it complete."""
+                done: dict = {}
+                deadline = time.perf_counter() + limit_s
+                while len(done) < len(ids):
+                    now = time.perf_counter()
+                    for e in ids:
+                        if e not in done:
+                            ev = server.state.eval_by_id(e)
+                            if ev is not None and ev.status == "complete":
+                                done[e] = now - registered[e]
+                            elif ev is not None and ev.status in ("failed", "cancelled"):
+                                fail(f"server: eval {e} ended {ev.status}: {ev.status_description}")
+                    if now > deadline:
+                        fail(f"server: {len(ids) - len(done)} evals not complete in {limit_s:.0f} s")
+                    time.sleep(0.005)
+                return done
+
+            jobs_all, registered = [], {}
+            t_jobs = time.perf_counter()
+            for d in batch_docs:
+                job = Job.from_dict(d)
+                jobs_all.append(job)
+                t = time.perf_counter()
+                eid = server.job_register(job)
+                registered[eid] = t
+            batch_ids = list(registered)
+            t_workers = time.perf_counter()
+            server.start_workers(size["workers"])
+            out["batch_latency_s"] = wait(batch_ids, registered, 300.0)
+            out["batch_wall_s"] = time.perf_counter() - t_workers
+            for label, d in (("system", system_doc), ("service", service_doc)):
+                job = Job.from_dict(d)
+                jobs_all.append(job)
+                t = time.perf_counter()
+                eid = server.job_register(job)
+                out[f"{label}_latency_s"] = wait([eid], {eid: t}, 300.0)[eid]
+            # the follow-up evals (the system job preempts batch allocs on the
+            # nodes the fused scan packed full; each preempted job's eval
+            # places their replacements) run to their end before the checks
+            t = time.perf_counter()
+            while True:
+                evs = server.state.evals()
+                if all(e.terminal_status() or e.should_block() for e in evs):
+                    break
+                if time.perf_counter() - t > 300.0:
+                    fail("server: follow-up evals not terminal in 300 s")
+                time.sleep(0.02)
+            out["follow_up_s"] = time.perf_counter() - t
+            out["jobs_wall_s"] = time.perf_counter() - t_jobs
+            out["evals"] = {}
+            for e in evs:
+                key = f"{e.triggered_by}:{e.status}"
+                out["evals"][key] = out["evals"].get(key, 0) + 1
+
+            snap = server.state.snapshot()
+            live = [(j, a) for j in jobs_all for a in snap.allocs_by_job(j.namespace, j.id)]
+            out["preempted"] = sum(1 for _, a in live if a.terminal_status())
+            placed = sorted((j.id, a.name, a.node_id) for j, a in live if not a.terminal_status())
+            counts = {j.id: 0 for j in jobs_all}
+            for job_id, _, _ in placed:
+                counts[job_id] += 1
+            eligible = sum(1 for n in snap.nodes() if n.ready())
+            want = {j.id: (eligible if j.type == "system" else j.task_groups[0].count) for j in jobs_all}
+            short = {k: (counts[k], want[k]) for k in want if counts[k] != want[k]}
+            out.update(placed=placed, short=short, over=sched_over_capacity(server),
+                       mirror=server.columnar_mirror.stats(), raft_applied=server.raft.last_applied)
+        finally:
+            server.stop()
+            # a thread of the server still running at the interpreter's exit
+            # can abort the process: every one must end here
+            t = time.perf_counter()
+            while True:
+                left = [th for th in threading.enumerate() if th not in threads0 and th.is_alive()
+                        and th.name != "eval-broker-timers"]
+                if not left or time.perf_counter() - t > 60.0:
+                    break
+                time.sleep(0.05)
+            if left:
+                fail(f"server: threads alive 60 s after stop: {[th.name for th in left]}")
+    after = batch_sched.counters_snapshot()
+    out["drain"] = {k: drain.DRAIN_COUNTERS[k] - drain0[k] for k in drain0}
+    out["modes"] = {k: v - modes0["modes"].get(k, 0) for k, v in after["modes"].items()
+                    if v != modes0["modes"].get(k, 0)}
+    out["fallbacks"] = {k: v - modes0["fallback_reasons"].get(k, 0)
+                        for k, v in after["fallback_reasons"].items()
+                        if v != modes0["fallback_reasons"].get(k, 0)}
+    m1 = metrics.snapshot()
+    counters = {k: v - metrics0["counters"].get(k, 0) for k, v in m1["counters"].items()
+                if v != metrics0["counters"].get(k, 0)}
+    # the stages' host times over the run, from the first job's
+    # registration to the end of the follow-up evals: the eval end to end,
+    # the worker's plan submit, the plan's wait in the queue, its verify
+    # (of which the dense verify on the device), the raft commit of the
+    # applier's batches (which overlap) and the drain's batch build; each
+    # with its count, its sum and the wall time it covered
+    out["stages"] = clock.stats(out.get("jobs_wall_s", 0.0))
+    out["applier"] = dict(
+        plans_evaluated=out["stages"]["plan.evaluate"]["count"],
+        device_verify_calls=out["stages"]["plan.verify_device"]["count"],
+        degrades={k: v for k, v in counters.items() if k.startswith("plan.verify_device_degrade")},
+        mirror_stale=counters.get("tpu.mirror_stale", 0))
+    return out
+
+
+def server_phase(dev) -> dict:
+    """The server phase (module docstring, phase 7). Returns the launches
+    per kernel of the full-width run and its kernel ms by events."""
+    from nomad_tpu_torch.tpu import kernel
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    node_docs = [n.to_dict() for n in sched_nodes(SERVER["nodes"], SERVER["dcs"])]
+    jobs = server_jobs(SERVER)
+    probe = ServerProbe(dev)
+    kernel.reset_launches()
+    with probe.installed():
+        run = server_run(dev, SERVER, node_docs, jobs)
+        launches = path_launches(SERVER_RUN_KERNELS)
+    event_ms = probe.event_ms()
+    log(f"server phase launches: {launches}")
+    planner_launches = launches["exact_scan"] + launches["wavefront"]
+    missing = [k for k in ("used_bases", "scatter_rows", "verify_rows", "windowed")
+               if launches[k] < 1]
+    if planner_launches < 1 or missing:
+        fail(f"server phase: kernels not launched: {missing or ['exact_scan or wavefront']}")
+    if run["short"]:
+        fail(f"server phase: jobs short of their count (placed, wanted): {run['short']}")
+    if run["over"]:
+        fail(f"server phase: {run['over']} nodes over capacity")
+    # a follow-up eval of a few placements rides the scalar oracle by design
+    # (the small-eval gate); any other fallback fails the phase
+    if set(run["fallbacks"]) - {"small_eval"}:
+        fail(f"server phase: scheduler fallbacks {run['fallbacks']}")
+    # every call of the run against its kernel's plain version, on the
+    # inputs it was given (the planners' calls from the fewest lanes up)
+    held = probe.check()
+    for name, h in sorted(held.items()):
+        log(f"server: {name} held against its plain version on {h['replayed']} of its "
+            f"{h['calls']} calls ({h['lanes_replayed']} lanes replayed, {h['lanes_left']} not) in "
+            f"{h['seconds']:.1f} s, max abs err {h['max_abs_err']}")
+        if h["max_abs_err"]:
+            fail(f"server phase: {name} differs from its plain version (max abs err "
+                 f"{h['max_abs_err']})")
+    lat = sorted(run["batch_latency_s"].values())
+    log(f"server: {SERVER['nodes']} nodes registered in {run['register_s']:.1f} s; "
+        f"{len(run['placed'])} allocs placed, every job at its count, no node over capacity")
+    log(f"server: drained evals, registration to complete (s): "
+        f"{', '.join(f'{x:.3f}' for x in lat)}; the batch's wall from start_workers "
+        f"{run['batch_wall_s']:.3f} s")
+    log(f"server: system eval {run['system_latency_s']:.3f} s, service eval (solo) "
+        f"{run['service_latency_s']:.3f} s registration to complete; then the follow-up "
+        f"evals {run['follow_up_s']:.3f} s; evals by trigger and status {run['evals']}; "
+        f"{run['preempted']} batch allocs preempted by the system job and placed again")
+    log(f"server: fused batches and evals {run['drain']}; modes {run['modes']}")
+    log(f"server: applier {run['applier']}")
+    for name, st in run["stages"].items():
+        log(f"server: stage {name}: {st['count']} samples, {st['sum_ms']:.1f} ms summed, "
+            f"{st['wall_ms']:.1f} ms of wall covered ({100 * st['wall_share']:.1f}% of the "
+            f"{run['jobs_wall_s']:.1f} s from the first job's registration to the last eval)")
+    m = run["mirror"]
+    log(f"server: mirror uploads {m['uploads']}, refreshes {m['refreshes']}, rows scattered "
+        f"{m['rows_scattered']}, hits {m['hits']}, stale {m['stale']}; raft applies "
+        f"{run['raft_applied']}")
+    # the server launches from several threads onto one stream, so a call's
+    # events can hold another thread's kernels too: the least call is the
+    # kernel's own time
+    for name, ms in sorted(event_ms.items()):
+        log(f"server: {name} by events, ms a call (least {min(ms):.4f}, median "
+            f"{float(np.median(ms)):.4f}): {', '.join(f'{x:.4f}' for x in ms)}")
+    log(f"server timings: {json.dumps(dict(batch_latency_s=lat, batch_wall_s=run['batch_wall_s'], system_latency_s=run['system_latency_s'], service_latency_s=run['service_latency_s'], register_s=run['register_s'], follow_up_s=run['follow_up_s'], jobs_wall_s=run['jobs_wall_s'], evals=run['evals'], preempted=run['preempted'], event_ms=event_ms, held=held, drain=run['drain'], modes=run['modes'], applier=run['applier'], stages=run['stages'], mirror=m, raft_applied=run['raft_applied']))}")
+
+    # ---- the smaller run, on the card and on the CPU ------------------------
+    small_nodes = [n.to_dict() for n in sched_nodes(SERVER_SMALL["nodes"], SERVER_SMALL["dcs"])]
+    small_jobs = server_jobs(SERVER_SMALL, seed=7)
+    got = server_run(dev, SERVER_SMALL, small_nodes, small_jobs)
+    want = server_run(cpu, SERVER_SMALL, small_nodes, small_jobs)
+    for label, r in (("card", got), ("cpu", want)):
+        if r["short"] or r["over"] or set(r["fallbacks"]) - {"small_eval"}:
+            fail(f"server small run on the {label}: short {r['short']}, over {r['over']}, "
+                 f"fallbacks {r['fallbacks']}")
+    if got["placed"] != want["placed"]:
+        diff = len(set(got["placed"]) ^ set(want["placed"]))
+        fail(f"server small run: {diff} placements differ between the card and the CPU")
+    if got["drain"] != want["drain"]:
+        fail(f"server small run: drain {got['drain']} on the card, {want['drain']} on the CPU")
+    log(f"server small run: {len(got['placed'])} allocs placed identically on the card and the "
+        f"CPU; drain {got['drain']}; modes {got['modes']}")
+    log(f"server phase: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, event_ms=event_ms, held=held)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -1477,6 +1937,11 @@ def main() -> int:
     from nomad_tpu_torch.tpu import _build, exact_np, kernel, paging, planner, problems, wavefront
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def phase_done(label: str) -> None:
+        log(f"{label}: done {time.perf_counter() - t_start:.1f} s after the start")
+
     card = card_line()
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
@@ -1492,6 +1957,7 @@ def main() -> int:
     # kernel vs plain, max abs (float outputs as bits)
     errs = {name: 0 for name in (*PLAN_EVAL_KERNELS, "wavefront", *PAGED_KERNELS)}
 
+    phase_done("build")
     # ---- 3. kernel vs plain version on the card, mid sizes ----------------
     mid = problems.pad_cluster(problems.build_cluster(2000, 1024, seed=11), 2048)
     for label, (args, init) in (
@@ -1583,6 +2049,7 @@ def main() -> int:
     log(f"mid windowed: N=4096 A=8192 L={LIMIT} identical, rounds {want_rounds}, "
         f"{windowed_mid_ms:.4f} ms")
 
+    phase_done("mid sizes")
     # ---- 4. the main path at full width ------------------------------------
     cluster = problems.build_cluster(NODES, ALLOCS, n_values=VALUES, seed=0)
     spread = problems.eval_planes(*problems.exact_problem(cluster, spread=True))
@@ -1923,6 +2390,7 @@ def main() -> int:
 
     primitives = primitive_rows(dev, spread)
 
+    phase_done("main path at full width")
     # ---- 5. the server path -------------------------------------------------
     server_launches, server_wf_launches, server_rows, scan_bench, wf_drain = server_path(dev)
     next(row for row in kernels if row["name"] == "exact_scan")["drain_bench"] = scan_bench
@@ -1937,6 +2405,7 @@ def main() -> int:
         if name in server_wf_launches:
             row["paths"]["server_wavefront"] = server_wf_launches[name]
         row["launches"] = sum(row["paths"].values())
+    phase_done("server path")
     # ---- 6. the scheduler front ---------------------------------------------
     sched_launches, sched_timings = scheduler_phase(dev)
     for row in kernels:
@@ -1944,6 +2413,18 @@ def main() -> int:
             row["paths"]["scheduler"] = sched_launches[row["name"]]
             row["launches"] = sum(row["paths"].values())
     log(f"scheduler timings: {json.dumps(sched_timings)}")
+    phase_done("scheduler front")
+    # ---- 7. the server ------------------------------------------------------
+    server_run_out = server_phase(dev)
+    for row in kernels:
+        name = row["name"]
+        if name in server_run_out["launches"] and server_run_out["launches"][name]:
+            row["paths"]["server_run"] = server_run_out["launches"][name]
+            row["launches"] = sum(row["paths"].values())
+            row["server_run_event_ms"] = server_run_out["event_ms"].get(name, [])
+        if name in server_run_out["held"]:
+            row["server_run_held"] = server_run_out["held"][name]
+            row["max_abs_err"] = max(row["max_abs_err"], server_run_out["held"][name]["max_abs_err"])
     # K1-K4's own kernels are not launched on the paths: the primitives run
     # inside every launch of the kernels that inline them
     launched = {row["name"]: row["launches"] for row in kernels}
@@ -1952,6 +2433,7 @@ def main() -> int:
         row["inlined_launches"] = sum(launched[k] for k in row["inlined_in"])
         row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
     kernels = primitives + kernels
+    phase_done("server")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

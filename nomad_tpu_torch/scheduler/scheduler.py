@@ -1,12 +1,15 @@
 """Scheduler factory + Planner protocol (ref scheduler/scheduler.go).
 
 The factory map is where backends register. Alongside the reference's
-service/batch schedulers, this package registers ``tpu-batch`` — the
-batched backend whose placement loop runs on the port's planners and
-scores allocations × nodes as dense tensors (nomad_tpu_torch/tpu/) — and
-``oracle-np``, its float64 numpy oracle. ``device`` is the planners'
-device (``nomad_tpu_torch.resolve_device``: CUDA unless the caller passes
-``"cpu"``); the scalar schedulers place on the host and ignore it.
+service/batch/system schedulers, this package registers ``tpu-batch`` —
+the batched backend whose placement loop runs on the port's planners and
+scores allocations × nodes as dense tensors (nomad_tpu_torch/tpu/) —
+``tpu-system``, the plane-batched system scheduler (host numpy over the
+group planes, as in the JAX package), and ``oracle-np``, the float64
+numpy oracle. ``device`` is the planners' device
+(``nomad_tpu_torch.resolve_device``: CUDA unless the caller passes
+``"cpu"``); the scalar and system schedulers place on the host and
+ignore it.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import Callable, Optional, Protocol
 
 from ..structs.model import Evaluation, Plan, PlanResult
 from .generic import GenericScheduler
+from .system import SystemScheduler
 
 
 class Planner(Protocol):
@@ -40,6 +44,10 @@ def _batch_factory(state, planner, rng=None, device=None):
     return GenericScheduler(state, planner, batch=True, rng=rng)
 
 
+def _system_factory(state, planner, rng=None, device=None):
+    return SystemScheduler(state, planner, rng=rng)
+
+
 def _tpu_batch_factory(state, planner, rng=None, device=None):
     try:
         from ..tpu.batch_sched import TPUBatchScheduler
@@ -47,6 +55,15 @@ def _tpu_batch_factory(state, planner, rng=None, device=None):
         raise ValueError(f"scheduler 'tpu-batch' backend unavailable: {e}") from e
 
     return TPUBatchScheduler(state, planner, rng=rng, device=device)
+
+
+def _tpu_system_factory(state, planner, rng=None, device=None):
+    try:
+        from ..tpu.system_sched import TPUSystemScheduler
+    except ImportError as e:
+        raise ValueError(f"scheduler 'tpu-system' backend unavailable: {e}") from e
+
+    return TPUSystemScheduler(state, planner, rng=rng)
 
 
 def _oracle_np_factory(state, planner, rng=None, device=None):
@@ -63,12 +80,13 @@ def _oracle_np_factory(state, planner, rng=None, device=None):
     return sched
 
 
-# ref scheduler.go:23-29 BuiltinSchedulers + the batched backends (the
-# system schedulers come with their own slice)
+# ref scheduler.go:23-29 BuiltinSchedulers + the batched backends
 BUILTIN_SCHEDULERS: dict[str, Callable] = {
     "service": _service_factory,
     "batch": _batch_factory,
+    "system": _system_factory,
     "tpu-batch": _tpu_batch_factory,
+    "tpu-system": _tpu_system_factory,
     "oracle-np": _oracle_np_factory,
 }
 

@@ -290,19 +290,44 @@ class CommittedPlanes:
 
     def _rebuild_axis(self, gen) -> None:
         """Cold O(N + A) rebuild from ``gen`` — the same math as
-        :meth:`build_blob`, kept cheap and in-place."""
+        :meth:`build_blob`, kept cheap and in-place. When the only change
+        is nodes appended behind the committed axis (a node's first
+        registration), only their rows are added: the planes come out as
+        the rebuild makes them, without its O(N) pass over every node."""
         nodes = list(gen.nodes.values())
-        self.nodes = nodes
-        self.index = {n.id: i for i, n in enumerate(nodes)}
-        self.used = np.array(
-            [node_reserved_row(n) for n in nodes], dtype=np.int64,
-        ).reshape(len(nodes), R_COLS)
-        self.exotic_live = np.zeros(len(nodes), dtype=np.int32)
-        self.alloc_rec = {}
-        self.job_counts = {}
-        for alloc in gen.allocs.values():
-            if not alloc.terminal_status():
-                self._track(alloc)
+        n_old = len(self.nodes)
+        if (
+            self._pending_restore is None
+            and len(self.index) == n_old < len(nodes)
+            and all(a is b for a, b in zip(nodes, self.nodes))
+        ):
+            added = nodes[n_old:]
+            index = dict(self.index)
+            for i, n in enumerate(added, n_old):
+                index[n.id] = i
+            self.nodes = nodes
+            self.index = index
+            self.used = np.concatenate([self.used, np.array(
+                [node_reserved_row(n) for n in added], dtype=np.int64,
+            ).reshape(len(added), R_COLS)])
+            self.exotic_live = np.concatenate(
+                [self.exotic_live, np.zeros(len(added), dtype=np.int32)])
+            new_ids = {n.id for n in added}
+            for alloc in gen.allocs.values():
+                if alloc.node_id in new_ids and not alloc.terminal_status():
+                    self._track(alloc)
+        else:
+            self.nodes = nodes
+            self.index = {n.id: i for i, n in enumerate(nodes)}
+            self.used = np.array(
+                [node_reserved_row(n) for n in nodes], dtype=np.int64,
+            ).reshape(len(nodes), R_COLS)
+            self.exotic_live = np.zeros(len(nodes), dtype=np.int32)
+            self.alloc_rec = {}
+            self.job_counts = {}
+            for alloc in gen.allocs.values():
+                if not alloc.terminal_status():
+                    self._track(alloc)
         self.epoch += 1
         self._axis_dirty = False
         # fresh axis: relatch the tile granularity and drop the stamps

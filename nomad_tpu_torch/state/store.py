@@ -293,6 +293,111 @@ class StateReader:
                 return t
         return None
 
+    # -- event-plane snapshot extraction ----------------------------------
+    def snapshot_events(self, topics=None) -> list:
+        """Synthetic ``<Topic>Snapshot`` events for every live object in
+        this generation — the event stream's snapshot-on-subscribe source
+        (events/broker.py). Each event's payload is the object's
+        canonical ``to_dict()`` document, byte-identical to what a store
+        query at this generation's index serves, and its ``index`` is the
+        object's own modify_index (the raft index that last changed it);
+        the broker stamps the enclosing snapshot frame with this
+        generation's ``latest_index()``. ``topics`` (a set) narrows the
+        extraction; None extracts every snapshot-able topic. NodeEvent
+        and PlanResult have no standing state objects, so they
+        contribute nothing here — their history lives only in the
+        ring."""
+        from ..events import (
+            TOPIC_ALLOC,
+            TOPIC_DEPLOYMENT,
+            TOPIC_EVAL,
+            TOPIC_JOB,
+            TOPIC_NODE,
+            Event,
+        )
+
+        gen = self._gen
+        out: list = []
+
+        def want(topic: str) -> bool:
+            return topics is None or topic in topics
+
+        if want(TOPIC_NODE):
+            for n in gen.nodes.values():
+                out.append(
+                    Event(
+                        topic=TOPIC_NODE,
+                        type="NodeSnapshot",
+                        key=n.id,
+                        index=n.modify_index,
+                        payload=n.to_dict(),
+                    )
+                )
+        if want(TOPIC_JOB):
+            for (ns, _), j in gen.jobs.items():
+                out.append(
+                    Event(
+                        topic=TOPIC_JOB,
+                        type="JobSnapshot",
+                        key=j.id,
+                        index=j.modify_index,
+                        namespace=ns,
+                        payload=j.to_dict(),
+                    )
+                )
+        if want(TOPIC_EVAL):
+            for e in gen.evals.values():
+                out.append(
+                    Event(
+                        topic=TOPIC_EVAL,
+                        type="EvalSnapshot",
+                        key=e.id,
+                        index=e.modify_index,
+                        namespace=e.namespace,
+                        payload=e.to_dict(),
+                        filter_keys=tuple(
+                            k
+                            for k in (e.job_id, e.deployment_id)
+                            if k
+                        ),
+                    )
+                )
+        if want(TOPIC_ALLOC):
+            for a in gen.allocs.values():
+                out.append(
+                    Event(
+                        topic=TOPIC_ALLOC,
+                        type="AllocationSnapshot",
+                        key=a.id,
+                        index=a.modify_index,
+                        namespace=a.namespace,
+                        payload=a.to_dict(),
+                        filter_keys=tuple(
+                            k
+                            for k in (
+                                a.job_id,
+                                a.eval_id,
+                                a.deployment_id,
+                            )
+                            if k
+                        ),
+                    )
+                )
+        if want(TOPIC_DEPLOYMENT):
+            for d in gen.deployments.values():
+                out.append(
+                    Event(
+                        topic=TOPIC_DEPLOYMENT,
+                        type="DeploymentSnapshot",
+                        key=d.id,
+                        index=d.modify_index,
+                        namespace=d.namespace,
+                        payload=d.to_dict(),
+                        filter_keys=(d.job_id,) if d.job_id else (),
+                    )
+                )
+        return out
+
     # -- ready nodes ------------------------------------------------------
     def ready_nodes_in_dcs(self, datacenters: list[str]) -> tuple[list[Node], dict[str, int]]:
         """Ready nodes in any of the given datacenters + per-DC availability

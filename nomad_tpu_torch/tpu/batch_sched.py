@@ -17,9 +17,12 @@ so behavior is complete while the hot path is dense.
 The planners run on ``device`` (CUDA unless the caller passes ``"cpu"``;
 without a card a kernel-sized eval raises). The only degrade is explicit:
 a ``KernelFault`` (a wrapper's refusal of an input its kernel does not
-take) replans the eval on the exact-np host oracle; a CUDA build, launch
-or sync error propagates and fails the eval. Left out of this copy: the
-mesh branches, the device ledger, trace spans and metrics.
+take, or an error injected at the ``tpu.kernel`` fault point) replans the
+eval on the exact-np host oracle, counted in
+``scheduler.kernel_fault_degrade``; a CUDA build, launch or sync error
+propagates and fails the eval. A solo eval's planner runs inside an
+``eval.plan_kernel`` span tagged with its mode. Left out of this copy: the
+mesh branches and the device ledger.
 
 Preemption semantics are preserved without a device-side pick: at this
 reference version only the SYSTEM scheduler preempts (service/batch
@@ -35,6 +38,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import metrics
 from ..scheduler.feasible import shuffle_nodes
 from ..scheduler.generic import GenericScheduler
 from ..structs.model import (
@@ -95,6 +99,12 @@ def _compact_template(d: dict) -> dict:
 
 
 _MISS = object()
+
+
+def _tag_device_span(span, mode: str):
+    """Stamp a solo eval.plan_kernel span with the dispatched mode (the
+    JAX package adds its device ledger's cost tags, ROADMAP A9)."""
+    span.set_tag("mode", mode)
 
 
 def _to_host(x) -> np.ndarray:
@@ -249,6 +259,7 @@ class TPUBatchScheduler(GenericScheduler):
                             e,
                             self.eval.id if self.eval is not None else "?",
                         )
+                        metrics.incr("scheduler.kernel_fault_degrade")
                         _count_fallback("kernel_fault")
                         note = getattr(self.planner, "note_kernel_fault", None)
                         if note is not None:
@@ -306,7 +317,12 @@ class TPUBatchScheduler(GenericScheduler):
             return super()._compute_placements(destructive, place)
 
         _count_kernel()
-        self._kernel_placements(place, nodes, by_dc, groups)
+        # the solo planner's stage of the eval's span tree (the fused
+        # drain path records its spans in drain.py)
+        from ..trace import tracer
+
+        with tracer.span("eval.plan_kernel", tags={"allocs": len(place)}) as kspan:
+            self._kernel_placements(place, nodes, by_dc, groups, kernel_span=kspan)
 
     # ------------------------------------------------------------------
     def _assemble_groups(
@@ -433,7 +449,12 @@ class TPUBatchScheduler(GenericScheduler):
     # ------------------------------------------------------------------
     def _kernel_placements(
         self, place: list, nodes: list, by_dc: dict, groups: dict,
+        kernel_span=None,
     ):
+        from ..trace.span import NOOP_SPAN
+
+        if kernel_span is None:
+            kernel_span = NOOP_SPAN
         t_start = time.monotonic()
         ctx = self.ctx
         n_real = len(nodes)
@@ -608,6 +629,7 @@ class TPUBatchScheduler(GenericScheduler):
                 reason,
                 self.eval.id if self.eval is not None else "?",
             )
+            metrics.incr("scheduler.kernel_fault_degrade")
             _count_fallback("kernel_fault")
             note = getattr(self.planner, "note_kernel_fault", None)
             if note is not None:
@@ -686,6 +708,7 @@ class TPUBatchScheduler(GenericScheduler):
                 paged_budget_bytes=pstats["limit_bytes"],
             )
         _count_mode(mode)
+        _tag_device_span(kernel_span, mode)
         # the launch is async: _materialize builds templates/ids while the
         # device runs, then blocks on the placements
         self._materialize(

@@ -21,8 +21,13 @@ The inputs are the numpy records that cross the JAX package's own
 host/device boundary: ``DrainPrep`` per eval (what the port's
 ``batch_sched._prepare_drain`` builds, as the JAX scheduler's does) and
 the shared node planes (``SharedCluster.from_snapshot`` builds them from
-a state snapshot). The JAX module's tracing, metrics, device ledger, mesh
-and paging fallback are not ported here.
+a state snapshot; with the server's ``ColumnarMirror`` they alias the
+store's committed planes and the batch reads the mirror's device planes).
+The batch records the JAX collector's spans (``drain.park``,
+``drain.build``, ``drain.kernel_dispatch``) and metrics, and counts a
+batch over the paging budget that uploads its host planes
+(``tpu.drain_paged_fallback``). Left out: the mesh (ROADMAP A12) and the
+device ledger (A9).
 """
 
 from __future__ import annotations
@@ -36,7 +41,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import metrics, resolve_device
+from ..core.overload import DeadlineExceeded
+from ..trace import tracer
 from . import kernel, wavefront
 from .columnar import R_COLS, ColumnarCluster, GroupPlanes
 from .problems import bucket
@@ -53,15 +60,6 @@ LAST_DRAIN_STATS: dict = {}
 DRAIN_COUNTERS = {"batches": 0, "evals": 0}
 
 
-class DeadlineExceeded(Exception):
-    """Work refused because its deadline already passed; ``where`` names
-    the stage that refused it."""
-
-    def __init__(self, message: str = "deadline exceeded", where: str = ""):
-        super().__init__(message)
-        self.where = where
-
-
 class SharedCluster:
     """The node-axis planes every eval of a drain batch shares, as numpy:
     ``capacity`` [n,C], ``usable`` [n,2] and the committed usage ``used0``
@@ -69,7 +67,9 @@ class SharedCluster:
     the batch reads the planes from that device-resident copy instead of
     uploading these. Built ``from_snapshot``, it also carries the ready
     ``nodes`` and their ``ColumnarCluster`` (``cluster``), which the
-    ``tpu-batch`` scheduler's drain branch reads."""
+    ``tpu-batch`` scheduler's drain branch reads, and with a fresh
+    ``ColumnarMirror`` the ``mirror`` and the generation ``gen`` whose
+    device planes the batch reads."""
 
     def __init__(self, capacity, usable, used0, device_state=None):
         self.capacity = np.asarray(capacity)
@@ -79,18 +79,34 @@ class SharedCluster:
         self.device_state = device_state
         self.nodes: Optional[list] = None
         self.cluster = None
+        self.mirror = None
+        self.gen = None
 
     @classmethod
-    def from_snapshot(cls, snapshot, device_state=None) -> "SharedCluster":
-        """The planes of a state snapshot's ready nodes, as the JAX
-        package's ``SharedCluster(snapshot)`` builds them without a mirror:
-        ``ColumnarCluster.shared`` over the ready nodes in store order and
-        the snapshot's usage ``initial_used``. ``device_state``, where
-        given, must hold these planes."""
+    def from_snapshot(cls, snapshot, mirror=None) -> "SharedCluster":
+        """The planes of a state snapshot, as the JAX package's
+        ``SharedCluster(snapshot, mirror)`` builds them. With a ``mirror``
+        (the server path) whose committed planes are at this snapshot's
+        generation, the planes are the mirror's ``MirrorCluster`` over ALL
+        nodes (a node that is not ready never enters a ring) and the batch
+        reads the mirror's device planes. Otherwise (no mirror, or a write
+        landed since the snapshot): ``ColumnarCluster.shared`` over the
+        ready nodes in store order and the snapshot's usage
+        ``initial_used``."""
+        if mirror is not None:
+            view = mirror.sync(snapshot)
+            if view is not None:
+                shared = cls(view.capacity, view.usable,
+                             view.initial_used(snapshot))
+                shared.nodes = view.nodes
+                shared.cluster = view
+                shared.mirror = mirror
+                shared.gen = getattr(snapshot, "_gen", snapshot)
+                return shared
         nodes = [n for n in snapshot.nodes() if n.ready()]
         cluster = ColumnarCluster.shared(snapshot, nodes)
         used0 = cluster.initial_used(snapshot).astype(np.int64)
-        shared = cls(cluster.capacity, cluster.usable, used0, device_state)
+        shared = cls(cluster.capacity, cluster.usable, used0)
         shared.nodes = nodes
         shared.cluster = cluster
         return shared
@@ -132,6 +148,8 @@ class _Parked:
         self.placements = None
         self.used0 = None
         self.error: Optional[BaseException] = None
+        #: the eval's drain.park span context, parent of the batch's spans
+        self.trace_ctx = None
 
 
 # ---------------------------------------------------------------------------
@@ -412,12 +430,21 @@ class KernelBatchCollector:
         """Park this eval's prep; returns (its placements, its usage base
         including every earlier eval's grants), tensors on the device."""
         park = _Parked(prep)
+        # opened before parking: the last thread to arrive records the
+        # batch's build and dispatch spans under it, so the park's own
+        # time is the rendezvous wait
+        park_span = tracer.start_span("drain.park")
+        park.trace_ctx = park_span.ctx() or tracer.ctx_for_eval(prep.eval_id)
         with self._lock:
             self._consumed.add(prep.eval_id)
             self._parked.append(park)
             batch = self._take_batch_locked()
-        self._run_batch(batch)
-        if not park.event.wait(self.timeout):
+        try:
+            self._run_batch(batch)
+            arrived = park.event.wait(self.timeout)
+        finally:
+            park_span.end()
+        if not arrived:
             raise RuntimeError("drain kernel batch timed out")
         if park.error is not None:
             raise park.error
@@ -438,16 +465,18 @@ class KernelBatchCollector:
         # lanes whose deadline passed while they waited are refused before
         # the build and the device round
         now = time.time_ns()
-        for p in parked:
-            if p.prep.deadline and now >= p.prep.deadline:
+        expired = [p for p in parked if p.prep.deadline and now >= p.prep.deadline]
+        if expired:
+            metrics.incr("overload.deadline_exceeded.drain", len(expired))
+            for p in expired:
                 p.error = DeadlineExceeded(
                     "drain lane refused: deadline exceeded before device dispatch",
                     where="drain",
                 )
                 p.event.set()
-        parked = [p for p in parked if p.error is None]
-        if not parked:
-            return
+            parked = [p for p in parked if p.error is None]
+            if not parked:
+                return
         # highest priority first, then submission order: capacity threads
         # through the fused scan the way the serial applier would commit
         parked.sort(key=lambda p: (-p.prep.priority, p.prep.create_index, p.prep.eval_id))
@@ -469,14 +498,27 @@ class KernelBatchCollector:
         shape = batch_shape(preps, n_real, self.pad_evals)
         E, G, A, N, V = shape
         ds = shared.device_state
+        planes = None
         if ds is not None:
-            # the server path: planes already on the device, used kept
-            # current by dirty-row scatters
+            # planes already on the device, used kept current by
+            # dirty-row scatters
             if ds.n_pad != N:
                 raise ValueError(f"device state has {ds.n_pad} rows, the batch pads to {N}")
             planes = ds.arrays()
-        else:
+        elif shared.mirror is not None:
+            # the server path: the mirror's device planes at the batch's
+            # generation (None once a write has landed since, or past the
+            # paging budget)
+            planes = shared.mirror.device_state(N, shared.gen)
+        on_device = planes is not None
+        if planes is None:
             planes = host_planes(shared, N)
+            # over the paging budget the mirror refuses a resident plane;
+            # this batch uploads its host planes instead, counted
+            from . import paging
+
+            if paging.should_page(N, R_COLS):
+                metrics.incr("tpu.drain_paged_fallback")
         args_np, state_np, slices = assemble(preps, n_real, shape)
         args, init = batch_inputs(planes, args_np, state_np, dev)
         eval_of = kernel.from_numpy(args_np["group_eval"][args_np["groups"]], dev)
@@ -504,6 +546,20 @@ class KernelBatchCollector:
             park.placements = placements[a_start : a_start + a_len]
             park.used0 = bases[e]
 
+        # the batch's shared stages, recorded into every eval's tree
+        # under its drain.park span
+        dispatch_tags = {
+            "batch_evals": len(parked),
+            "padded": f"E{E}xG{G}xA{A}xN{N}xV{V}",
+            "mirror": shared.mirror is not None,
+            "planner": planner,
+        }
+        for park in parked:
+            tracer.record_span("drain.build", park.trace_ctx, t0, t_build,
+                               tags={"batch_evals": len(parked)})
+            tracer.record_span("drain.kernel_dispatch", park.trace_ctx, t_build, t_disp,
+                               tags=dispatch_tags)
+
         self.invocations += 1
         DRAIN_COUNTERS["batches"] += 1
         DRAIN_COUNTERS["evals"] += len(parked)
@@ -516,6 +572,8 @@ class KernelBatchCollector:
             build_s=t_build - t0,
             dispatch_s=t_disp - t_build,
             kernel_events=events,
-            device_state=ds is not None,
+            device_state=on_device,
+            mirror=shared.mirror is not None,
             padded=shape,
         )
+        metrics.sample("drain.batch_build", t_build - t0)

@@ -39,9 +39,10 @@ RUNCAP = 512  # max placements resolved by a single fill run
 class KernelFault(ValueError):
     """An input the planners' kernels do not take, refused by a wrapper
     before any launch (today: a resource column count outside what a
-    kernel keeps). The ``tpu-batch`` scheduler degrades exactly this to
-    its exact-np host oracle; a CUDA build, launch or sync error is not
-    one and propagates."""
+    kernel keeps), or an error injected at the ``tpu.kernel`` fault point.
+    The ``tpu-batch`` scheduler degrades exactly this to its exact-np host
+    oracle, and the applier its dense verify to the host oracle; a CUDA
+    build, launch or sync error is not one and propagates."""
 
 
 class BatchArgs(NamedTuple):
@@ -110,6 +111,20 @@ class WindowArgs(NamedTuple):
 
 
 _ARG_TYPES = {frozenset(t._fields): t for t in (BatchArgs, BatchState, RunArgs, WindowArgs)}
+
+
+def _fault_point() -> None:
+    """The ``tpu.kernel`` fault point of the JAX package's wrappers
+    (``testing/faults.py``): an error a test injects there reaches the
+    scheduler as a ``KernelFault``, which it degrades to exact-np as it
+    degrades the JAX package's device errors. A plain ``None`` check when
+    no fault plane is installed."""
+    from ..testing import faults
+
+    try:
+        faults.fault_point("tpu.kernel")
+    except Exception as e:
+        raise KernelFault(f"tpu.kernel fault point: {e}") from e
 
 
 def _to_tensor(x, device: torch.device) -> torch.Tensor:
@@ -707,6 +722,7 @@ def plan_batch(args: BatchArgs, init: BatchState, n_real: int, walked: torch.Ten
     ``walked``, a one-element int64 tensor on the card, gets the ring
     positions the kernel's steps walked added to it (the plain version
     walks no chunks and takes none)."""
+    _fault_point()
     device = args.capacity.device
     if device.type == "cpu":
         if walked is not None:
@@ -744,6 +760,7 @@ def plan_batch_runs(args: RunArgs, init, a_pad: int, even_mode: bool = False):
     (node index per alloc slot [a_pad], -1 = unplaced; rounds). On the card
     ``rounds`` is a device tensor, so the call does not wait for the
     kernel."""
+    _fault_point()
     device = args.capacity.device
     if device.type == "cpu":
         return plan_batch_runs_ref(args, init, a_pad, even_mode)
@@ -802,6 +819,7 @@ def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad
     cluster (``csrc/windowed.cu``) that reads ``used0`` and ``collisions0``
     and writes neither; ``rounds`` is a device tensor, so the call does not
     wait for the kernel."""
+    _fault_point()
     device = args.capacity.device
     if device.type == "cpu":
         return plan_batch_windowed_ref(args, used0, collisions0, n_real, a_pad)
@@ -972,6 +990,7 @@ def verify_rows(capacity, used, rows, deltas):
     same row, against ``capacity``; bool[R]. Checks what the kernel takes
     on either device; on the CPU the plain version, on the card one launch
     (``csrc/verify.cu``) that does not wait for the card."""
+    _fault_point()
     N, C, R = _verify_dims(capacity, used, rows, deltas)
     device = capacity.device
     if device.type == "cpu":

@@ -497,6 +497,7 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
     ring permutation); returns ``(placements i32[a_pad], rounds, stats)``
     with the flat planner's placements and rounds, under the stanza's
     budget (``budget_mb()`` MB)."""
+    kernel._fault_point()
     dev = resolve_device(device)
     pinned = dev.type == "cuda"
     capacity = np.asarray(capacity, dtype=np.int32)

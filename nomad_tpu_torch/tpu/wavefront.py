@@ -321,6 +321,7 @@ def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid
     ``walked``, a one-element int64 tensor on the card, gets the ring
     positions the committed lanes' selections walked added to it (the
     plain version walks no chunks and takes none)."""
+    kernel._fault_point()
     del n_valid
     A = int(args.demands.shape[0])
     W = window_for(A)

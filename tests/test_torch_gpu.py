@@ -1362,3 +1362,145 @@ def test_tpu_batch_on_the_card_places_as_on_the_cpu(shape, cuda_device, monkeypa
     # launch-to-sync span, which lies inside the dispatch
     assert 0 < got[3]["device_s"] <= got[3]["kernel_s"] <= got[3]["dispatch_s"]
     assert want[3]["device_s"] is None
+
+
+# ---------------------------------------------------------------------------
+# the server: evals through a running Server on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _port_server(dev, extra):
+    from nomad_tpu_torch.core.server import Server
+    from nomad_tpu_torch.raft import InmemTransport, RaftConfig
+
+    cfg = {"seed": 42, "heartbeat_ttl": 600.0, **extra, "raft": {
+        "node_id": "s0", "address": "raft0", "voters": {"s0": "raft0"},
+        "transport": InmemTransport(),
+        "config": RaftConfig(heartbeat_interval=0.02, election_timeout_min=0.05,
+                             election_timeout_max=0.10)}}
+    return Server(cfg, device=dev)
+
+
+def _checked_verify(monkeypatch, mismatches):
+    """Wrap the applier's device verify: each plan it answers is also
+    answered by the host oracle on the same stacked snapshot, and every
+    difference of the committed sets is recorded."""
+    from nomad_tpu_torch.core import plan_apply
+
+    real = plan_apply.Planner._evaluate_plan_device
+
+    def sets(r):
+        return ({k: sorted(a.id for a in v) for k, v in r.node_allocation.items()},
+                {k: sorted(a.id for a in v) for k, v in r.node_update.items()},
+                bool(r.refresh_index))
+
+    def checked(self, dev_ctx, base_snap, plan, overlay_deltas, epoch, stacked_fn):
+        got = real(self, dev_ctx, base_snap, plan, overlay_deltas, epoch, stacked_fn)
+        if got is not None:
+            checked.count += 1
+            want = plan_apply.evaluate_plan(stacked_fn(), plan)
+            if sets(got) != sets(want):
+                mismatches.append(plan.eval_id)
+        return got
+
+    checked.count = 0
+    monkeypatch.setattr(plan_apply.Planner, "_evaluate_plan_device", checked)
+    return checked
+
+
+def _server_run(dev, node_docs, jobs, extra, workers=1, later=()):
+    """Register ``node_docs`` and ``jobs`` with no worker running, start
+    ``workers`` workers, wait (60 s at most) for every eval, then register
+    the ``later`` jobs one by one, each waited for; returns the sorted
+    (job id, alloc name, node id) of every alloc (a system job's allocs
+    share one name) and the server's mirror stats."""
+    import time
+
+    from nomad_tpu_torch.structs.model import Job, Node
+
+    server = _port_server(dev, extra)
+
+    def wait(ids):
+        deadline = time.monotonic() + 60.0
+        while True:
+            evs = [server.state.eval_by_id(e) for e in ids]
+            if all(e is not None and e.status == "complete" for e in evs):
+                return
+            assert time.monotonic() < deadline, [e and e.status for e in evs]
+            time.sleep(0.02)
+
+    try:
+        server.start(num_workers=0, wait_for_leader=5.0)
+        for d in node_docs:
+            server.node_register(Node.from_dict(d))
+        ids = [server.job_register(Job.from_dict(j.to_dict())) for j in jobs]
+        server.start_workers(workers)
+        wait(ids)
+        for j in later:
+            wait([server.job_register(Job.from_dict(j.to_dict()))])
+        placed = sorted((j.id, a.name, a.node_id)
+                        for j in (*jobs, *later) for a in server.state.allocs_by_job(j.namespace, j.id))
+        return placed, server.columnar_mirror.stats()
+    finally:
+        server.stop()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["exact", "wavefront"])
+def test_server_drain_on_the_card_places_as_on_the_cpu(route, cuda_device, monkeypatch):
+    """Eight jobs drained in one fused batch by a server on the card: the
+    same placements as the same server on the CPU, every plan's device
+    verify equal to the host oracle's, and the drain's kernels (scan or
+    wavefront, usage bases), the verify and the dirty-row scatter launched."""
+    from nomad_tpu_torch.tpu import drain
+
+    node_docs = _sched_cluster(400, 4)
+    jobs = [_sched_job(count=40 + 10 * i, dcs=4) for i in range(8)]
+    extra = {"default_scheduler": "tpu-batch", "batch_drain": 8, "plan_apply_batch": 8,
+             "plan_pipeline": {"device_verify_min": 1}}
+    if route == "wavefront":
+        extra["wavefront"] = {"enabled": True, "max_round": 32, "contention_top_m": 1}
+    mismatches = []
+    checked = _checked_verify(monkeypatch, mismatches)
+    tk.reset_launches()
+    before = dict(drain.DRAIN_COUNTERS)
+    # a ninth job after the batch: its solo eval's verify reads planes
+    # that the batch's commits dirtied, so the mirror scatters their rows
+    later = [_sched_job(count=200, dcs=4)]
+    got, stats = _server_run(cuda_device, node_docs, jobs, extra, later=later)
+    launches = dict(tk.LAUNCHES)
+    assert drain.DRAIN_COUNTERS["batches"] == before["batches"] + 1
+    assert drain.LAST_DRAIN_STATS["device_state"] and drain.LAST_DRAIN_STATS["planner"] == route
+    wavefront.reset()
+    want, _ = _server_run("cpu", node_docs, jobs, extra, later=later)
+    assert got == want and len(got) == sum(40 + 10 * i for i in range(8)) + 200
+    # plans verified after a commit moved the planes past their snapshot
+    # take the host (counted stale); the rest ride the device
+    assert not mismatches and checked.count >= 2
+    planner_kernel = "wavefront" if route == "wavefront" else "exact_scan"
+    assert launches[planner_kernel] >= 1 and launches["used_bases"] >= 1
+    assert launches["verify_rows"] >= 1
+    assert launches["scatter_rows"] >= 1 and stats["refreshes"] >= 1
+
+
+@pytest.mark.gpu
+def test_server_solo_and_system_evals_on_the_card_place_as_on_the_cpu(cuda_device, monkeypatch):
+    """A plain worker's solo tpu-batch evals (windowed and runs) and a
+    tpu-system eval on the card: the same placements as on the CPU, the
+    verify equal to the host oracle's."""
+    from nomad_tpu_torch import mock
+
+    node_docs = _sched_cluster(400, 4)
+    sys_job = mock.system_job()
+    sys_job.datacenters = ["dc1", "dc2", "dc3", "dc4"]
+    sys_job.task_groups[0].tasks[0].resources.networks = []
+    jobs = [_sched_job(count=600, dcs=4), _sched_job(count=600, dcs=4, spread=True), sys_job]
+    extra = {"default_scheduler": "tpu-batch", "plan_pipeline": {"device_verify_min": 1}}
+    mismatches = []
+    checked = _checked_verify(monkeypatch, mismatches)
+    tk.reset_launches()
+    got, _ = _server_run(cuda_device, node_docs, jobs, extra)
+    launches = dict(tk.LAUNCHES)
+    want, _ = _server_run("cpu", node_docs, jobs, extra)
+    assert got == want and len(got) == 1200 + 400
+    assert not mismatches and checked.count >= 2
+    assert launches["windowed"] >= 1 and launches["runs"] >= 1 and launches["verify_rows"] >= 1

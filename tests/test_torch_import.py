@@ -62,6 +62,39 @@ MODULES = [
     "nomad_tpu_torch.scheduler.testing",
     "nomad_tpu_torch.mock",
     "nomad_tpu_torch.tpu.batch_sched",
+    "nomad_tpu_torch.tpu.system_sched",
+    "nomad_tpu_torch.scheduler.system",
+    "nomad_tpu_torch.structs.diff",
+    "nomad_tpu_torch.metrics",
+    "nomad_tpu_torch.testing",
+    "nomad_tpu_torch.testing.faults",
+    "nomad_tpu_torch.testing.lockdep",
+    "nomad_tpu_torch.trace",
+    "nomad_tpu_torch.trace.span",
+    "nomad_tpu_torch.trace.store",
+    "nomad_tpu_torch.trace.critical_path",
+    "nomad_tpu_torch.events",
+    "nomad_tpu_torch.events.broker",
+    "nomad_tpu_torch.raft",
+    "nomad_tpu_torch.raft.log",
+    "nomad_tpu_torch.raft.transport",
+    "nomad_tpu_torch.raft.raft",
+    "nomad_tpu_torch.debug",
+    "nomad_tpu_torch.debug.flight",
+    "nomad_tpu_torch.debug.watchdog",
+    "nomad_tpu_torch.debug.bundle",
+    "nomad_tpu_torch.debug.profiler",
+    "nomad_tpu_torch.core.overload",
+    "nomad_tpu_torch.core.broker",
+    "nomad_tpu_torch.core.blocked_evals",
+    "nomad_tpu_torch.core.worker",
+    "nomad_tpu_torch.core.fsm",
+    "nomad_tpu_torch.core.core_sched",
+    "nomad_tpu_torch.core.deployment_watcher",
+    "nomad_tpu_torch.core.drainer",
+    "nomad_tpu_torch.core.periodic",
+    "nomad_tpu_torch.core.vault",
+    "nomad_tpu_torch.core.server",
 ]
 
 
@@ -150,3 +183,53 @@ def test_chip_smoke_refuses_without_a_card():
     )
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_server_and_its_device_tier_default_to_cuda():
+    """``Server()``, ``new_scheduler(...)`` and the mirror want the card
+    unless given ``device="cpu"``; the stanzas that reach modules not yet
+    ported raise an error that names their ROADMAP item."""
+    from nomad_tpu_torch.core.server import Server
+    from nomad_tpu_torch.scheduler import Harness, new_scheduler
+    from nomad_tpu_torch.state import StateStore
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the CUDA-less refusal is not observable")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Server()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mirror.ColumnarMirror(StateStore())
+    assert mirror.ColumnarMirror(StateStore(), device="cpu").device.type == "cpu"
+    # a kernel-sized tpu-batch eval: its planner wants the card unless the
+    # scheduler was given the CPU
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.structs.model import Evaluation
+
+    for dev in (None, "cpu"):
+        h = Harness(seed=1, device=dev)
+        for _ in range(20):
+            h.state.upsert_node(h.next_index(), mock.node())
+        job = mock.job()
+        job.task_groups[0].count = 16
+        h.state.upsert_job(h.next_index(), job)
+        ev = Evaluation(id=f"ev-{dev}", namespace=job.namespace, priority=job.priority,
+                        type="service", triggered_by="job-register", job_id=job.id,
+                        status="pending")
+        h.state.upsert_evals(h.next_index(), [ev])
+        sched = new_scheduler("tpu-batch", h.snapshot(), h, device=dev)
+        if dev is None:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                sched.process(ev)
+        else:
+            sched.process(ev)
+            assert len(h.plans[0].node_allocation) > 0
+    server = Server({"seed": 1}, device="cpu")
+    assert server.device.type == "cpu" and server.columnar_mirror.device.type == "cpu"
+    for stanza, item in (({"acl": {"enabled": True}}, "ACL"),):
+        with pytest.raises(NotImplementedError, match=item):
+            Server(stanza, device="cpu")
+    for stanza, item in (("shard_devices", "A12"), ("prewarm_kernels", "A9")):
+        s = Server({stanza: 1}, device="cpu")
+        with pytest.raises(NotImplementedError, match=item):
+            s.start(num_workers=0)
+        s.stop()

@@ -5,7 +5,8 @@ JAX-package mock object's document, read back by the port's ``from_dict``,
 gives the same document again. The computed node class agrees, and a state
 carried across (``nomad_tpu_torch.state.carry``) lists the ready nodes of
 each datacenter set in the same order, which the scheduler's seeded
-shuffle starts from.
+shuffle starts from. The committed planes, which the port grows in place
+at a node's first registration, equal a cold rebuild and the JAX store's.
 """
 
 import random
@@ -129,3 +130,57 @@ def test_carried_state_lists_ready_nodes_in_the_same_order(dcs, bulk):
 def test_carry_refuses_an_unknown_kind():
     with pytest.raises(ValueError, match="kind"):
         carry_state([(1, "deployment", {})])
+
+
+def test_planes_grown_in_place_equal_a_rebuild_and_the_jax_store():
+    """A node's first registration appends its rows to the committed
+    planes instead of rebuilding the node axis: after every write the
+    port's live planes equal a cold rebuild of the same generation and
+    the JAX store's planes, and the axis epoch moves as the JAX store's
+    does, through first registrations (one and several a transaction,
+    with allocs already on the new nodes), a re-registration with new
+    resources, a status flap and a deletion."""
+    from nomad_tpu_torch.state.planes import CommittedPlanes
+
+    jstore, tstore = JStore(), carry_state([])
+    index = 0
+
+    def write(method, *args, port_args=None):
+        """One write at the next index to both stores; the port's gets
+        ``port_args`` (the documents read back by its classes) where given."""
+        nonlocal index
+        index += 1
+        getattr(jstore, method)(index, *args)
+        getattr(tstore, method)(index, *(args if port_args is None else port_args))
+        gen = tstore.snapshot()._gen
+        blob = tstore.planes.persist_for(gen)
+        assert blob == CommittedPlanes.build_blob(gen)
+        assert blob == jstore.planes.persist_for(jstore.snapshot()._gen)
+        assert tstore.planes.epoch == jstore.planes.epoch
+
+    def port(objs, cls=tmodel.Node):
+        return [cls.from_dict(o.to_dict()) for o in objs]
+
+    nodes = _varied_nodes(12, 3)
+    for node in nodes[:5]:
+        write("upsert_node", node, port_args=port([node]))
+    job = jmock.job()
+    write("upsert_job", job, port_args=port([job], tmodel.Job))
+    # allocs on registered nodes and on two nodes that register later
+    allocs = []
+    for node in nodes[:3] + nodes[5:7]:
+        a = jmock.alloc()
+        a.node_id, a.job_id, a.job = node.id, job.id, job
+        allocs.append(a)
+    write("upsert_allocs", allocs, port_args=[port(allocs, tmodel.Allocation)])
+    for node in nodes[5:7]:
+        write("upsert_node", node, port_args=port([node]))
+    write("upsert_nodes", nodes[7:10], port_args=[port(nodes[7:10])])
+    write("update_node_status", nodes[1].id, "down", 7)
+    write("upsert_node", nodes[10], port_args=port([nodes[10]]))
+    changed = nodes[2].copy()
+    changed.node_resources.cpu.cpu_shares += 1000
+    write("upsert_node", changed, port_args=port([changed]))
+    write("delete_node", nodes[4].id)
+    write("upsert_node", nodes[11], port_args=port([nodes[11]]))
+    assert len(tstore.planes.nodes) == 11
