@@ -135,9 +135,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    against the plain versions. Then the same phase
    at 1,000 nodes, 8 batch jobs of 200 allocs and one drain worker, on
    the card and on the CPU, must place identically;
-8. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
-   scheduler and server launches), the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+8. the agent, through the system's normal entry point in a fresh
+   process: ``python -m nomad_tpu_torch agent -device cuda -config
+   <file> -port 0`` in the networked server mode with phase 7's server
+   settings, ``prewarm_kernels`` on and ``prewarm_drain_nodes`` 10,000.
+   The phase reads the HTTP and RPC addresses from the agent's start line
+   and polls ``/v1/metrics`` until the warm-up reports its count of
+   programs warmed (``tpu_prewarm``) within 120 s of the spawn; the count
+   must be the ladder's and the device ledger (``tpu_devprof``) must hold
+   every (planner, shape) of the ladder (``agent_ladder``, from
+   ``warmup.bucket_shape``, ``DEFAULT_SHAPES`` and the stanzas), so a
+   warm-up launch that failed (logged, the count short) fails the phase
+   with the agent's warnings. It registers 10,000 nodes (phase 7's) over the RPC
+   listener (``Node.Register`` through ``rpc.ConnPool``); runs ``job
+   init``, ``job plan`` and ``job run`` on ``example.nomad`` through the
+   CLI; registers four of phase 7's batch jobs and its system job through
+   ``api.ApiClient`` and waits on ``/v1/evaluation/<id>`` for each, then
+   for the follow-up evals. Checks: every eval completes, every job has
+   its count of live allocs, no node over capacity (recomputed on the
+   host from ``/v1/nodes``, ``/v1/allocations`` and the documents sent),
+   no library build or load and no new planner in the ledger after the
+   warm-up (new shapes are printed with their first-launch seconds), the
+   mirror's counted upload equals its planes' bytes (10,240 rows) and
+   the ledger's h2d holds it, the exact scan's rounds are the padded lanes
+   of the fused batches it launched (each the bucket of its real lanes,
+   read from the batches' ``drain.kernel_dispatch`` spans over
+   ``/v1/trace``) and those batches account for its lanes, the kernels the jobs launched (the agent's own counts over
+   ``/v1/metrics``, read before and after the jobs) include a planner,
+   the usage bases, the dirty-row scatter and the dense verify, ``operator
+   device`` prints its report, and SIGTERM ends the agent with exit 0
+   within 30 s. The agent is another process, so its
+   kernel calls are held against their plain versions only by phases 3-7;
+9. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
+   scheduler, server and agent launches), the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
 """
@@ -145,6 +176,7 @@ Without a CUDA card it exits with status 2 and prints no result.
 import contextlib
 import json
 import random
+import re
 import subprocess
 import sys
 import threading
@@ -328,6 +360,24 @@ def wrapper_host_us(fn, calls: int = 20) -> float:
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     return float(np.median(times)) * 1e6
+
+
+def ledger_host_us(fn, calls: int = 50) -> dict:
+    """Host microseconds of one wrapper call with the device ledger
+    (debug/devprof.py) on and off, each arm the lower of the two medians
+    ``wrapper_host_us`` takes in turn (on, off, on, off), and what the
+    ledger adds to the call."""
+    from nomad_tpu_torch.debug import devprof
+
+    arms: dict = {True: [], False: []}
+    for on in (True, False, True, False):
+        prior = devprof.enable(on)
+        try:
+            arms[on].append(wrapper_host_us(fn, calls))
+        finally:
+            devprof.enable(prior)
+    on, off = min(arms[True]), min(arms[False])
+    return dict(on=on, off=off, added=on - off)
 
 
 def scan_positions(bargs, bstate, n_real: int) -> dict:
@@ -973,7 +1023,8 @@ def server_path(dev) -> tuple:
     before = kernel.LAUNCHES["scatter_rows"]
     scatter_kernel()
     scatter_extra = dict(launches_per_call=kernel.LAUNCHES["scatter_rows"] - before,
-                         host_split_us=scatter_host_split(plane0, r, v))
+                         host_split_us=scatter_host_split(plane0, r, v),
+                         ledger_host_us=ledger_host_us(scatter_kernel))
     if scatter_extra["launches_per_call"] != 1:
         fail(f"scatter_rows: {scatter_extra['launches_per_call']} launches a call")
     log(f"scatter_rows: {scatter_extra['launches_per_call']} launch a call; host us by part "
@@ -1034,7 +1085,7 @@ def server_path(dev) -> tuple:
         fail(f"used_bases: kernel differs from its plain version at drain-bench ({b_err})")
     b_A = b_placements.shape[0]
     extras["used_bases"] = dict(
-        device_ops=device_ops(bases_kernel),
+        device_ops=device_ops(bases_kernel), ledger_host_us=ledger_host_us(bases_kernel),
         drain_bench=dict(ms=b_ms, device_us=device_us(bench_kernel),
                          host_us=wrapper_host_us(bench_kernel),
                          device_ops=device_ops(bench_kernel), max_abs_err=b_err,
@@ -1067,7 +1118,8 @@ def server_path(dev) -> tuple:
     err = max_abs_err([(got, want), (got, lib), (got[: len(rows_t)], fits_t)])
     R, k = len(p_np), len(rows_t)
     extras["verify_rows"] = dict(device_ops=device_ops(verify_kernel),
-                                 launch=kernel.verify_shape(N, C))
+                                 launch=kernel.verify_shape(N, C),
+                                 ledger_host_us=ledger_host_us(verify_kernel))
     rows_out.append(("verify_rows", "nomad_tpu_torch/tpu/csrc/verify.cu",
                      "nomad_tpu/tpu/kernel.py:1061", err, ms, plain_ms, lib_ms,
                      (device_us(verify_kernel), device_us(verify_library),
@@ -1100,6 +1152,10 @@ def server_path(dev) -> tuple:
         log(f"{name}: {ms:.4f} ms per launch (plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
             f"bound {bound_ms:.5f} ms by {bound_by}); on the card by the profiler {us[0]}, "
             f"library {us[1]}; wrapper call on the host {dev_us[2]:.1f} us{public}; {shape}")
+        if "ledger_host_us" in more:
+            led = more["ledger_host_us"]
+            log(f"{name}: wrapper call on the host {led['on']:.1f} us with the device ledger, "
+                f"{led['off']:.1f} us without it: the ledger adds {led['added']:.1f} us")
         if "drain_bench" in more:
             b = more["drain_bench"]
             log(f"{name} at drain-bench ({b['shape']}): {b['ms']:.4f} ms per launch, on the card "
@@ -1928,6 +1984,397 @@ def server_phase(dev) -> dict:
     return dict(launches=launches, event_ms=event_ms, held=held)
 
 
+#: the agent phase (phase 8): the soak's server settings, as phase 7 runs
+#: them, in the networked server mode of a fresh ``python -m
+#: nomad_tpu_torch agent`` process; 10,000 nodes registered over RPC, then
+#: the example job through the CLI and four of phase 7's batch jobs and its
+#: system job over HTTP
+AGENT = dict(nodes=10_000, dcs=4, batch_jobs=4, batch_allocs=(7_500, 10_000),
+             service_allocs=5_000)
+#: the same phase at a size the CPU runs it in seconds (a rehearsal with
+#: ``agent_phase("cpu", AGENT_SMALL)``)
+AGENT_SMALL = dict(nodes=400, dcs=4, batch_jobs=4, batch_allocs=(300, 500), service_allocs=100)
+#: seconds the child gets to start, to warm every kernel of its ladder,
+#: to place every eval, and to exit after SIGTERM
+AGENT_START_S, AGENT_WARM_S, AGENT_EVALS_S, AGENT_STOP_S = 120.0, 120.0, 600.0, 30.0
+#: seconds between polls of the evals (each poll is an HTTP request the
+#: agent serves beside its scheduler)
+AGENT_POLL_S = 0.1
+AGENT_DRAIN = 8
+AGENT_HCL = """name = "agent-1"
+log_level = "WARN"
+server {{
+  enabled = true
+  num_schedulers = 2
+  seed = 42
+  default_scheduler = "tpu-batch"
+  batch_drain = {drain}
+  plan_apply_batch = 8
+  heartbeat_ttl = 86400
+  prewarm_kernels = true
+  prewarm_drain_nodes = {nodes}
+  rpc_port = {rpc}
+  voters {{
+    agent-1 = "127.0.0.1:{rpc}"
+  }}
+}}
+event_broker {{
+  enabled = true
+  event_buffer_size = 16384
+}}
+"""
+#: the device planes' bytes a node row: capacity and used (4 int32
+#: columns each) and usable (2 float32)
+PLANE_ROW_BYTES = 4 * 4 + 2 * 4 + 4 * 4
+
+
+def agent_ladder(nodes: int, drain: int) -> tuple:
+    """The (planner, shape) launch-ledger keys the agent's warm-up covers
+    with no wavefront or paging stanza, and the count of programs it warms
+    (tpu/warmup.py): the planners at every shape of the default ladder, the
+    fused drain scan for ``nodes`` and a batch of ``drain`` evals, its usage
+    bases (no ledger entry of their own) and the dense verify's two
+    smallest row buckets."""
+    from nomad_tpu_torch.tpu import warmup
+    from nomad_tpu_torch.tpu.mirror import DeviceState
+    from nomad_tpu_torch.tpu.problems import bucket
+
+    keys = set()
+    for n_pad, a_pad in warmup.DEFAULT_SHAPES:
+        keys |= {("runs", f"N{n_pad}A{a_pad}"), ("windowed", f"N{n_pad}A{a_pad}"),
+                 ("exact", f"E1G1A{a_pad}N{n_pad}")}
+    n_pad, _ = warmup.bucket_shape(nodes, 1)
+    e = bucket(drain)
+    keys.add(("exact", f"E{e}G{e}A{bucket(drain * 4)}N{n_pad}"))
+    keys |= {("verify_rows", f"N{n_pad}R{b}") for b in DeviceState._ROW_BUCKETS[:2]}
+    return keys, 3 * len(warmup.DEFAULT_SHAPES) + 2 + len(DeviceState._ROW_BUCKETS[:2])
+
+
+def agent_over_capacity(node_docs: list, allocs: list, asks: dict) -> int:
+    """Nodes whose live allocs ask more cpu, memory or disk than the node
+    has after its reservation, recomputed on the host from the node
+    documents registered, the allocs listed over HTTP and each job's ask."""
+    cap = {}
+    for d in node_docs:
+        r, res = d["node_resources"], d.get("reserved_resources") or {}
+
+        def left(kind, key):
+            return r[kind][key] - ((res.get(kind) or {}).get(key) or 0)
+
+        cap[d["id"]] = np.array([left("cpu", "cpu_shares"), left("memory", "memory_mb"),
+                                 left("disk", "disk_mb")], np.int64)
+    used = {}
+    for a in allocs:
+        if a["DesiredStatus"] != "run" or a["ClientStatus"] in ("complete", "failed", "lost"):
+            continue
+        used[a["NodeID"]] = used.get(a["NodeID"], 0) + asks[a["JobID"]]
+    return sum(1 for node, u in used.items() if (u > cap[node]).any())
+
+
+def job_ask(doc: dict) -> np.ndarray:
+    """One alloc's cpu, memory and disk ask of a one-group job document."""
+    tg = doc["task_groups"][0]
+    cpu = sum(t["resources"]["cpu"] for t in tg["tasks"])
+    mem = sum(t["resources"]["memory_mb"] for t in tg["tasks"])
+    return np.array([cpu, mem, tg["ephemeral_disk"]["size_mb"]], np.int64)
+
+
+def exact_batches(api) -> list:
+    """(padded lanes, real lanes) of each fused exact-scan batch the agent
+    launched, from the drain.kernel_dispatch spans of its traces (a
+    batch's span is recorded in the tree of every eval it planned)."""
+    batches = {}
+    for t in api.get("/v1/trace", limit=500)[0]["traces"]:
+        for s in api.get(f"/v1/trace/{t['trace_id']}")[0]["spans"]:
+            tags = s["tags"] or {}
+            if s["name"] == "drain.kernel_dispatch" and tags.get("planner") == "exact":
+                batches[(s["start"], tags["padded"])] = (tags["collective_rounds"],
+                                                         tags["placements"])
+    return list(batches.values())
+
+
+def _ledger_keys(metrics: dict, flavor: str) -> dict:
+    """(planner, shape) -> first-launch seconds of the flavor's entries."""
+    ledger = (metrics.get("tpu_devprof") or {}).get("compile_ledger") or []
+    return {(e["planner"], e["shape"]): e["compile_s"] for e in ledger
+            if e["flavor"] == flavor}
+
+
+def agent_phase(device: str = "cuda", size: dict = AGENT) -> dict:
+    """The agent phase (module docstring, phase 8). Returns the agent
+    path's launches per kernel and its numbers."""
+    import importlib
+    import io
+    import os
+    import queue
+    import signal
+    import socket
+    import tempfile
+
+    from nomad_tpu_torch.api import ApiClient
+    from nomad_tpu_torch.jobspec import parse_job
+    from nomad_tpu_torch.rpc import ConnPool
+    from nomad_tpu_torch.tpu import warmup
+    from nomad_tpu_torch.tpu.problems import bucket
+
+    cli = importlib.import_module("nomad_tpu_torch.cli.main")
+    flavor = "cuda" if device == "cuda" else "plain"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    out: dict = {}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        rpc_port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_agent_") as tmp:
+        hcl = os.path.join(tmp, "agent.hcl")
+        with open(hcl, "w") as f:
+            f.write(AGENT_HCL.format(drain=AGENT_DRAIN, nodes=size["nodes"], rpc=rpc_port))
+        t_spawn = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nomad_tpu_torch", "agent", "-device", device,
+             "-config", hcl, "-port", "0"],
+            cwd=root, stdout=subprocess.PIPE, text=True)
+        lines: queue.Queue = queue.Queue()
+        reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                                  name="agent-stdout", daemon=True)
+        reader.start()
+        pool = ConnPool()
+        try:
+            # ---- start: the addresses from the start line ------------------
+            start = None
+            while start is None:
+                try:
+                    ln = lines.get(timeout=max(0.1, AGENT_START_S - (time.perf_counter() - t_spawn)))
+                except queue.Empty:
+                    fail(f"agent: no start line in {AGENT_START_S:.0f} s")
+                start = re.search(r"http (\S+) rpc (\S+)", ln)
+            http, rpc_addr = start.groups()
+            out["start_s"] = time.perf_counter() - t_spawn
+            api = ApiClient(address=http)
+            # ---- warm-up: the ladder's count, every kernel in the ledger ------
+            want, want_warmed = agent_ladder(size["nodes"], AGENT_DRAIN)
+            while True:
+                m0 = api.metrics()
+                warmed = m0["tpu_prewarm"]["warmed"]
+                if warmed is not None:
+                    break
+                if time.perf_counter() - t_spawn > AGENT_WARM_S:
+                    fail(f"agent: the warm-up not done {AGENT_WARM_S:.0f} s after spawn")
+                time.sleep(0.2)
+            out["warm_s"] = time.perf_counter() - t_spawn
+            have = _ledger_keys(m0, flavor)
+            if warmed != want_warmed:
+                warnings = api.agent_monitor(log_level="WARNING")["Entries"]
+                fail(f"agent: the warm-up launched {warmed} programs, not the ladder's "
+                     f"{want_warmed}; its log:\n" + "\n".join(e["message"] for e in warnings))
+            if not want <= set(have):
+                fail(f"agent: the warm-up left out of the ledger {sorted(want - set(have))}")
+            out["warmed"] = warmed
+            libs0 = {**_ledger_keys(m0, "load"), **_ledger_keys(m0, "build")}
+            out["ledger_warm"] = {f"{p} {s}": sec for (p, s), sec in sorted(have.items())}
+            log(f"agent: started in {out['start_s']:.1f} s (http {http}, rpc {rpc_addr}); warm "
+                f"{out['warm_s']:.1f} s after spawn: {warmed} programs warmed, {len(want)} ladder "
+                f"entries of {len(have)} launched, library {libs0}")
+            for (planner_name, shape), sec in sorted(have.items()):
+                log(f"agent: first launch {planner_name} {shape}: {sec:.4f} s")
+
+            # ---- the cluster, over the RPC listener ------------------------
+            node_docs = [n.to_dict() for n in sched_nodes(size["nodes"], size["dcs"])]
+            t0 = time.perf_counter()
+            for d in node_docs:
+                pool.call(rpc_addr, "Node.Register", {"node": d})
+            out["register_s"] = time.perf_counter() - t0
+            log(f"agent: {len(node_docs)} nodes registered over RPC in {out['register_s']:.1f} s")
+            launches0 = api.metrics()["tpu_launches"]
+
+            # ---- jobs: the example job through the CLI -----------------------
+            def run_cli(*argv) -> tuple:
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    rc = cli.main(["-address", http, *argv])
+                return rc, buf.getvalue()
+
+            example = os.path.join(tmp, "example.nomad")
+            if cli.main(["job", "init", example]) != 0:
+                fail("agent: job init failed")
+            t0 = time.perf_counter()
+            rc, plan_out = run_cli("job", "plan", example)
+            out["plan_s"] = time.perf_counter() - t0
+            if rc != 0 or "1 place" not in plan_out:
+                fail(f"agent: job plan exited {rc}: {plan_out}")
+            log(f"agent: job plan example.nomad on {len(node_docs)} nodes in {out['plan_s']:.3f} "
+                f"s: {plan_out.strip().splitlines()[-2].strip()}")
+            t0 = time.perf_counter()
+            rc, run_out = run_cli("job", "run", example)
+            if rc != 0 or "Evaluation status: complete" not in run_out:
+                fail(f"agent: job run exited {rc}: {run_out}")
+            out["first_eval_s"] = time.perf_counter() - t0
+
+            # ---- jobs: phase 7's batch jobs and system job over HTTP ---------
+            batch_docs, system_doc, _ = server_jobs(size)
+            with open(example) as f:
+                example_doc = parse_job(f.read()).to_dict()
+            docs = [example_doc, *batch_docs, system_doc]
+            registered = {}
+            for d in (*batch_docs, system_doc):
+                t = time.perf_counter()
+                registered[api.register_job(d)["EvalID"]] = t
+            done = {}
+            deadline = time.perf_counter() + AGENT_EVALS_S
+            while len(done) < len(registered):
+                for e, t in registered.items():
+                    if e in done:
+                        continue
+                    ev = api.evaluation(e)
+                    if ev["status"] == "complete":
+                        done[e] = time.perf_counter() - t
+                    elif ev["status"] in ("failed", "canceled"):
+                        fail(f"agent: eval {e} ended {ev['status']}: {ev['status_description']}")
+                if time.perf_counter() > deadline:
+                    fail(f"agent: {len(registered) - len(done)} evals not complete in "
+                         f"{AGENT_EVALS_S:.0f} s")
+                time.sleep(AGENT_POLL_S)
+            out["eval_s"] = [done[e] for e in registered]
+            # the follow-up evals (the system job preempts batch allocs, as
+            # in phase 7) run to their end before the checks
+            t0 = time.perf_counter()
+            while True:
+                evs = api.evaluations()
+                if all(e["status"] in ("complete", "failed", "canceled", "blocked") for e in evs):
+                    break
+                if time.perf_counter() - t0 > AGENT_EVALS_S:
+                    fail("agent: follow-up evals not terminal")
+                time.sleep(AGENT_POLL_S)
+            out["follow_up_s"] = time.perf_counter() - t0
+            out["evals"] = {}
+            for e in evs:
+                key = f"{e['triggered_by']}:{e['status']}"
+                out["evals"][key] = out["evals"].get(key, 0) + 1
+            failed = [e for e in evs if e["status"] in ("failed", "canceled")]
+            if failed:
+                fail(f"agent: evals ended {[(e['id'], e['status']) for e in failed]}")
+            m1 = api.metrics()
+            launches = {k: v - launches0.get(k, 0) for k, v in m1["tpu_launches"].items()}
+
+            # ---- checks ---------------------------------------------------------
+            nodes = api.get("/v1/nodes")[0]
+            if sorted(n["ID"] for n in nodes) != sorted(d["id"] for d in node_docs):
+                fail("agent: /v1/nodes does not list the nodes registered")
+            ready = sum(1 for n in nodes if n["Status"] == "ready"
+                        and n["SchedulingEligibility"] == "eligible")
+            allocs = api.get("/v1/allocations")[0]
+            live: dict = {}
+            for a in allocs:
+                if a["DesiredStatus"] == "run" and a["ClientStatus"] not in ("complete", "failed",
+                                                                             "lost"):
+                    live[a["JobID"]] = live.get(a["JobID"], 0) + 1
+            wanted = {d["id"]: (ready if d["type"] == "system" else d["task_groups"][0]["count"])
+                      for d in docs}
+            short = {j: (live.get(j, 0), n) for j, n in wanted.items() if live.get(j, 0) != n}
+            if short:
+                fail(f"agent: jobs short of their count (live, wanted): {short}")
+            over = agent_over_capacity(node_docs, allocs, {d["id"]: job_ask(d) for d in docs})
+            if over:
+                fail(f"agent: {over} nodes over capacity")
+            have1 = _ledger_keys(m1, flavor)
+            libs1 = {**_ledger_keys(m1, "load"), **_ledger_keys(m1, "build")}
+            if libs1 != libs0:
+                fail(f"agent: the library was built or loaded again after the warm-up: {libs1}")
+            new_planners = {p for p, _ in have1} - {p for p, _ in have}
+            if new_planners:
+                fail(f"agent: planners first launched after the warm-up: {new_planners}")
+            out["ledger_new"] = {f"{p} {s}": sec for (p, s), sec in sorted(have1.items())
+                                 if (p, s) not in have}
+            for key, sec in out["ledger_new"].items():
+                log(f"agent: new ledger entry after the warm-up: {key}, first launch {sec:.4f} s")
+            mirror = m1["tpu_mirror"]
+            n_pad = warmup.bucket_shape(size["nodes"], 1)[0]
+            if mirror["uploads"] < 1 or mirror["upload_bytes"] != (
+                    mirror["uploads"] * n_pad * PLANE_ROW_BYTES):
+                fail(f"agent: the mirror's counted upload {mirror['upload_bytes']} B is not "
+                     f"{mirror['uploads']} x {n_pad} rows x {PLANE_ROW_BYTES} B")
+            summ = m1["tpu_devprof"]["summary"]
+            if (mirror["upload_bytes"] + mirror["refresh_bytes"]) / 1e6 > summ["h2d_mb"] + 5e-4:
+                fail(f"agent: the ledger's h2d {summ['h2d_mb']} MB holds less than the mirror's "
+                     f"{mirror['upload_bytes'] + mirror['refresh_bytes']} B")
+            rounds = m1["tpu_devprof"]["rounds"]
+            exact = rounds.get("exact") or rounds.get("wavefront")
+            if not exact or not exact["placements"]:
+                fail(f"agent: no exact-scan rounds in the ledger: {rounds}")
+            rpp = exact["rounds"] / exact["placements"]
+            # the scan takes one round a lane of its padded batch (the JAX
+            # ledger counts the padded lanes too): each fused batch's rounds
+            # are the bucket of its real lanes (floored at the drain's
+            # padding), and the batches account for the ledger's rounds and
+            # lanes; a solo exact eval pads to the bucket of its own lanes
+            batches = exact_batches(api)
+            padding = [(a, n) for a, n in batches if a != bucket(max(n, 4 * AGENT_DRAIN))]
+            solo = (exact["dispatches"] - len(batches),
+                    exact["rounds"] - sum(a for a, _ in batches),
+                    exact["placements"] - sum(n for _, n in batches))
+            solo_ok = (solo == (0, 0, 0) or (solo[0] == 1 and solo[1] == bucket(solo[2]))
+                       or (solo[0] > 1 and 0 <= solo[1] - solo[2] < 1024 * solo[0]))
+            if padding or not solo_ok:
+                fail(f"agent: the exact scan's rounds {exact['rounds']} for "
+                     f"{exact['placements']} lanes in {exact['dispatches']} launches are not "
+                     f"its batches' padded lanes: batches (padded, real) {batches}")
+            out["exact_batches"] = batches
+            planner_launches = sum(launches.get(k, 0) for k in ("exact_scan", "wavefront",
+                                                                "runs", "windowed"))
+            missing = [k for k in ("used_bases", "scatter_rows", "verify_rows")
+                       if launches.get(k, 0) < 1]
+            # (the plain versions on the CPU count no launch)
+            if device == "cuda" and (planner_launches < 1 or missing):
+                fail(f"agent: kernels not launched by the jobs: "
+                     f"{missing or ['a planner']} ({launches})")
+            rc, device_out = run_cli("operator", "device")
+            if rc != 0 or "compiles:" not in device_out or "exact" not in device_out:
+                fail(f"agent: operator device exited {rc}: {device_out}")
+            log("agent: operator device:\n" + device_out.rstrip())
+
+            # ---- stop -----------------------------------------------------------
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            try:
+                rc = proc.wait(timeout=AGENT_STOP_S)
+            except subprocess.TimeoutExpired:
+                fail(f"agent: still running {AGENT_STOP_S:.0f} s after SIGTERM")
+            out["stop_s"] = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"agent: exited {rc} on SIGTERM")
+        finally:
+            pool.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            reader.join(timeout=5)
+
+    stages = m1["stages"]["timers"]
+    commit = stages.get("plan.raft_apply", {})
+    verify = stages.get("plan.verify_device", {})
+    log(f"agent: every eval complete, every job at its count ({sum(live.values())} live "
+        f"allocs), no node over capacity; launches by the jobs {launches}")
+    log(f"agent: example job (the first eval) {out['first_eval_s']:.3f} s through job run; "
+        f"batch and system evals, registration to complete (s): "
+        f"{', '.join(f'{x:.3f}' for x in out['eval_s'])}; follow-ups {out['follow_up_s']:.3f} "
+        f"s; evals {out['evals']}")
+    log(f"agent: ledger h2d {summ['h2d_mb']} MB / {summ['h2d_calls']} calls, d2h "
+        f"{summ['d2h_mb']} MB / {summ['d2h_calls']} calls, paged tiles "
+        f"{summ['paged_tile_uploads']}, rounds {summ['rounds']} for {summ['placements']} "
+        f"placements (exact {exact['rounds']} / {exact['placements']} = {rpp:.4f} over "
+        f"fused batches (padded, real lanes) {batches}); mirror "
+        f"{mirror}; drain {m1['drain']}")
+    log(f"agent: plan commit {commit.get('count', 0)} samples, "
+        f"{commit.get('count', 0) * commit.get('mean_ms', 0.0):.1f} ms summed; dense verify "
+        f"{verify.get('count', 0)} samples, "
+        f"{verify.get('count', 0) * verify.get('mean_ms', 0.0):.1f} ms summed (the metrics' "
+        f"last 512 samples a stage)")
+    log(f"agent: exit 0 {out['stop_s']:.1f} s after SIGTERM; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    log(f"agent timings: {json.dumps(dict(out, launches=launches, rounds=rounds, summary=summ))}")
+    return dict(launches=launches, timings=out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -2046,8 +2493,14 @@ def main() -> int:
     if err:
         fail(f"windowed: kernel differs from the plain version ({err})")
     windowed_mid_ms, _ = cuda_ms(lambda: kernel.plan_batch_windowed(wa, wu, wc, 4000, 8192))
+    w_valid = int(wa.n_allocs)  # the host count the planner passes
+    windowed_ledger = ledger_host_us(
+        lambda: kernel.plan_batch_windowed(wa, wu, wc, 4000, 8192, n_valid=w_valid))
     log(f"mid windowed: N=4096 A=8192 L={LIMIT} identical, rounds {want_rounds}, "
-        f"{windowed_mid_ms:.4f} ms")
+        f"{windowed_mid_ms:.4f} ms; wrapper call on the host {windowed_ledger['on']:.1f} us with "
+        f"the device ledger (its rounds a pinned copy behind the launch), "
+        f"{windowed_ledger['off']:.1f} us without it: the ledger adds "
+        f"{windowed_ledger['added']:.1f} us")
 
     phase_done("mid sizes")
     # ---- 4. the main path at full width ------------------------------------
@@ -2363,6 +2816,7 @@ def main() -> int:
     next(row for row in kernels if row["name"] == "windowed").update(
         us_per_round=windowed_split["us_per_round"], split_us=windowed_split["split_us"],
         launch=windowed_split["launch"], mid_ms=windowed_mid_ms,
+        mid_ledger_host_us=windowed_ledger,
         million_ms=windowed_million_ms, million_launch=windowed_million_shape,
         plan_eval_ms=windowed_e2e)
     scan_row = next(row for row in kernels if row["name"] == "exact_scan")
@@ -2425,6 +2879,15 @@ def main() -> int:
         if name in server_run_out["held"]:
             row["server_run_held"] = server_run_out["held"][name]
             row["max_abs_err"] = max(row["max_abs_err"], server_run_out["held"][name]["max_abs_err"])
+    phase_done("server")
+    # ---- 8. the agent -------------------------------------------------------
+    agent = agent_phase("cuda")
+    for row in kernels:
+        if agent["launches"].get(row["name"]):
+            row["paths"]["agent"] = agent["launches"][row["name"]]
+            row["launches"] = sum(row["paths"].values())
+    for name in PRIMITIVES:
+        PRIMITIVES_ON_PATH[name] += agent["launches"].get(name, 0)
     # K1-K4's own kernels are not launched on the paths: the primitives run
     # inside every launch of the kernels that inline them
     launched = {row["name"]: row["launches"] for row in kernels}
@@ -2433,7 +2896,7 @@ def main() -> int:
         row["inlined_launches"] = sum(launched[k] for k in row["inlined_in"])
         row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
     kernels = primitives + kernels
-    phase_done("server")
+    phase_done("agent")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,10 +15,10 @@ The port's copy of ``nomad_tpu/core/server.py``. ``Server(config,
 device)`` runs its device tier (the workers' schedulers, the drain
 collector, the mirror's device planes and the applier's dense verify) on
 ``device``: CUDA unless the caller passes ``"cpu"``; without a card it
-raises. The stanzas that reach modules not yet ported raise an error that
-names their ROADMAP item (``gossip``, the RPC pool, ACL and its
-replication client, ``shard_devices``, ``prewarm_kernels``); the brownout
-ladder's devprof rung turns no knob (the port has no device profiler yet).
+raises. The ``prewarm_kernels`` stanza launches the warm-up ladder
+(``tpu/warmup.py``) on ``device`` in a background thread. The stanzas that
+reach modules not yet ported raise an error that names their ROADMAP item
+(``gossip``, ACL and its replication client, ``shard_devices``).
 """
 
 from __future__ import annotations
@@ -76,6 +76,8 @@ logger = logging.getLogger("nomad_tpu.server")
 DEFAULT_HEARTBEAT_TTL = 30.0
 #: seconds a failed proxy HTTP address stays quarantined
 HTTP_ADDR_QUARANTINE = 10.0
+#: seconds ``stop`` waits for a running warm-up to finish
+PREWARM_STOP_S = 120.0
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -631,7 +633,11 @@ class Server:
         client context attached during agent wiring is picked up."""
         pool = getattr(self, "_outbound_pool", None)
         if pool is None:
-            raise _not_ported("the server's RPC pool", "the RPC/HTTP surface and the agent")
+            from ..rpc import ConnPool
+
+            pool = self._outbound_pool = ConnPool(
+                tls_context=getattr(self, "tls_client_context", None)
+            )
         return pool
 
     def resolve_server_http_addr(
@@ -976,9 +982,19 @@ class Server:
                 tile_nodes=pg.get("tile_nodes"),
             )
         if self.config.get("prewarm_kernels"):
-            # the planner shape ladder's warm-up (the JAX package's
-            # tpu/warmup.py): not in the port yet
-            raise _not_ported("the prewarm_kernels stanza", "A9, warm-up and device ledger")
+            # launch the planner shape ladder in the background so the
+            # first real eval doesn't pay the kernels' first-launch cost
+            # (tpu/warmup.py). With batch_drain + an expected cluster
+            # size, the fused drain-batch shapes warm up too. The thread
+            # launches on the default stream, like every server thread.
+            from ..tpu.warmup import prewarm_async
+
+            drain_shape = None
+            drain_cfg = int(self.config.get("batch_drain", 0))
+            nodes_hint = int(self.config.get("prewarm_drain_nodes", 0))
+            if drain_cfg > 1 and nodes_hint > 0:
+                drain_shape = (nodes_hint, drain_cfg)
+            self._prewarm_thread = prewarm_async(drain=drain_shape, device=self.device)
         self.raft.start()
         if self.gossip is not None:
             self.gossip.start()
@@ -1055,11 +1071,12 @@ class Server:
 
     def _brownout_actions(self) -> list:
         """The brownout ladder, in degradation order:
-        wavefront→exact-scan dispatch, trace sampling→0, devprof census
+        wavefront→exact-scan dispatch, trace sampling→0, devprof
         off, snapshot-on-subscribe off. Every degrade captures the prior
         value so restore puts the PROCESS-WIDE knob back exactly — a
         brownout that outlives the storm would leak into the next test's
         baseline."""
+        from ..debug import devprof as _devprof
         from ..tpu import wavefront as _wavefront
         from ..trace import tracer as _tracer
 
@@ -1079,14 +1096,11 @@ class Server:
         def trace_restore():
             _tracer.sample_rate = prior.pop("sample_rate", 1.0)
 
-        # the port has no device profiler yet (ROADMAP A9), so its census
-        # is already off: the rung keeps the ladder's levels and turns
-        # no knob
         def devprof_degrade():
-            pass
+            prior["devprof"] = _devprof.enable(False)
 
         def devprof_restore():
-            pass
+            _devprof.enable(prior.pop("devprof", True))
 
         def snap_degrade():
             eb = self.event_broker
@@ -1202,6 +1216,11 @@ class Server:
         for w in self.workers:
             w.stop()
         self.workers = []
+        prewarm = getattr(self, "_prewarm_thread", None)
+        if prewarm is not None:
+            # the warm-up ends within its ladder; a process that exits
+            # while it is inside a torch call aborts instead of exiting
+            prewarm.join(timeout=PREWARM_STOP_S)
         self._revoke_leadership()
         self.raft.shutdown()
         if self.columnar_mirror is not None:

@@ -172,8 +172,9 @@ def capture_bundle(
     )
 
     def device():
-        # the port has no device profiler yet (ROADMAP A9)
-        return None
+        from . import devprof
+
+        return devprof.snapshot()
 
     _write_json(dest, "device.json", section("device", device) or {})
 
@@ -182,8 +183,12 @@ def capture_bundle(
             "applier_block_frac": prof.get("applier_block_frac"),
             "top_blocked_sites": prof.get("blocked_sites", [])[:10],
         }
-        # the port has no device profiler yet (ROADMAP A9)
-        out["device"] = None
+        try:
+            from . import devprof
+
+            out["device"] = devprof.summary()
+        except Exception:
+            out["device"] = None
         watchdog = getattr(server, "watchdog", None)
         if watchdog is not None:
             out["watchdog"] = watchdog.stats()

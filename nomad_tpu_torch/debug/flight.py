@@ -165,9 +165,32 @@ def sample_process(server) -> dict:
             sample["brownout_level"] = bo.level if bo is not None else 0
         except Exception:
             pass
-    # device plane: the JAX package samples its devprof ledger here
-    # (compile cache, transfers, collective rounds, paged tiles); the
-    # port has no device profiler yet (ROADMAP A9), so those keys stay out
+    # device plane (debug/devprof.py): compile-cache growth over the
+    # flight tail is the recompile_storm rule's signal (the
+    # 51200-vs-50176 shape-drift class re-paying compiles in steady
+    # state); transfer + collective-round totals ride along. All three
+    # reads are cheap and never wait on the card; a server that never
+    # launched a kernel samples a constant 0.
+    try:
+        from . import devprof
+
+        dp = devprof.totals()
+        sample["compile_cache_size"] = devprof.compile_cache_size()
+        sample["h2d_bytes"] = dp["h2d_bytes"]
+        sample["d2h_bytes"] = dp["d2h_bytes"]
+        sample["collective_rounds"] = dp["collective_rounds"]
+        # paged node axis (tpu/paging.py): tile-granular H2D traffic
+        # plus resolved placements — the h2d_thrash rule's numerator
+        # and denominator ride the same sample so their deltas line up
+        sample["placements_total"] = dp["placements"]
+        sample["paged_tile_uploads"] = dp["paged_tile_uploads"]
+        sample["paged_tile_reuploads"] = dp["paged_tile_reuploads"]
+        sample["paged_tile_upload_bytes"] = dp["paged_tile_upload_bytes"]
+        sample["paged_tile_reupload_bytes"] = dp[
+            "paged_tile_reupload_bytes"
+        ]
+    except Exception:
+        pass
     # federation signals: which region this process serves, cross-region
     # forwarding counters, and — on replicating (non-authoritative ACL)
     # servers only — how far behind the authoritative region this one is.

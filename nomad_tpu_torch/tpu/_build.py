@@ -5,7 +5,8 @@ together, for ``sm_90a`` with ``--fmad=false`` and without fast math (the
 float contract in ``nomad_tpu_torch/tpu/__init__.py``); the objects link into
 one shared library with a plain C interface. The library lands in
 ``build/nomad_tpu_torch/<hash>/`` at the repository root, keyed by a hash of
-the sources and flags, and is built at first use only.
+the sources and flags, and is built at first use only. Its build or load
+enters the device ledger (``debug/devprof.py``) once, with its seconds.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -47,6 +50,7 @@ _ENTRY_POINTS = {
 }
 
 _LIB = None
+_LIB_LOCK = threading.Lock()
 #: ``ptxas`` resource lines (registers, shared memory, spills) of a build,
 #: kept beside its library
 PTXAS_LOG = "ptxas.log"
@@ -71,11 +75,17 @@ def _source_hash(sources) -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    """Where the library of the current sources lives (built or not)."""
+    units = sorted(CSRC.glob("*.cu"))
+    return BUILD_ROOT / _source_hash(units + sorted(CSRC.glob("*.cuh"))) / "libnomad_tpu_torch.so"
+
+
 def build() -> Path:
     """Compile (when the sources changed) and return the library's path."""
     units = sorted(CSRC.glob("*.cu"))
-    out_dir = BUILD_ROOT / _source_hash(units + sorted(CSRC.glob("*.cuh")))
-    lib = out_dir / "libnomad_tpu_torch.so"
+    lib = library_path()
+    out_dir = lib.parent
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -110,15 +120,27 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first use."""
+    """The loaded kernel library, built at first use (one thread builds
+    it; the others wait)."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (n_ptr, n_int) in _ENTRY_POINTS.items():
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.ntt_error_string.argtypes = [ctypes.c_int]
-        lib.ntt_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            from ..debug import devprof
+
+            t0 = time.perf_counter()
+            built = not library_path().exists()
+            path = build()
+            lib = ctypes.CDLL(str(path))
+            for name, (n_ptr, n_int) in _ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            lib.ntt_error_string.argtypes = [ctypes.c_int]
+            lib.ntt_error_string.restype = ctypes.c_char_p
+            # one ledger entry keyed by the sources' hash
+            devprof.record_compile("library", path.parent.name, False,
+                                   "build" if built else "load", time.perf_counter() - t0)
+            _LIB = lib
     return _LIB

@@ -21,8 +21,8 @@ take, or an error injected at the ``tpu.kernel`` fault point) replans the
 eval on the exact-np host oracle, counted in
 ``scheduler.kernel_fault_degrade``; a CUDA build, launch or sync error
 propagates and fails the eval. A solo eval's planner runs inside an
-``eval.plan_kernel`` span tagged with its mode. Left out of this copy: the
-mesh branches and the device ledger.
+``eval.plan_kernel`` span tagged with its mode and its device ledger
+entry. Left out of this copy: the mesh branches.
 
 Preemption semantics are preserved without a device-side pick: at this
 reference version only the SYSTEM scheduler preempts (service/batch
@@ -100,11 +100,20 @@ def _compact_template(d: dict) -> dict:
 
 _MISS = object()
 
+#: the device ledger's planner name of each launch mode
+_PLANNER_OF_MODE = {"runs": "runs", "windowed": "windowed", "paged": "paged",
+                    "exact-scan": "exact", "wavefront": "wavefront"}
 
-def _tag_device_span(span, mode: str):
-    """Stamp a solo eval.plan_kernel span with the dispatched mode (the
-    JAX package adds its device ledger's cost tags, ROADMAP A9)."""
+
+def _tag_device_span(span, planner: str, mode: str):
+    """Stamp a solo eval.plan_kernel span with the dispatched mode and
+    the launch's device ledger tags (none today: a hand-written kernel
+    has no cost figures and one device no collective census)."""
+    from ..debug import devprof
+
     span.set_tag("mode", mode)
+    for k, v in devprof.dispatch_tags(planner).items():
+        span.set_tag(k, v)
 
 
 def _to_host(x) -> np.ndarray:
@@ -708,7 +717,7 @@ class TPUBatchScheduler(GenericScheduler):
                 paged_budget_bytes=pstats["limit_bytes"],
             )
         _count_mode(mode)
-        _tag_device_span(kernel_span, mode)
+        _tag_device_span(kernel_span, _PLANNER_OF_MODE[mode], mode)
         # the launch is async: _materialize builds templates/ids while the
         # device runs, then blocks on the placements
         self._materialize(

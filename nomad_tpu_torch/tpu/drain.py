@@ -24,10 +24,14 @@ the shared node planes (``SharedCluster.from_snapshot`` builds them from
 a state snapshot; with the server's ``ColumnarMirror`` they alias the
 store's committed planes and the batch reads the mirror's device planes).
 The batch records the JAX collector's spans (``drain.park``,
-``drain.build``, ``drain.kernel_dispatch``) and metrics, and counts a
-batch over the paging budget that uploads its host planes
-(``tpu.drain_paged_fallback``). Left out: the mesh (ROADMAP A12) and the
-device ledger (A9).
+``drain.build``, ``drain.kernel_dispatch``, with the device ledger's
+tags and a ``recompile`` flag when a planner launched at a new shape in
+its window) and metrics, and counts a batch over the paging budget that
+uploads its host planes (``tpu.drain_paged_fallback``). The device
+ledger counts the batch's host upload and, when its first eval takes its
+slices back, the batch's placements and bases device to host (the JAX
+collector counts them at its first consumer's sync). Left out: the mesh
+(ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import torch
 
 from .. import metrics, resolve_device
 from ..core.overload import DeadlineExceeded
+from ..debug import devprof as _devprof
 from ..trace import tracer
 from . import kernel, wavefront
 from .columnar import R_COLS, ColumnarCluster, GroupPlanes
@@ -58,6 +63,10 @@ LAST_DRAIN_STATS: dict = {}
 
 #: cumulative drain accounting
 DRAIN_COUNTERS = {"batches": 0, "evals": 0}
+
+#: the planners whose new launch shapes flag a batch's dispatch span (the
+#: applier's verify launches from another thread and is left out)
+_PLANNERS = ("exact", "wavefront")
 
 
 class SharedCluster:
@@ -150,6 +159,25 @@ class _Parked:
         self.error: Optional[BaseException] = None
         #: the eval's drain.park span context, parent of the batch's spans
         self.trace_ctx = None
+        #: the batch's device-to-host count, fired by its first eval back
+        self.d2h: Optional[_BatchD2H] = None
+
+
+class _BatchD2H:
+    """One batch's placements and bases counted device to host once, by
+    whichever of its evals takes its slices back first."""
+
+    def __init__(self, nbytes: int):
+        self.nbytes = nbytes
+        self._fired = False
+        self._lock = threading.Lock()
+
+    def fire(self) -> None:
+        with self._lock:
+            if self._fired:
+                return
+            self._fired = True
+        _devprof.count_d2h(self.nbytes, calls=2)
 
 
 # ---------------------------------------------------------------------------
@@ -448,6 +476,8 @@ class KernelBatchCollector:
             raise RuntimeError("drain kernel batch timed out")
         if park.error is not None:
             raise park.error
+        if park.d2h is not None:
+            park.d2h.fire()
         return park.placements, park.used0
 
     def _take_batch_locked(self) -> Optional[list]:
@@ -520,6 +550,9 @@ class KernelBatchCollector:
             if paging.should_page(N, R_COLS):
                 metrics.incr("tpu.drain_paged_fallback")
         args_np, state_np, slices = assemble(preps, n_real, shape)
+        # the batch's upload: host planes and the assembled tables (the
+        # mirror's device planes count zero)
+        _devprof.count_tree_h2d((planes, args_np, state_np))
         args, init = batch_inputs(planes, args_np, state_np, dev)
         eval_of = kernel.from_numpy(args_np["group_eval"][args_np["groups"]], dev)
         t_build = time.perf_counter()
@@ -529,22 +562,30 @@ class KernelBatchCollector:
             events = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
             events[0].record()
         n_allocs = sum(a_len for _, a_len in slices)
+        cache_before = _devprof.compile_cache_size(_PLANNERS)
+        # n_valid: the round ledger charges the batch's rounds against the
+        # real placements asked for, not the padded lane count
         if wavefront.enabled():
             planner = "wavefront"
-            _, placements, rounds = wavefront.plan_batch_wavefront(args, init, n_real)
+            _, placements, rounds = wavefront.plan_batch_wavefront(args, init, n_real,
+                                                                   n_valid=n_allocs)
         else:
             planner = "exact"
-            _, placements = kernel.plan_batch(args, init, n_real)
+            _, placements = kernel.plan_batch(args, init, n_real, n_valid=n_allocs)
             rounds = A  # one scan step per lane
         # same stream, no sync: the bases read the planner's output in place
         bases = used_bases(init.used, placements, args.demands, eval_of, E, n_real)
         if events is not None:
             events[1].record()
         t_disp = time.perf_counter()
+        cache_after = _devprof.compile_cache_size(_PLANNERS)
 
+        d2h = _BatchD2H(placements.numel() * placements.element_size()
+                        + bases.numel() * bases.element_size())
         for e, (park, (a_start, a_len)) in enumerate(zip(parked, slices)):
             park.placements = placements[a_start : a_start + a_len]
             park.used0 = bases[e]
+            park.d2h = d2h
 
         # the batch's shared stages, recorded into every eval's tree
         # under its drain.park span
@@ -554,11 +595,26 @@ class KernelBatchCollector:
             "mirror": shared.mirror is not None,
             "planner": planner,
         }
+        if planner == "exact":
+            # the scan runs one round per alloc lane: the convoy size
+            # reads span-locally (the wavefront's rounds are a device
+            # scalar, read by the ledger once the card is done)
+            dispatch_tags["collective_rounds"] = A
+            dispatch_tags["placements"] = n_allocs
+        # the launch's ledger entry (no cost figures exist for a
+        # hand-written kernel, so this adds none)
+        dispatch_tags.update(_devprof.dispatch_tags(planner))
+        # a planner that launched at a new shape in this window paid its
+        # first-launch cost here
+        recompiled = cache_after > cache_before
+        if recompiled:
+            dispatch_tags["jit_cache_delta"] = cache_after - cache_before
         for park in parked:
             tracer.record_span("drain.build", park.trace_ctx, t0, t_build,
                                tags={"batch_evals": len(parked)})
             tracer.record_span("drain.kernel_dispatch", park.trace_ctx, t_build, t_disp,
-                               tags=dispatch_tags)
+                               tags=dispatch_tags,
+                               flags=("recompile",) if recompiled else ())
 
         self.invocations += 1
         DRAIN_COUNTERS["batches"] += 1

@@ -18,18 +18,22 @@ Each ``*_ref`` function is the plain PyTorch version: it follows the JAX
 program's op order so that its float32 bits match (see the float contract
 in ``nomad_tpu_torch/tpu/__init__.py``). Each public wrapper runs the plain
 version for tensors on the CPU and launches its hand-written CUDA kernel
-(``csrc/``) for tensors on a CUDA card; a failed launch raises.
+(``csrc/``) for tensors on a CUDA card; a failed launch raises. Every
+planner launch enters the device ledger (``debug/devprof.py``) under the
+JAX package's planner names and shape keys, and records its rounds.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..debug import devprof as _devprof
 
 MAX_SKIP = 3  # ref stack.go:17
 NEG_INF = -1e30
@@ -707,6 +711,22 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(_stream_ptr(device))
 
 
+def _ledger(planner: str, shape_key: str, device: torch.device, t0: float) -> None:
+    """Note a planner launch in the device ledger: the first of its
+    (planner, shape, flavor) in the process counts as its compile, timed
+    from ``t0`` by the host clock (nothing waits for the card)."""
+    flavor = "cuda" if device.type == "cuda" else "plain"
+    _devprof.record_launch(planner, shape_key, flavor, time.perf_counter() - t0)
+
+
+def _library():
+    """The kernel library, loaded before a wrapper starts its clock (its
+    load enters the ledger under its own key)."""
+    from . import _build
+
+    return _build.library()
+
+
 #: resource columns the exact-scan kernel keeps in registers
 SCAN_MAX_COLS = 6
 #: spread classes whose boosts the exact-scan and wavefront kernels hold in
@@ -715,21 +735,36 @@ SCAN_MAX_COLS = 6
 SCAN_MAX_CLASSES = 49_152
 
 
-def plan_batch(args: BatchArgs, init: BatchState, n_real: int, walked: torch.Tensor | None = None):
+def plan_batch(args: BatchArgs, init: BatchState, n_real: int, n_valid: int = None,
+               walked: torch.Tensor | None = None):
     """Run the exact placement scan; returns (final state, node index per
     alloc or -1). On the card it is one launch of one thread block cluster
     (``csrc/exact_scan.cu``); a card that cannot hold the cluster raises.
+    ``n_valid`` is the count of real alloc lanes, against which the round
+    ledger charges the scan's one step per lane (all lanes when omitted).
     ``walked``, a one-element int64 tensor on the card, gets the ring
     positions the kernel's steps walked added to it (the plain version
     walks no chunks and takes none)."""
     _fault_point()
     device = args.capacity.device
+    A = int(args.demands.shape[0])
+    key = f"E{args.perm.shape[0]}G{args.feasible.shape[0]}A{A}N{args.capacity.shape[0]}"
     if device.type == "cpu":
         if walked is not None:
             raise ValueError("only the kernel counts the ring positions it walks")
-        return plan_batch_ref(args, init, n_real)
-    from . import _build
+        t0 = time.perf_counter()
+        out = plan_batch_ref(args, init, n_real)
+    else:
+        lib = _library()
+        t0 = time.perf_counter()
+        out = _plan_batch_cuda(lib, args, init, walked, device)
+    _ledger("exact", key, device, t0)
+    # one scan step per alloc lane, each a full-ring score and argmax
+    _devprof.count_rounds("exact", A, A if n_valid is None else int(n_valid), False)
+    return out
 
+
+def _plan_batch_cuda(lib, args: BatchArgs, init: BatchState, walked, device):
     d = _check_cuda({**args._asdict(), **init._asdict()}, _EXACT_SHAPES, device)
     N, C, G, V, E, A = (d[k] for k in "NCGVEA")
     _check_index(args.perm, N, "perm")
@@ -742,7 +777,6 @@ def plan_batch(args: BatchArgs, init: BatchState, n_real: int, walked: torch.Ten
         raise ValueError("walked must be a one-element int64 tensor on the scan's device")
     state = BatchState(*(t.clone() for t in init))
     placements = torch.empty(A, dtype=torch.int32, device=device)
-    lib = _build.library()
     _launch(
         "exact_scan",
         lib.ntt_exact_scan,
@@ -755,17 +789,30 @@ def plan_batch(args: BatchArgs, init: BatchState, n_real: int, walked: torch.Ten
     return state, placements
 
 
-def plan_batch_runs(args: RunArgs, init, a_pad: int, even_mode: bool = False):
+def plan_batch_runs(args: RunArgs, init, a_pad: int, even_mode: bool = False,
+                    n_valid: int = None):
     """Place ``n_allocs`` identical asks under full-ring selection; returns
     (node index per alloc slot [a_pad], -1 = unplaced; rounds). On the card
     ``rounds`` is a device tensor, so the call does not wait for the
-    kernel."""
+    kernel. The round ledger gets the rounds against ``n_valid`` (the
+    host's count of ``n_allocs``; the device scalar itself when omitted)
+    without waiting either."""
     _fault_point()
     device = args.capacity.device
+    key = f"N{args.capacity.shape[0]}A{a_pad}"
     if device.type == "cpu":
-        return plan_batch_runs_ref(args, init, a_pad, even_mode)
-    from . import _build
+        t0 = time.perf_counter()
+        placements, rounds = plan_batch_runs_ref(args, init, a_pad, even_mode)
+    else:
+        lib = _library()
+        t0 = time.perf_counter()
+        placements, rounds = _plan_batch_runs_cuda(lib, args, init, a_pad, even_mode, device)
+    _ledger("runs", key, device, t0)
+    _devprof.count_rounds("runs", rounds, args.n_allocs if n_valid is None else n_valid, False)
+    return placements, rounds
 
+
+def _plan_batch_runs_cuda(lib, args: RunArgs, init, a_pad: int, even_mode: bool, device):
     init = dict(zip(("used", "collisions", "spread_counts", "spread_present"), init))
     d = _check_cuda({**args._asdict(), **init}, _RUN_SHAPES, device)
     N, C, V = d["N"], d["C"], d["V"]
@@ -774,7 +821,6 @@ def plan_batch_runs(args: RunArgs, init, a_pad: int, even_mode: bool = False):
     used, coll, counts, present = (t.clone() for t in init.values())
     placements = torch.empty(a_pad, dtype=torch.int32, device=device)
     rounds = torch.zeros(1, dtype=torch.int32, device=device)
-    lib = _build.library()
     size = ctypes.c_longlong(0)
     _launch_status("runs", lib.ntt_runs_scratch(ctypes.addressof(size), N, C, V, _stream(device)))
     # every block's class arrays and sort list; round records past 1,024 positions a block
@@ -812,19 +858,35 @@ def windowed_shape(N: int, C: int, n_real: int) -> dict:
                 state_in_registers=bool(out[3]))
 
 
-def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad: int):
+def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad: int,
+                        n_valid: int = None):
     """Place ``n_allocs`` identical asks in windows of ``limit`` feasible
     ring positions; returns (node index per alloc slot [a_pad], -1 =
     unplaced; rounds). On the card it is one launch of one thread block
     cluster (``csrc/windowed.cu``) that reads ``used0`` and ``collisions0``
     and writes neither; ``rounds`` is a device tensor, so the call does not
-    wait for the kernel."""
+    wait for the kernel (its permutation check does). The round ledger gets
+    the rounds against ``n_valid`` (the host's count of ``n_allocs``; the
+    device scalar itself when omitted) without waiting."""
     _fault_point()
     device = args.capacity.device
+    key = f"N{args.capacity.shape[0]}A{a_pad}"
     if device.type == "cpu":
-        return plan_batch_windowed_ref(args, used0, collisions0, n_real, a_pad)
-    from . import _build
+        t0 = time.perf_counter()
+        placements, rounds = plan_batch_windowed_ref(args, used0, collisions0, n_real, a_pad)
+    else:
+        lib = _library()
+        t0 = time.perf_counter()
+        placements, rounds = _plan_batch_windowed_cuda(lib, args, used0, collisions0, n_real,
+                                                       a_pad, device)
+    _ledger("windowed", key, device, t0)
+    _devprof.count_rounds("windowed", rounds, args.n_allocs if n_valid is None else n_valid,
+                          False)
+    return placements, rounds
 
+
+def _plan_batch_windowed_cuda(lib, args: WindowArgs, used0, collisions0, n_real: int,
+                              a_pad: int, device):
     d = _check_cuda({**args._asdict(), "used": used0, "collisions": collisions0},
                     _WINDOW_SHAPES, device)
     N, C = d["N"], d["C"]
@@ -835,7 +897,6 @@ def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad
         raise KernelFault(f"the windowed planner takes at least 2 resource columns, not {C}")
     placements = torch.empty(a_pad, dtype=torch.int32, device=device)
     rounds = torch.empty(1, dtype=torch.int32, device=device)
-    lib = _build.library()
     size = ctypes.c_longlong(0)
     _launch_status("windowed", lib.ntt_windowed_scratch(ctypes.addressof(size), N, C, n_real,
                                                         _stream(device)))
@@ -989,23 +1050,28 @@ def verify_rows(capacity, used, rows, deltas):
     """Per-lane fit of ``used`` plus the summed deltas of every lane on the
     same row, against ``capacity``; bool[R]. Checks what the kernel takes
     on either device; on the CPU the plain version, on the card one launch
-    (``csrc/verify.cu``) that does not wait for the card."""
+    (``csrc/verify.cu``) that does not wait for the card. It enters the
+    device ledger like the planners but records no rounds."""
     _fault_point()
     N, C, R = _verify_dims(capacity, used, rows, deltas)
     device = capacity.device
+    key = f"N{N}R{R}"
     if device.type == "cpu":
-        return verify_rows_ref(capacity, used, rows, deltas)
-    from . import _build
-
+        t0 = time.perf_counter()
+        fits = verify_rows_ref(capacity, used, rows, deltas)
+        _ledger("verify_rows", key, device, t0)
+        return fits
+    lib = _library()
+    t0 = time.perf_counter()
     fits = rows.new_empty(R, dtype=torch.bool)
     if R == 0:
         return fits
-    rc = _build.library().ntt_verify_rows(capacity.data_ptr(), used.data_ptr(), rows.data_ptr(),
-                                          deltas.data_ptr(), fits.data_ptr(), N, C, R,
-                                          _stream_ptr(device))
+    rc = lib.ntt_verify_rows(capacity.data_ptr(), used.data_ptr(), rows.data_ptr(),
+                             deltas.data_ptr(), fits.data_ptr(), N, C, R, _stream_ptr(device))
     if rc:
         _launch_status("verify_rows", rc)
     LAUNCHES["verify_rows"] += 1
+    _ledger("verify_rows", key, device, t0)
     return fits
 
 

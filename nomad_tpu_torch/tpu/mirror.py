@@ -9,15 +9,16 @@ whole freshness test.
 - :class:`MirrorCluster` — a ColumnarCluster whose usage plane, exotic
   counts and alloc records ALIAS the committed planes;
 - :class:`DeviceState` — the planes on the device, uploaded once per
-  node-axis epoch with ``.to(device)`` and kept current by the dirty-row
-  scatter (``csrc/scatter.cu`` on the card), fed from the store's
-  in-commit track/untrack through ``register_sink``;
+  node-axis epoch through the device ledger's counted upload
+  (``devprof.device_put``) and kept current by the dirty-row scatter
+  (``csrc/scatter.cu`` on the card), whose rows and values upload counted
+  too, fed from the store's in-commit track/untrack through
+  ``register_sink``;
 - :class:`ColumnarMirror` — the adapter the server builds: ``sync`` /
   ``device_state`` / ``verify_handles`` / ``locked_cluster`` / ``stats``,
   with the paging budget gate and its counters.
 
-Left out (ROADMAP A12, A9): the mesh's sharded planes and the device
-ledger's transfer counts.
+Left out (ROADMAP A12): the mesh's sharded planes.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..debug import devprof as _devprof
 from ..state.planes import exotic_flag, usage_vec  # noqa: F401 — canonical
 # definitions live in the state layer with the planes; re-exported here
 # as in the JAX package
@@ -204,8 +206,12 @@ class DeviceState:
         use = np.full((n_pad, R_COLS), 2**30, dtype=np.int32)
         use[:n] = np.clip(used, 0, 2**30)
         self.capacity, self.usable, self.used = (
-            torch.from_numpy(a).to(dev) for a in (cap, usa, use)
+            _devprof.device_put(a, dev) for a in (cap, usa, use)
         )
+        #: bytes of the upload, and of the refreshes since, as the device
+        #: ledger counts them
+        self.upload_bytes = cap.nbytes + usa.nbytes + use.nbytes
+        self.refresh_bytes = 0
         #: dirty rows since the last refresh; the caller adds to it
         self.pending: set[int] = set()
 
@@ -229,8 +235,9 @@ class DeviceState:
         padded, vals = dirty_lanes(rows, used_host)
         self.pending.clear()
         dev = self.device
+        self.refresh_bytes += padded.nbytes + vals.nbytes
         self.used = scatter_rows(
-            self.used, torch.from_numpy(padded).to(dev), torch.from_numpy(vals).to(dev)
+            self.used, _devprof.device_put(padded, dev), _devprof.device_put(vals, dev)
         )
 
     def arrays(self):
@@ -261,10 +268,13 @@ class ColumnarMirror:
             "view_refreshes": 0,
             "over_budget": 0,
             # the port's device-plane counters: full uploads, dirty-row
-            # refreshes (one scatter launch each) and the rows they carry
+            # refreshes (one scatter launch each) and the rows they carry,
+            # and the bytes each kind moved host to device
             "uploads": 0,
             "refreshes": 0,
             "rows_scattered": 0,
+            "upload_bytes": 0,
+            "refresh_bytes": 0,
             "rebuild_reasons": {},
         }
 
@@ -348,16 +358,19 @@ class ColumnarMirror:
                     cluster.usable, planes.used, device=self.device,
                 )
                 self.counters["uploads"] += 1
+                self.counters["upload_bytes"] += ds.upload_bytes
                 self._device[n_pad] = ds
                 # from here on the store's in-commit track/untrack marks
                 # dirty rows straight into this DeviceState
                 planes.register_sink(ds.pending)
             else:
                 n = len(ds.pending)
+                before = ds.refresh_bytes
                 ds.refresh(planes.used)
                 if n:
                     self.counters["refreshes"] += 1
                     self.counters["rows_scattered"] += n
+                    self.counters["refresh_bytes"] += ds.refresh_bytes - before
             return ds.arrays()
 
     # ------------------------------------------------------------------

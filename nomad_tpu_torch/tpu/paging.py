@@ -36,6 +36,11 @@ Config stanza, with the JAX package's env names and defaults:
 routes a windowed eval here when ``should_page`` says its planes exceed
 the budget.
 
+The device ledger counts each tile's upload (bytes h2d and the tile-
+granular uploads and re-uploads), each tile's sweep-2 results device to
+host, the route's rounds, and the two sweeps' launches under planner
+``paged`` with the JAX package's shape keys.
+
 ``plan_windowed_np`` (with ``_pow10_np``/``_binpack_np``) is the port's
 copy of the JAX package's pure-numpy windowed planner, the host oracle of
 this route.
@@ -46,11 +51,13 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+import time
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..debug import devprof as _devprof
 from . import kernel
 from .kernel import _LOG2_10, _LOG2_10_HI, _LOG2_10_LO, NEG_INF, _binpack
 
@@ -179,6 +186,7 @@ class TileCache:
     def _put(self, tree, ent: dict) -> tuple:
         """Copy a tile's arrays to the device. On CUDA the copies run on the
         side stream and ``ent["ready"]`` becomes their completion event."""
+        _devprof.count_tree_h2d(tree)
         if self._copy_stream is None:
             return tuple(torch.from_numpy(np.array(x)) for x in tree)
         compute = torch.cuda.current_stream(self.device)
@@ -230,6 +238,7 @@ class TileCache:
                 self.reuploads += 1
                 self.reupload_bytes += nbytes
                 self.upload_bytes += nbytes
+                _devprof.count_tile_upload(nbytes, reupload=True)
             else:
                 self.hits += 1
             return ent
@@ -257,6 +266,7 @@ class TileCache:
         if revisit:
             self.reuploads += 1
             self.reupload_bytes += s_bytes + d_bytes
+        _devprof.count_tile_upload(s_bytes + d_bytes, reupload=revisit)
         self.resident_peak_bytes = max(self.resident_peak_bytes, self._resident_bytes())
         return ent
 
@@ -477,6 +487,39 @@ def tile_window(cap, usable, feas, used, coll, nodes, demand, group_count: int, 
     return bases, seg_score, seg_rank, seg_node, last[0]
 
 
+def sweep_keys(tn: int) -> tuple:
+    """The device ledger's shape keys of the two sweeps over tiles of
+    ``tn`` rows (planner ``paged``; one device, so S1)."""
+    return f"T{tn}S1c", f"T{tn}S1w"
+
+
+def count_sweep(cap, feas, used, demand, counts, offset: int, n_real: int, key: str):
+    """Sweep 1's counter for the tiles of one eval (``_tile_counter``),
+    made and launched on tile 0; the launch enters the device ledger under
+    ``key``. Returns the counter for the other tiles."""
+    if cap.device.type == "cuda":
+        kernel._library()
+    t0 = time.perf_counter()
+    count = _tile_counter(cap, feas, used, demand, counts)
+    count(0, cap, feas, used, 0, offset, n_real)
+    kernel._ledger("paged", key, cap.device, t0)
+    return count
+
+
+def window_sweep(cap, usable, feas, used, coll, nodes, demand, group_count: int, limit: int,
+                 t0: int, offset: int, n_real: int, flat_base: int, x0: int, total: int,
+                 w_use: int, key: str):
+    """``tile_window`` over one tile, its launch entered in the device
+    ledger under ``key``."""
+    if cap.device.type == "cuda":
+        kernel._library()
+    start = time.perf_counter()
+    out = tile_window(cap, usable, feas, used, coll, nodes, demand, group_count, limit, t0,
+                      offset, n_real, flat_base, x0, total, w_use)
+    kernel._ledger("paged", key, cap.device, start)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the paged windowed planner: host-driven rounds over the tile stream
 # ---------------------------------------------------------------------------
@@ -542,6 +585,7 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
         return (used_r[sl], coll_r[sl])
 
     cache = TileCache(budget_mb() * (1 << 20), build_static, build_dynamic, dev)
+    ckey, wkey = sweep_keys(tn)
     demand_np = np.asarray(demand, dtype=np.int32)
     demand_d = torch.from_numpy(demand_np.copy()).to(dev)
     a = int(n_allocs)
@@ -569,9 +613,11 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
             cache.wait(cur)
             cap_t, _, feas_t, _ = cur["static"]
             used_t, _ = cur["dyn"]
-            if count is None:
-                count = _tile_counter(cap_t, feas_t, used_t, demand_d, counts)
-            count(t, cap_t, feas_t, used_t, t * tn, offset, n_real)
+            if count is None:  # tile 0
+                count = count_sweep(cap_t, feas_t, used_t, demand_d, counts, offset, n_real,
+                                    ckey)
+            else:
+                count(t, cap_t, feas_t, used_t, t * tn, offset, n_real)
         tile_counts = counts.cpu().numpy().astype(np.int64)
         cnts, befs = tile_counts[:, 0], tile_counts[:, 1]
 
@@ -595,10 +641,12 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
             cache.wait(cur)
             cap_t, usable_t, feas_t, nodes_t = cur["static"]
             used_t, coll_t = cur["dyn"]
-            parts.append(tile_window(
+            parts.append(window_sweep(
                 cap_t, usable_t, feas_t, used_t, coll_t, nodes_t, demand_d, int(group_count),
-                lraw, t * tn, offset, int(n_real), int(flat_base[t]), x0, total, w_use))
+                lraw, t * tn, offset, int(n_real), int(flat_base[t]), x0, total, w_use, wkey))
         parts = _to_host(parts, pinned)
+        for _, t_score, t_rank, t_node, _ in parts:
+            _devprof.count_d2h(t_score.nbytes + t_rank.nbytes + t_node.nbytes + 16)
 
         g_score = np.full(w_use, NEG_INF, np.float32)
         g_rank = np.full(w_use, _BIG, np.int64)
@@ -642,6 +690,7 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
         offset = (offset + max(consumed, 0)) % n_real
         placed += w_use
 
+    _devprof.count_rounds("paged", rounds, a, False)
     stats = cache.stats()
     stats.update({"rounds": rounds, "tiles": n_tiles, "tile_nodes": tn, "placed": placed,
                   "n_pad": n_pad})

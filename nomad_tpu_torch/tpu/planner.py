@@ -20,7 +20,9 @@ The planes are numpy arrays under the ``BatchArgs`` field names (G groups,
 E evals), plus ``used0`` [N,C], ``collisions0`` [G,N], ``counts0`` [G,V],
 ``present0`` [G,V] and the real node and alloc counts ``n_real`` and
 ``a_real``; ``problems.eval_planes`` builds them from a synthetic cluster,
-the scheduler from a state snapshot.
+the scheduler from a state snapshot. The uploads of each planner's
+arg tree and the placements' sync are counted in the device ledger, at
+the JAX scheduler's sites.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..debug import devprof as _devprof
 from . import kernel, paging, wavefront
 from .problems import bucket
 
@@ -107,6 +110,7 @@ def exact_inputs(p: dict, device) -> tuple:
         spread_present=p["present0"],
         offset=np.zeros(p["perm"].shape[0], np.int32),
     )
+    _devprof.count_tree_h2d((args, state))
     return kernel.from_numpy(args, device), kernel.from_numpy(state, device)
 
 
@@ -131,6 +135,7 @@ def runs_inputs(p: dict, device) -> tuple:
         n_allocs=np.int32(p["a_real"]),
     )
     init = (p["used0"][perm], p["collisions0"][0][perm], p["counts0"][0], p["present0"][0])
+    _devprof.count_tree_h2d((args, init))
     return kernel.from_numpy(args, device), kernel.from_numpy(init, device)
 
 
@@ -146,6 +151,7 @@ def window_inputs(p: dict, device) -> tuple:
         limit=p["limits"][0],
         n_allocs=np.int32(p["a_real"]),
     )
+    _devprof.count_tree_h2d((args, p["used0"], p["collisions0"][0]))
     used0, coll0 = kernel.from_numpy((p["used0"], p["collisions0"][0]), device)
     return kernel.from_numpy(args, device), used0, coll0
 
@@ -185,6 +191,10 @@ class PendingPlan:
 
     def wait(self):
         _sync(self.device)
+        if self.mode != "paged":
+            # the placements' device-to-host copy (the paged route's
+            # placements are host numpy already)
+            _devprof.count_d2h(self.placements.numel() * self.placements.element_size())
         kernel_s = time.perf_counter() - self.t0
         device_s = None
         if self.events is not None:
@@ -228,22 +238,24 @@ def launch_eval(planes: dict, device=None, exact_only: bool = False) -> PendingP
         args, init = runs_inputs(p, dev)
         _sync(dev)
         t0, start = time.perf_counter(), _event(dev)
-        placements, rounds = kernel.plan_batch_runs(args, init, A, bool(p["spread_even"][0]))
+        placements, rounds = kernel.plan_batch_runs(args, init, A, bool(p["spread_even"][0]),
+                                                    n_valid=a_real)
     elif mode == "windowed":
         args, used0, coll0 = window_inputs(p, dev)
         _sync(dev)
         t0, start = time.perf_counter(), _event(dev)
-        placements, rounds = kernel.plan_batch_windowed(args, used0, coll0, n_real, A)
+        placements, rounds = kernel.plan_batch_windowed(args, used0, coll0, n_real, A,
+                                                        n_valid=a_real)
     elif mode == "wavefront":
         args, state = exact_inputs(p, dev)
         _sync(dev)
         t0, start = time.perf_counter(), _event(dev)
-        _, placements, rounds = wavefront.plan_batch_wavefront(args, state, n_real)
+        _, placements, rounds = wavefront.plan_batch_wavefront(args, state, n_real, n_valid=a_real)
     else:
         args, state = exact_inputs(p, dev)
         _sync(dev)
         t0, start = time.perf_counter(), _event(dev)
-        _, placements = kernel.plan_batch(args, state, n_real)
+        _, placements = kernel.plan_batch(args, state, n_real, n_valid=a_real)
         rounds = a_real  # one scan step per alloc
     launches = sum(kernel.LAUNCHES.values()) - before
     events = (start, _event(dev)) if start is not None else None

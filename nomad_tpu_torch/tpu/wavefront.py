@@ -26,7 +26,8 @@ runs on one card, so its wrapper always takes S = 1.
 ``plan_batch_wavefront`` the wrapper: the plain version for CPU tensors,
 the hand-written CUDA kernel ``csrc/wavefront.cu`` for CUDA tensors (one
 cooperative launch of a thread block cluster per lane of the window, each
-walking its lane's ring only as far as its limit window).
+walking its lane's ring only as far as its limit window). Each launch
+enters the device ledger and records its rounds, as the JAX module's do.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
+import time
 
 import torch
 
+from ..debug import devprof as _devprof
 from . import kernel
 from .kernel import MAX_SKIP, NEG_INF, BatchArgs, BatchState, _scores
 
@@ -316,23 +319,37 @@ def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid
     state, node index per alloc or -1, rounds). A drop-in for
     ``kernel.plan_batch``. On the card ``rounds`` is a device scalar, so
     the call does not wait for the kernel; the caller syncs when it reads
-    it. ``n_valid`` (the real placements asked for) is accepted for the
-    JAX signature; the JAX package feeds it to its round ledger.
+    it. ``n_valid`` (the real placements asked for; every lane when
+    omitted) is what the round ledger charges the rounds against, without
+    waiting for them.
     ``walked``, a one-element int64 tensor on the card, gets the ring
     positions the committed lanes' selections walked added to it (the
     plain version walks no chunks and takes none)."""
     kernel._fault_point()
-    del n_valid
     A = int(args.demands.shape[0])
+    n_pad = int(args.capacity.shape[0])
     W = window_for(A)
     M = contention_top_m()
+    S = shards_for(n_pad, 1)
+    key = f"E{args.perm.shape[0]}G{args.feasible.shape[0]}A{A}N{n_pad}W{W}M{M}S{S}"
     device = args.capacity.device
     if device.type == "cpu":
         if walked is not None:
             raise ValueError("only the kernel counts the ring positions it walks")
-        return plan_batch_wavefront_ref(args, init, n_real, W, M, shards_for(args.capacity.shape[0], 1))
-    from . import _build
+        t0 = time.perf_counter()
+        out = plan_batch_wavefront_ref(args, init, n_real, W, M, S)
+    else:
+        lib = kernel._library()
+        t0 = time.perf_counter()
+        out = _plan_batch_wavefront_cuda(lib, args, init, walked, W, M, device)
+    kernel._ledger("wavefront", key, device, t0)
+    _devprof.count_rounds("wavefront", out[2], A if n_valid is None else int(n_valid), False)
+    return out
 
+
+def _plan_batch_wavefront_cuda(lib, args: BatchArgs, init: BatchState, walked, W: int, M: int,
+                               device):
+    A = int(args.demands.shape[0])
     d = kernel._check_cuda({**args._asdict(), **init._asdict()}, kernel._EXACT_SHAPES, device)
     N, C, G, V, E = (d[k] for k in "NCGVE")
     kernel._check_index(args.perm, N, "perm")
@@ -352,7 +369,7 @@ def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid
     scratch = torch.empty(scratch_ints, dtype=torch.int32, device=device)  # the round's lane slots
     kernel._launch(
         "wavefront",
-        _build.library().ntt_wavefront,
+        lib.ntt_wavefront,
         *(kernel._ptr(t) for t in args),
         *(kernel._ptr(t) for t in state),
         kernel._ptr(placements), kernel._ptr(rounds),

@@ -167,9 +167,13 @@ def _mesh_dispatch_stats(records: list[dict]) -> dict:
 def _devprof_rounds_per_placement():
     """The device profiler's global collective-round ratio — the
     fallback when sharded spans exist but none carried the counter
-    tags. The port has no device profiler yet (ROADMAP A9), so this
-    reads None, as the JAX package's does with devprof off."""
-    return None
+    tags. None when devprof is off or dark."""
+    try:
+        from ..debug import devprof
+
+        return devprof.summary().get("collective_rounds_per_placement")
+    except Exception:
+        return None
 
 
 def _stage_table(per_trace: list[dict]) -> dict:

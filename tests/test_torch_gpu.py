@@ -1504,3 +1504,78 @@ def test_server_solo_and_system_evals_on_the_card_place_as_on_the_cpu(cuda_devic
     assert got == want and len(got) == 1200 + 400
     assert not mismatches and checked.count >= 2
     assert launches["windowed"] >= 1 and launches["runs"] >= 1 and launches["verify_rows"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# warm-up and the device ledger
+# ---------------------------------------------------------------------------
+
+def _ladder_keys(shapes) -> list:
+    """The (planner, shape) ledger keys ``warmup.prewarm`` launches for
+    ``shapes`` with no stanza on."""
+    keys = []
+    for n_pad, a_pad in shapes:
+        keys += [("runs", f"N{n_pad}A{a_pad}"), ("windowed", f"N{n_pad}A{a_pad}"),
+                 ("exact", f"E1G1A{a_pad}N{n_pad}")]
+    return keys
+
+
+@pytest.mark.gpu
+def test_prewarm_on_the_card_covers_the_ladder(cuda_device):
+    from nomad_tpu_torch.debug import devprof
+    from nomad_tpu_torch.tpu import warmup
+
+    assert warmup.prewarm(device=cuda_device) == 3 * len(warmup.DEFAULT_SHAPES)
+    assert not [k for k in _ladder_keys(warmup.DEFAULT_SHAPES)
+                if (*k, "cuda") not in devprof._LAUNCHED]
+    # the drain ladder: the fused scan, the bases and two verify buckets
+    assert warmup.prewarm_drain(10000, 8, device=cuda_device) == 4
+    for key in (("exact", "E8G8A32N10240"), ("verify_rows", "N10240R8"),
+                ("verify_rows", "N10240R64")):
+        assert (*key, "cuda") in devprof._LAUNCHED, key
+    # the library was loaded once, before any launch
+    libs = [e for e in devprof.snapshot()["compile_ledger"] if e["planner"] == "library"]
+    assert len(libs) <= 1
+
+
+@pytest.mark.gpu
+def test_plan_eval_at_a_ladder_shape_adds_no_planner(cuda_device):
+    from nomad_tpu_torch.debug import devprof
+    from nomad_tpu_torch.tpu import warmup
+
+    shapes = (warmup.bucket_shape(1000, 1000),)
+    assert warmup.prewarm(shapes, device=cuda_device) == 3
+    size = devprof.compile_cache_size()
+    c = problems.build_cluster(1000, 1000)
+    for spread in (True, False):  # the run planner, then the exact scan
+        planes = problems.eval_planes(*problems.exact_problem(c, spread=spread))
+        placements, stats = planner.plan_eval(planes, device=cuda_device)
+        assert stats["mode"] in ("runs", "exact-scan") and (placements >= 0).any()
+        assert devprof.compile_cache_size() == size, stats["mode"]
+
+
+@pytest.mark.gpu
+def test_count_rounds_does_not_wait_for_a_running_kernel(cuda_device):
+    import time
+
+    from nomad_tpu_torch.debug import devprof
+
+    prior = devprof.enable(True)
+    try:
+        devprof.reset()
+        rounds = torch.full((), 7, dtype=torch.int32, device=cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000_000)  # about a second of the card's cycles
+        t0 = time.perf_counter()
+        devprof.count_rounds("runs", rounds, 21, False)
+        totals = devprof.totals()
+        waited = time.perf_counter() - t0
+        assert waited < 0.2, waited
+        assert totals["pending_rounds"] == 1 and totals["rounds"] == 0
+        torch.cuda.synchronize()
+        totals = devprof.totals()
+        assert totals["pending_rounds"] == 0 and totals["rounds"] == 7
+        assert totals["placements"] == 21
+    finally:
+        devprof.reset()
+        devprof.enable(prior)

@@ -95,6 +95,30 @@ MODULES = [
     "nomad_tpu_torch.core.periodic",
     "nomad_tpu_torch.core.vault",
     "nomad_tpu_torch.core.server",
+    "nomad_tpu_torch.debug.devprof",
+    "nomad_tpu_torch.tpu.warmup",
+    "nomad_tpu_torch.util",
+    "nomad_tpu_torch.config",
+    "nomad_tpu_torch.tlsutil",
+    "nomad_tpu_torch.jobspec",
+    "nomad_tpu_torch.jobspec.hcl",
+    "nomad_tpu_torch.jobspec.parse",
+    "nomad_tpu_torch.rpc",
+    "nomad_tpu_torch.rpc.codec",
+    "nomad_tpu_torch.rpc.mux",
+    "nomad_tpu_torch.rpc.client",
+    "nomad_tpu_torch.rpc.server",
+    "nomad_tpu_torch.rpc.raft_transport",
+    "nomad_tpu_torch.rpc.endpoints",
+    "nomad_tpu_torch.events.mux",
+    "nomad_tpu_torch.api",
+    "nomad_tpu_torch.api.client",
+    "nomad_tpu_torch.api.http",
+    "nomad_tpu_torch.api.ws",
+    "nomad_tpu_torch.ui",
+    "nomad_tpu_torch.agent",
+    "nomad_tpu_torch.cli",
+    "nomad_tpu_torch.cli.main",
 ]
 
 
@@ -188,7 +212,8 @@ def test_chip_smoke_refuses_without_a_card():
 def test_server_and_its_device_tier_default_to_cuda():
     """``Server()``, ``new_scheduler(...)`` and the mirror want the card
     unless given ``device="cpu"``; the stanzas that reach modules not yet
-    ported raise an error that names their ROADMAP item."""
+    ported raise an error that names their ROADMAP item (the warm-up
+    stanza runs: tests/test_torch_warmup.py)."""
     from nomad_tpu_torch.core.server import Server
     from nomad_tpu_torch.scheduler import Harness, new_scheduler
     from nomad_tpu_torch.state import StateStore
@@ -228,8 +253,32 @@ def test_server_and_its_device_tier_default_to_cuda():
     for stanza, item in (({"acl": {"enabled": True}}, "ACL"),):
         with pytest.raises(NotImplementedError, match=item):
             Server(stanza, device="cpu")
-    for stanza, item in (("shard_devices", "A12"), ("prewarm_kernels", "A9")):
+    for stanza, item in (("shard_devices", "A12"),):
         s = Server({stanza: 1}, device="cpu")
         with pytest.raises(NotImplementedError, match=item):
             s.start(num_workers=0)
         s.stop()
+
+
+def test_agents_and_the_cli_agent_default_to_cuda():
+    """``ServerAgent()``, ``DevAgent(num_clients=0)`` and the CLI's ``agent``
+    want the card unless given ``device="cpu"`` / ``-device cpu``; they
+    refuse before binding a socket or starting a thread."""
+    import importlib
+    import threading
+
+    from nomad_tpu_torch.agent import DevAgent, ServerAgent
+
+    cli = importlib.import_module("nomad_tpu_torch.cli.main")
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the CUDA-less refusal is not observable")
+    before = set(threading.enumerate())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServerAgent("agent-1")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevAgent(num_clients=0)
+    parsed = cli.build_parser().parse_args(["agent", "-config", "x.hcl"])
+    assert parsed.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.cmd_agent(cli.build_parser().parse_args(["agent", "-dev", "-clients", "0"]))
+    assert set(threading.enumerate()) <= before
