@@ -115,8 +115,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``tpu-batch``, ``batch_drain`` 8, ``plan_apply_batch`` 8, the event
    broker on) with 10,000 mock nodes registered through
    ``node_register`` (the scheduler phase's tiers, 4 datacenters); with
-   no worker running, 8 batch jobs of 7,500-10,000 allocs (cpu 50/100,
-   memory 32/64, the soak's preload) are registered, then two drain
+   no worker running, 4 batch jobs of 7,500-10,000 allocs (cpu 50/100,
+   memory 32/64, the soak's preload; 8 until phase 9 came) are
+   registered, then two drain
    workers start; after them a system job (``tpu-system``, one alloc a
    ready node) and a service job of 5,000 allocs that a worker plans solo
    (the windowed planner). Checks: every eval completes, every job has
@@ -138,7 +139,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 8. the agent, through the system's normal entry point in a fresh
    process: ``python -m nomad_tpu_torch agent -device cuda -config
    <file> -port 0`` in the networked server mode with phase 7's server
-   settings, ``prewarm_kernels`` on and ``prewarm_drain_nodes`` 10,000.
+   settings, ``prewarm_kernels`` on and ``prewarm_drain_nodes`` 2,000.
    The phase reads the HTTP and RPC addresses from the agent's start line
    and polls ``/v1/metrics`` until the warm-up reports its count of
    programs warmed (``tpu_prewarm``) within 120 s of the spawn; the count
@@ -146,7 +147,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    every (planner, shape) of the ladder (``agent_ladder``, from
    ``warmup.bucket_shape``, ``DEFAULT_SHAPES`` and the stanzas), so a
    warm-up launch that failed (logged, the count short) fails the phase
-   with the agent's warnings. It registers 10,000 nodes (phase 7's) over the RPC
+   with the agent's warnings. It registers 2,000 nodes (phase 7's first;
+   cut from 10,000 to make room for phase 9) over the RPC
    listener (``Node.Register`` through ``rpc.ConnPool``); runs ``job
    init``, ``job plan`` and ``job run`` on ``example.nomad`` through the
    CLI; registers four of phase 7's batch jobs and its system job through
@@ -166,8 +168,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    device`` prints its report, and SIGTERM ends the agent with exit 0
    within 30 s. The agent is another process, so its
    kernel calls are held against their plain versions only by phases 3-7;
-9. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
-   scheduler, server and agent launches), the card's name and power
+9. the soak storm, with every launch counter set to 0 before and read
+   after: the port's load plane (``nomad_tpu_torch.loadgen``) runs the
+   soak scenario (nomad_tpu/loadgen/scenarios.py:125-276; seed 1, 8 driver
+   workers) against an in-process ``ServerAgent`` on the card with the
+   scenario's own server config, through its RPC listener and HTTP
+   server: a 2,000-node fleet (cut from 10,000) registered at 250 a
+   second, a preload of 20 batch jobs of 750-1,000 allocs and 40 service
+   jobs of 5-10 (about 17,500 allocs; ``SOAK_ALLOCS`` cut from 1,000,000
+   to 20,000) at 4 a second, dispatch registrations, 30 s of churn (cut
+   from 180: scales, rolling updates, node flaps and drains, dispatches,
+   evaluates, GC) and the wind-down, then up to 120 s to quiesce. Checks: no invariant
+   violation in the incremental sweeps during the storm or the final
+   sweep, quiesced, the scenario's op failure and shed rates within its
+   SLOs, no node over capacity, no eval routed off the kernels for a
+   reason outside the reference's by-design gates (``SOAK_ROUTED``), and
+   the fused drain's scan, the solo windowed planner, the dense verify, the
+   usage bases and the dirty-row scatter each launched; every call of the
+   storm to the usage bases, the scatter and the verify, and the planners'
+   calls from the fewest lanes up (within 20 s of replays a kernel, at
+   least one), equal their plain versions on the card. Printed: the
+   scenario's SLO table and summary line (RSS, which holds the CUDA
+   context, and subscriber lag are printed, not checked), the driver's
+   counts and lateness by stream phase, the preload evals' registration
+   to complete, the fused batches and their lanes, the applier's plans,
+   device verifies and degrades, the stages' summed times and wall
+   covered, and the phase's seconds;
+10. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
+   scheduler, server, agent and soak launches), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
@@ -1553,7 +1581,8 @@ def scheduler_phase(dev, size: dict = SCHED) -> tuple:
 
 #: the server phase's full-width run: the soak scenario's server config
 #: (nomad_tpu/loadgen/scenarios.py:125-190) and its preload of batch jobs
-SERVER = dict(nodes=10_000, dcs=4, batch_jobs=8, batch_allocs=(7_500, 10_000),
+#: (cut from 8 jobs to 4 to make room for phase 9's storm)
+SERVER = dict(nodes=10_000, dcs=4, batch_jobs=4, batch_allocs=(7_500, 10_000),
               service_allocs=5_000, workers=2)
 #: the smaller run, placed on the card and on the CPU: one drain worker, so
 #: the batch's evals fuse the same way in both runs
@@ -1630,14 +1659,17 @@ class ServerProbe:
                ("drain", "used_bases", "used_bases"), ("mirror", "scatter_rows", "scatter_rows"),
                ("kernel", "verify_rows", "verify_rows"))
     #: the planners, whose plain versions walk the lanes one by one: their
-    #: calls replay from the fewest lanes up while the replays of the
-    #: kernel have taken under this many seconds (at least one call each);
-    #: every call of the other kernels replays
+    #: calls replay from the fewest lanes up while the next call's replay,
+    #: at the seconds a lane taken so far, ends within this many seconds of
+    #: the kernel's replays (at least one call each); every call of the
+    #: other kernels replays
     PLANNER_REPLAY_S = 30.0
     PLANNERS = ("exact_scan", "wavefront", "windowed", "runs")
 
-    def __init__(self, dev):
+    def __init__(self, dev, replay_s: float = PLANNER_REPLAY_S):
         self.dev = dev
+        #: the planners' replay budget, seconds a kernel
+        self.replay_s = replay_s
         self.spans: dict = {}
         self.calls: dict = {}
         self._lock = threading.Lock()
@@ -1671,6 +1703,8 @@ class ServerProbe:
             yield self
 
     def event_ms(self) -> dict:
+        if self.dev.type != "cuda":  # a rehearsal on the CPU times no call
+            return {}
         torch.cuda.synchronize()
         return {name: [s.elapsed_time(e) for s, e in pairs] for name, pairs in self.spans.items()}
 
@@ -1710,9 +1744,13 @@ class ServerProbe:
                 order.sort(key=lanes.__getitem__)
             err, replayed = 0, []
             for i in order:
-                if (replayed and name in self.PLANNERS
-                        and time.perf_counter() - t0 > self.PLANNER_REPLAY_S):
-                    break
+                if replayed and name in self.PLANNERS:
+                    # the next call's replay, at the seconds a lane taken so
+                    # far, must end within the budget
+                    spent = time.perf_counter() - t0
+                    per_lane = spent / max(1, sum(lanes[j] for j in replayed))
+                    if spent + per_lane * lanes[i] > self.replay_s:
+                        break
                 args, got = calls[i]
                 want = self._plain(name, args)
                 err = max(err, max_abs_err(zip(_flat(got), _flat(want))))
@@ -1986,10 +2024,12 @@ def server_phase(dev) -> dict:
 
 #: the agent phase (phase 8): the soak's server settings, as phase 7 runs
 #: them, in the networked server mode of a fresh ``python -m
-#: nomad_tpu_torch agent`` process; 10,000 nodes registered over RPC, then
-#: the example job through the CLI and four of phase 7's batch jobs and its
-#: system job over HTTP
-AGENT = dict(nodes=10_000, dcs=4, batch_jobs=4, batch_allocs=(7_500, 10_000),
+#: nomad_tpu_torch agent`` process; 2,000 nodes registered over RPC (cut
+#: from 10,000 to make room for phase 9's storm), then the example job
+#: through the CLI and four of phase 7's batch jobs (about 35,000 allocs of
+#: 50-100 cpu, under a third of the fleet's cpu) and its system job over
+#: HTTP
+AGENT = dict(nodes=2_000, dcs=4, batch_jobs=4, batch_allocs=(7_500, 10_000),
              service_allocs=5_000)
 #: the same phase at a size the CPU runs it in seconds (a rehearsal with
 #: ``agent_phase("cpu", AGENT_SMALL)``)
@@ -2373,6 +2413,282 @@ def agent_phase(device: str = "cuda", size: dict = AGENT) -> dict:
         f"{time.perf_counter() - t_phase:.1f} s")
     log(f"agent timings: {json.dumps(dict(out, launches=launches, rounds=rounds, summary=summ))}")
     return dict(launches=launches, timings=out)
+
+
+#: the soak phase (phase 9): the soak scenario (nomad_tpu/loadgen/
+#: scenarios.py:125-276) at its own knobs: the fleet cut from 10,000 nodes
+#: to 2,000, ramped at 250 registrations a second (at 10,000 the storm's
+#: ramp over RPC took about 168 s on the card's host, its registrations
+#: slowing from 118 to 35 a second as the fleet grew), the backlog cut from
+#: about 1,000,000 allocs to about 17,500 in the same proportion to the
+#: fleet (20 batch jobs of 750-1,000 allocs and 40 service jobs of 5-10, 4
+#: a second) and the churn from 180 s to 30 s: 77 s of stream
+SOAK_ENV = dict(SOAK_NODES="2000", SOAK_NODE_RATE="250", SOAK_ALLOCS="20000",
+                SOAK_PRELOAD_RATE="4", SOAK_CHURN_S="30", SOAK_QUIESCE_S="120",
+                SOAK_WORKERS="2")
+#: the same storm at a size the CPU runs in about 80 s (a rehearsal with
+#: ``soak_phase(torch.device("cpu"), SOAK_SMALL)``): 400 nodes, 20 batch jobs
+#: and 40 service jobs preloaded in 3 s, so that drain batches fuse
+SOAK_SMALL = dict(SOAK_NODES="400", SOAK_NODE_RATE="200", SOAK_ALLOCS="20000",
+                  SOAK_PRELOAD_RATE="20", SOAK_CHURN_S="10", SOAK_QUIESCE_S="120",
+                  SOAK_WORKERS="2")
+SOAK_SEED, SOAK_DRIVER_WORKERS = 1, 8
+#: seconds of planner replays a kernel after the storm
+SOAK_REPLAY_S = 20.0
+#: the kernels the storm must launch: the fused drain's scan (K5), the solo
+#: evals' windowed planner (K7), the applier's dense verify (K8), the drain's
+#: usage bases (K9) and the mirror's dirty-row scatter (K10)
+SOAK_KERNELS = ("exact_scan", "windowed", "verify_rows", "used_bases", "scatter_rows")
+#: the tpu-batch gates that send an eval to the scalar scheduler by design
+#: (the kernels plan fresh placements of supported groups only, and tiny
+#: solo evals ride the oracle); any other reason, a kernel fault above all,
+#: fails the phase
+SOAK_ROUTED = ("small_eval", "reschedule", "canary", "destructive_update", "no_ready_nodes")
+
+
+def _pcts(xs, qs=(0.5, 0.9, 0.99)) -> list:
+    """Percentiles of ``xs`` (nearest rank), its max last; [] when empty."""
+    xs = sorted(xs)
+    if not xs:
+        return []
+    return [xs[min(len(xs) - 1, int(q * len(xs)))] for q in qs] + [xs[-1]]
+
+
+def soak_phase(dev, env: dict = SOAK_ENV) -> dict:
+    """The soak phase (module docstring, phase 9). Returns the storm's
+    launches per kernel, the replays against the plain versions and its
+    numbers."""
+    from nomad_tpu_torch import metrics
+    from nomad_tpu_torch.core.server import Server
+    from nomad_tpu_torch.loadgen import compile_stream, get_scenario, runner
+    from nomad_tpu_torch.loadgen.driver import StormDriver
+    from nomad_tpu_torch.loadgen.grammar import job_id_for
+    from nomad_tpu_torch.state.store import StateStore
+    from nomad_tpu_torch.tpu import batch_sched, drain, kernel
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    drivers, registered, completed = [], {}, {}
+    lock = threading.Lock()
+
+    class Driver(StormDriver):
+        """The storm's driver, kept for its op results."""
+
+        def run(self, abort=None):
+            drivers.append(self)
+            self.t_run = time.perf_counter()
+            return super().run(abort)
+
+    real_register, real_upsert = Server.job_register, StateStore.upsert_evals
+
+    def job_register(self, job):
+        t = time.perf_counter()
+        eid = real_register(self, job)
+        with lock:
+            registered[eid] = (job.id, t)
+        return eid
+
+    def upsert_evals(self, index, evals):
+        real_upsert(self, index, evals)
+        now = time.perf_counter()
+        with lock:
+            for e in evals:
+                if e.status == "complete" and e.id not in completed:
+                    completed[e.id] = now
+
+    def inspect(server, report):
+        out["quiesced_at"] = time.perf_counter()
+        out["device"] = server.device.type
+        out["over"] = sched_over_capacity(server)
+        out["mirror"] = server.columnar_mirror.stats()
+        out["raft_applied"] = server.raft.last_applied
+        evals: dict = {}
+        for e in server.state.evals():
+            key = f"{e.triggered_by}:{e.status}"
+            evals[key] = evals.get(key, 0) + 1
+        out["evals"] = evals
+        out["not_terminal"] = {}
+        for e in server.state.evals():
+            if not (e.terminal_status() or e.should_block()):
+                key = f"{e.type}:{e.triggered_by}:{e.status}"
+                out["not_terminal"][key] = out["not_terminal"].get(key, 0) + 1
+        out["plan_queue_depth"] = server.planner.queue.depth()
+        snap = server.state.snapshot()
+        out["live_allocs"] = sum(1 for a in snap.allocs() if not a.terminal_status())
+
+    drain0, modes0 = dict(drain.DRAIN_COUNTERS), batch_sched.counters_snapshot()
+    metrics0 = metrics.snapshot()
+    threads0 = set(threading.enumerate())
+    probe = ServerProbe(dev, replay_s=SOAK_REPLAY_S)
+    clock = StageClock()
+    names = ("exact_scan", "wavefront", "runs", *SOAK_KERNELS[1:])
+    with mock.patch.dict("os.environ", env), clock.installed(), probe.installed(), \
+            mock.patch.object(runner, "StormDriver", Driver), \
+            mock.patch.object(Server, "job_register", job_register), \
+            mock.patch.object(StateStore, "upsert_evals", upsert_evals):
+        scenario = get_scenario("soak")
+        stream = compile_stream(scenario, SOAK_SEED)
+        kernel.reset_launches()
+        t_run = time.perf_counter()
+        report = runner.run_scenario(scenario, SOAK_SEED, driver_workers=SOAK_DRIVER_WORKERS,
+                                     device=dev, inspect=inspect)
+        out["run_s"] = time.perf_counter() - t_run
+        launches = path_launches(names)
+    # every thread of the storm's agent, driver and scorekeeper has ended
+    t = time.perf_counter()
+    while True:
+        left = [th for th in threading.enumerate() if th not in threads0 and th.is_alive()
+                and th.name != "eval-broker-timers"]
+        if not left or time.perf_counter() - t > 60.0:
+            break
+        time.sleep(0.05)
+    if left:
+        fail(f"soak: threads alive 60 s after the storm: {[th.name for th in left]}")
+    event_ms = probe.event_ms()
+    log(f"soak phase launches: {launches}")
+
+    # ---- the scenario's grading ------------------------------------------------
+    slo, inv, d = report["slo"], report["invariants"], report["driver"]
+    log(f"soak: SLO table {json.dumps(slo)}")
+    log(runner.summary_line(report))
+    # ---- the numbers --------------------------------------------------------
+    after = batch_sched.counters_snapshot()
+    routed = {k: v - modes0["fallback_reasons"].get(k, 0)
+              for k, v in after["fallback_reasons"].items()
+              if v != modes0["fallback_reasons"].get(k, 0)}
+    modes = {k: v - modes0["modes"].get(k, 0) for k, v in after["modes"].items()
+             if v != modes0["modes"].get(k, 0)}
+    drained = {k: drain.DRAIN_COUNTERS[k] - drain0[k] for k in drain0}
+    m1 = metrics.snapshot()
+    counters = {k: v - metrics0["counters"].get(k, 0) for k, v in m1["counters"].items()
+                if v != metrics0["counters"].get(k, 0)}
+    driver = drivers[0]
+    wall = out["quiesced_at"] - driver.t_run
+    stages = clock.stats(wall)
+    applier = dict(plans_evaluated=stages["plan.evaluate"]["count"],
+                   device_verify_calls=stages["plan.verify_device"]["count"],
+                   degrades={k: v for k, v in counters.items()
+                             if k.startswith("plan.verify_device_degrade")},
+                   mirror_stale=counters.get("tpu.mirror_stale", 0))
+    # lateness by the scenario's phases, from each op's scheduled offset
+    bounds, t0 = [], 0.0
+    for ph in scenario.phases:
+        bounds.append((ph.name, t0, t0 + ph.duration))
+        t0 += ph.duration
+    lateness = {}
+    for name, a, b in bounds:
+        late = [r.lateness for r in driver.results if a <= r.t_sched < b]
+        lateness[name] = dict(ops=len(late), p50_s=_pcts(late)[0] if late else 0.0,
+                              p99_s=_pcts(late)[2] if late else 0.0, max_s=max(late, default=0.0))
+    late_all = [r.lateness for r in driver.results]
+    # the preload's evals: each preload job's first registration, to the
+    # first commit of its eval as complete
+    preload_end = next(b for name, _, b in bounds if name == "preload")
+    preload_jobs = {}
+    for op in stream.ops:
+        if op.kind == "job.submit" and op.t < preload_end:
+            preload_jobs.setdefault(job_id_for(op.args["slot"], op.args["category"]),
+                                    op.args["category"])
+    first = {}
+    for eid, (job_id, t_reg) in sorted(registered.items(), key=lambda kv: kv[1][1]):
+        if job_id in preload_jobs and job_id not in first:
+            first[job_id] = (eid, t_reg)
+    preload = {"bat": [], "svc": []}
+    incomplete = 0
+    for job_id, (eid, t_reg) in first.items():
+        if eid in completed:
+            preload[preload_jobs[job_id]].append(completed[eid] - t_reg)
+        else:
+            incomplete += 1
+    out.update(
+        stream_ops=len(stream.ops), stream_s=stream.duration(), wall_s=wall,
+        driver={k: d[k] for k in ("fired", "ok", "failed", "expected_miss", "shed",
+                                  "server_shed", "dl_exceeded")},
+        lateness=lateness, lateness_p50_s=_pcts(late_all)[0], lateness_p99_s=_pcts(late_all)[2],
+        preload_jobs=len(preload_jobs), preload_registered=len(first),
+        preload_incomplete=incomplete,
+        preload_s={k: _pcts(v) for k, v in preload.items()},
+        eval_e2e_p99_ms_max=report["eval_e2e_p99_ms_max"], drain=drained, modes=modes,
+        routed=routed, applier=applier, stages=stages, exact_lanes=[
+            (int(args[0].demands.shape[0]), ServerProbe._lanes("exact_scan", args))
+            for args, _ in probe.calls.get("exact_scan", [])],
+        rss=dict(baseline_mb=report["rss_baseline_mb"], peak_mb=report["rss_peak_mb"],
+                 final_mb=report["rss_final_mb"],
+                 tail_slope_mb_per_min=report["rss_tail_slope_mb_per_min"]),
+        subscriber_lag_max=report["subscriber_lag_max"], invariant_sweeps=inv["sweeps"],
+        slo_passed=slo["passed"], slo_failed=slo["failed"])
+    log(f"soak: {out['stream_ops']} ops over {out['stream_s']:.1f} s of stream (seed "
+        f"{SOAK_SEED}, {SOAK_DRIVER_WORKERS} driver workers); the storm's wall to quiesced "
+        f"{wall:.1f} s; driver {out['driver']}; lateness p50 {out['lateness_p50_s']:.3f} s, p99 "
+        f"{out['lateness_p99_s']:.3f} s")
+    for name, lt in lateness.items():
+        log(f"soak: lateness in {name}: {lt['ops']} ops, p50 {lt['p50_s']:.3f} s, p99 "
+            f"{lt['p99_s']:.3f} s, max {lt['max_s']:.3f} s")
+    for cat, ps in out["preload_s"].items():
+        log(f"soak: preload {cat} evals, registration to complete (s; p50, p90, p99, max of "
+            f"{len(preload[cat])}): {', '.join(f'{x:.3f}' for x in ps)}")
+    log(f"soak: {incomplete} preload evals without a complete commit; eval_e2e_p99_ms_max "
+        f"{report['eval_e2e_p99_ms_max']}; {out['live_allocs']} live allocs on "
+        f"{report['final_state'].get('nodes', 0)} nodes, none over capacity")
+    log(f"soak: fused batches and evals {drained}; exact scan calls (padded, real lanes) "
+        f"{out['exact_lanes']}; modes {modes}; routed to the scalar scheduler by design "
+        f"{routed}")
+    log(f"soak: applier {applier}; evals by trigger and status {out['evals']}")
+    for name in ("plan.raft_apply", "plan.verify_device", "plan.evaluate", "eval.e2e"):
+        st = stages[name]
+        log(f"soak: stage {name}: {st['count']} samples, {st['sum_ms']:.1f} ms summed, "
+            f"{st['wall_ms']:.1f} ms of wall covered ({100 * st['wall_share']:.1f}% of the "
+            f"{wall:.1f} s from the storm's start to quiesced)")
+    log(f"soak: evals neither terminal nor blocked at the end {out['not_terminal']}; plan "
+        f"queue depth {out['plan_queue_depth']}; marks {report['marks']}")
+    keys = ("nodes", "jobs", "allocs", "evals", "evals_processed", "broker_ready",
+            "broker_unacked", "plan_queue_depth", "rss_mb", "invariant_check_s")
+    log("soak: timeline (t s: " + ", ".join(keys) + "): " + "; ".join(
+        f"{sm['t']:.0f}: " + " ".join(str(sm.get(k, "-")) for k in keys)
+        for sm in report["samples"][::5]))
+    m = out["mirror"]
+    log(f"soak: mirror uploads {m['uploads']}, refreshes {m['refreshes']}, rows scattered "
+        f"{m['rows_scattered']}, stale {m['stale']}; raft applies {out['raft_applied']}")
+    log(f"soak: RSS (the process's, CUDA context included) {out['rss']}; subscriber lag max "
+        f"{report['subscriber_lag_max']}; {inv['sweeps']} invariant sweeps")
+    for name, ms in sorted(event_ms.items()):
+        log(f"soak: {name} by events, ms a call (least {min(ms):.4f}, median "
+            f"{float(np.median(ms)):.4f}, {len(ms)} calls)")
+    held = probe.check()
+    for name, h in sorted(held.items()):
+        log(f"soak: {name} held against its plain version on {h['replayed']} of its "
+            f"{h['calls']} calls ({h['lanes_replayed']} lanes replayed, {h['lanes_left']} not) in "
+            f"{h['seconds']:.1f} s, max abs err {h['max_abs_err']}")
+        if h["max_abs_err"]:
+            fail(f"soak: {name} differs from its plain version (max abs err {h['max_abs_err']})")
+        if not h["replayed"]:
+            fail(f"soak: no call of {name} held against its plain version")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"soak phase: {out['phase_s']:.1f} s")
+    log(f"soak timings: {json.dumps(dict(out, held=held, event_ms=event_ms, launches=launches))}")
+
+    # ---- the checks ----------------------------------------------------------
+    # (the plain versions on the CPU count no launch: a rehearsal there
+    # checks that the storm called each wrapper)
+    calls = {k: len(probe.calls.get(k, ())) for k in names}
+    missing = [k for k in SOAK_KERNELS if (launches if dev.type == "cuda" else calls)[k] < 1]
+    if missing:
+        fail(f"soak: kernels not launched by the storm: {missing} (launches {launches}, "
+             f"wrapper calls {calls})")
+    if out.get("device") != dev.type:
+        fail(f"soak: the storm's server ran on {out.get('device')}, not {dev.type}")
+    if inv["violations"]:
+        fail(f"soak: {inv['violations']} invariant violations: {inv['violation_log'][:5]}")
+    if not report["quiesced"]:
+        fail(f"soak: the cluster did not quiesce within {env['SOAK_QUIESCE_S']} s")
+    for check in ("max_op_failure_rate", "max_shed_rate"):
+        if not slo["checks"][check]["pass"]:
+            fail(f"soak: {check} {slo['checks'][check]} (errors {d['errors']})")
+    if out["over"]:
+        fail(f"soak: {out['over']} nodes over capacity")
+    if set(routed) - set(SOAK_ROUTED):
+        fail(f"soak: scheduler fallbacks {routed}")
+    return dict(launches=launches, event_ms=event_ms, held=held, timings=out)
 
 
 def main() -> int:
@@ -2888,6 +3204,19 @@ def main() -> int:
             row["launches"] = sum(row["paths"].values())
     for name in PRIMITIVES:
         PRIMITIVES_ON_PATH[name] += agent["launches"].get(name, 0)
+    phase_done("agent")
+    # ---- 9. the soak storm --------------------------------------------------
+    soak = soak_phase(dev)
+    for row in kernels:
+        name = row["name"]
+        if soak["launches"].get(name):
+            row["paths"]["soak"] = soak["launches"][name]
+            row["launches"] = sum(row["paths"].values())
+            row["soak_event_ms"] = soak["event_ms"].get(name, [])
+        if name in soak["held"]:
+            row["soak_held"] = soak["held"][name]
+            row["max_abs_err"] = max(row["max_abs_err"], soak["held"][name]["max_abs_err"])
+    # (path_launches added the storm's standalone primitive launches)
     # K1-K4's own kernels are not launched on the paths: the primitives run
     # inside every launch of the kernels that inline them
     launched = {row["name"]: row["launches"] for row in kernels}
@@ -2896,7 +3225,7 @@ def main() -> int:
         row["inlined_launches"] = sum(launched[k] for k in row["inlined_in"])
         row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
     kernels = primitives + kernels
-    phase_done("agent")
+    phase_done("soak")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

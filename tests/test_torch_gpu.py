@@ -1579,3 +1579,60 @@ def test_count_rounds_does_not_wait_for_a_running_kernel(cuda_device):
     finally:
         devprof.reset()
         devprof.enable(prior)
+
+
+@pytest.mark.gpu
+def test_smoke_storm_on_the_card_through_the_drain(cuda_device):
+    """The small smoke storm of tests/test_torch_loadgen.py (16 nodes, 4 s
+    of churn, seed 7) against a server on the card with the ``tpu-batch``
+    scheduler and a drain of 8, its schedule compressed fourfold so that
+    evals queue up and fuse: it ends clean and quiesced, and the drain's
+    scan launched. The smoke's jobs (1-4 allocs) never reach the dense
+    verify, and its drain batches take the mirror's device planes only when
+    no write lands between their snapshot and their launch, which the storm
+    seldom leaves; so on the quiesced cluster two batch jobs of 300 allocs
+    are registered one after the other: the first plan's verify uploads
+    the device planes, the second's scatters the first's rows into them."""
+    import time
+
+    from nomad_tpu_torch.loadgen.grammar import build_job
+    from nomad_tpu_torch.loadgen.runner import run_scenario
+    from nomad_tpu_torch.loadgen.scenarios import smoke
+    from nomad_tpu_torch.testing.invariants import check_cluster_invariants
+
+    scenario = smoke(nodes=16, churn_s=4)
+    scenario.server_config.update(default_scheduler="tpu-batch", batch_drain=8)
+    before = dict(tk.LAUNCHES)
+    threads0 = set(threading.enumerate())
+    seen = {}
+
+    def inspect(server, report):
+        seen.update(storm={k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES},
+                    device=server.device.type)
+        for slot in (900, 901):
+            job = build_job({"slot": slot, "category": "bat", "type": "batch", "count": 300,
+                             "cpu": 50, "memory_mb": 32})
+            eid = server.job_register(job)
+            deadline = time.monotonic() + 60.0
+            while server.state.eval_by_id(eid).status != "complete":
+                assert time.monotonic() < deadline, server.state.eval_by_id(eid).status
+                time.sleep(0.02)
+        seen["full"] = check_cluster_invariants(server.state)
+
+    report = run_scenario(scenario, seed=7, driver_workers=6, time_scale=0.25,
+                          device=cuda_device, inspect=inspect)
+    launched = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES}
+    assert seen["full"] == [] and seen["device"] == "cuda"
+    assert report["quiesced"]
+    assert report["invariants"]["violations"] == 0, report["invariants"]["violation_log"]
+    assert report["driver"]["failed"] == 0, report["driver"]["errors"]
+    assert seen["storm"]["exact_scan"] >= 1, seen["storm"]
+    assert launched["verify_rows"] >= 2 and launched["scatter_rows"] >= 1, launched
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = [t for t in threading.enumerate() if t not in threads0 and t.is_alive()
+                and t.name != "eval-broker-timers"]
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    assert not left, [t.name for t in left]

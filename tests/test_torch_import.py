@@ -119,6 +119,16 @@ MODULES = [
     "nomad_tpu_torch.agent",
     "nomad_tpu_torch.cli",
     "nomad_tpu_torch.cli.main",
+    "nomad_tpu_torch.testing.invariants",
+    "nomad_tpu_torch.loadgen",
+    "nomad_tpu_torch.loadgen.grammar",
+    "nomad_tpu_torch.loadgen.scenarios",
+    "nomad_tpu_torch.loadgen.driver",
+    "nomad_tpu_torch.loadgen.score",
+    "nomad_tpu_torch.loadgen.runner",
+    "nomad_tpu_torch.loadgen.overload",
+    "nomad_tpu_torch.loadgen.fanout",
+    "nomad_tpu_torch.loadgen.__main__",
 ]
 
 
