@@ -194,9 +194,43 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    to complete, the fused batches and their lanes, the applier's plans,
    device verifies and degrades, the stages' summed times and wall
    covered, and the phase's seconds;
-10. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
-   scheduler, server, agent and soak launches), the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+10. the federated storm, with every launch counter set to 0 before and
+   read after: ``nomad_tpu_torch.loadgen.federation.run_federation`` runs
+   federation_storm() (nomad_tpu/loadgen/federation.py:132-156; seed 1) in
+   this process on the card: 2 regions (east, authoritative for ACL, and
+   west) of 3 ``ServerAgent``s each, with their RPC listeners, HTTP
+   servers, file-backed raft logs and unencrypted gossip, ACL on and
+   replicated, 1,000 nodes a region (raised from 300), 32 job slots, 8
+   ops a second of churn for 90 s, a quarter of the submits
+   sent through the other region's HTTP with ``?region=<home>``, and the
+   storm's chaos at its fractions of the churn: a partition and its heal,
+   a leader kill in west, a partial sever and its heal, and a rolling
+   restart of west (each restarted server a new ``Server`` on the card
+   rebuilt from its data dir); every server runs the soak's device
+   settings (``server_settings``: ``tpu-batch``, ``batch_drain`` 8,
+   ``plan_apply_batch`` 8) with 2 workers; up to 90 s to quiesce (cut from
+   180). Checks: the storm grades pass by its own SLOs (no invariant
+   violation, nothing lost or double committed, heal under 15 s,
+   forwarding errors under 2%, replication lag p99 under 10 s, op failures
+   under 5%, no shed) and it quiesced; the fused drain's scan, the usage
+   bases and the dirty-row scatter each launched, and each region's
+   servers called the drain's scan and bases (counted by ``ServerProbe``
+   on the servers' worker threads: the counters are process-wide); no
+   eval sent to the scalar scheduler for a reason outside ``SOAK_ROUTED``
+   and no kernel fault; every restarted server still live at the end holds device planes
+   equal to a cold build from its tables; every call of the storm to the
+   usage bases, the scatter and the verify, and the planners' calls from
+   the fewest lanes up (within 15 s of replays a kernel), equal their
+   plain versions on the card; every thread the storm started has ended
+   and the fault plane is uninstalled. Printed: the SLO table and summary
+   line, the chaos timeline and heal times, forwarded submits and their
+   errors, replication lag p50/p99, the driver's ops, the fused batches
+   and evals, kernel calls by server, the stages' wall shares
+   (``plan.raft_apply`` among them), the CUDA memory allocated before the
+   storm, after each restart and at the end, and the phase's seconds;
+11. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
+   scheduler, server, agent, soak and federation launches), the card's
+   name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
 """
@@ -1645,6 +1679,34 @@ def _flat(x) -> list:
     return [x]
 
 
+#: the server whose scheduler worker runs on this thread (``server_threads``)
+SERVER_OF_THREAD = threading.local()
+
+
+@contextlib.contextmanager
+def server_threads():
+    """Names, on each thread that runs a server's scheduler worker, the
+    server it works for (``<region>/<node id>``), so that ``ServerProbe``
+    can attribute the kernel calls of several servers in one process: the
+    launch counters, the drain counters and the metrics are process-wide.
+    A drain batch launches on one of its eval threads, each of which runs
+    ``Worker.process_eval``; a solo eval runs it on the worker's thread."""
+    from nomad_tpu_torch.core.worker import Worker
+
+    real = Worker.process_eval
+
+    def process_eval(self, *args, **kwargs):
+        prior = getattr(SERVER_OF_THREAD, "name", None)
+        SERVER_OF_THREAD.name = f"{self.server.region}/{self.server.raft.node_id}"
+        try:
+            return real(self, *args, **kwargs)
+        finally:
+            SERVER_OF_THREAD.name = prior
+
+    with mock.patch.object(Worker, "process_eval", process_eval):
+        yield
+
+
 class ServerProbe:
     """Records every call of the server path's kernel wrappers during a
     run: its CUDA events on the caller's stream (the server launches on
@@ -1672,6 +1734,9 @@ class ServerProbe:
         self.replay_s = replay_s
         self.spans: dict = {}
         self.calls: dict = {}
+        #: (server, kernel) -> calls made on a worker thread of that server
+        #: (``server_threads``)
+        self.by_server: dict = {}
         self._lock = threading.Lock()
 
     def _wrap(self, name, fn):
@@ -1684,10 +1749,14 @@ class ServerProbe:
             if timed:
                 end.record()
             call = (_snapshot(args), _snapshot(out))
+            who = getattr(SERVER_OF_THREAD, "name", None)
             with self._lock:
                 if timed:
                     self.spans.setdefault(name, []).append((start, end))
                 self.calls.setdefault(name, []).append(call)
+                if who is not None:
+                    key = (who, name)
+                    self.by_server[key] = self.by_server.get(key, 0) + 1
             return out
         return probed
 
@@ -2691,6 +2760,277 @@ def soak_phase(dev, env: dict = SOAK_ENV) -> dict:
     return dict(launches=launches, event_ms=event_ms, held=held, timings=out)
 
 
+#: phase 10's storm: federation_storm() (nomad_tpu/loadgen/federation.py:
+#: 132-156) with its 2 regions of 3 servers, its chaos at its fractions of
+#: the churn, its 32 job slots, its 90 s of churn at 8 ops a second and
+#: its cross-region share of 0.25; the fleet raised from the storm's 300 to
+#: 1,000 nodes a region (at 300 each region's device planes are a toy; the
+#: fixed ramp of 40 registrations a second takes 25 s at 1,000) and the
+#: quiesce timeout cut from 180 s to 90 s, so the phase fits in 180 s. The
+#: churn is not cut: a drain batch scatters dirty rows into the mirror's
+#: device planes only when no write landed since its snapshot, and two
+#: whole runs with 45 s of churn launched the scatter twice each
+FED_SIZE = dict(nodes=1000, churn_s=90.0, quiesce_s=90.0)
+#: the same storm at a size the CPU runs in under 90 s (a rehearsal with
+#: ``federation_phase(torch.device("cpu"), FED_SMALL)``)
+FED_SMALL = dict(nodes=200, churn_s=12.0, quiesce_s=60.0)
+#: the soak's device settings (nomad_tpu/loadgen/scenarios.py:153-161),
+#: merged into every server's config: the reference's storm sets none and
+#: plans its evals with the generic schedulers, on no kernel
+FED_SETTINGS = {"default_scheduler": "tpu-batch", "batch_drain": 8, "plan_apply_batch": 8}
+#: the soak's scheduler workers a server (SOAK_WORKERS)
+FED_WORKERS = 2
+FED_SEED = 1
+#: seconds of planner replays a kernel after the storm
+FED_REPLAY_S = 15.0
+#: the kernels the storm must launch: the fused drain's scan (K5), its
+#: usage bases (K9) and the mirror's dirty-row scatter (K10); the solo
+#: windowed planner (K7) and the applier's dense verify (K8) are reported
+#: where the storm's evals reach them
+FED_KERNELS = ("exact_scan", "used_bases", "scatter_rows")
+#: the kernels each region's servers must call: the fused drain's, which
+#: every batch launches. The scatter runs only when a batch's generation
+#: still matches the mirror's at dispatch (no write landed since its
+#: snapshot), which a storm seldom leaves, so it is required of the storm
+#: as a whole and reported by server
+FED_REGION_KERNELS = ("exact_scan", "used_bases")
+
+
+def planes_vs_cold_build(server) -> dict:
+    """The server's device planes at its committed generation, refreshed
+    by the mirror as a drain batch would take them, against planes built
+    cold from its tables (``CommittedPlanes.build_blob``, a fresh
+    ``ColumnarCluster`` and a fresh ``DeviceState`` upload): the node
+    count, the rows and the max abs err of capacity, usable and used."""
+    from nomad_tpu_torch.state.planes import CommittedPlanes
+    from nomad_tpu_torch.tpu.columnar import ColumnarCluster
+    from nomad_tpu_torch.tpu.mirror import DeviceState
+    from nomad_tpu_torch.tpu.problems import bucket
+
+    for _ in range(50):  # a write between the snapshot and the read: again
+        snap = server.state.snapshot()
+        gen = snap._gen
+        n_pad = bucket(len(snap.nodes()))
+        got = server.columnar_mirror.device_state(n_pad, gen)
+        if got is not None:
+            break
+        time.sleep(0.1)
+    else:
+        return dict(nodes=len(snap.nodes()), rows=n_pad, max_abs_err=None)
+    blob = CommittedPlanes.build_blob(gen)
+    cold = ColumnarCluster([gen.nodes[i] for i in blob["node_ids"]])
+    want = DeviceState(0, n_pad, cold.capacity, cold.usable,
+                       np.asarray(blob["used"], dtype=np.int64).reshape(-1, cold.capacity.shape[1]),
+                       device=server.device).arrays()
+    return dict(nodes=len(blob["node_ids"]), rows=n_pad,
+                max_abs_err=max_abs_err(zip(got, want)))
+
+
+def federation_phase(dev, size: dict = FED_SIZE) -> dict:
+    """The federated storm (module docstring, phase 10). Returns the storm's
+    launches per kernel, the replays against the plain versions and its
+    numbers."""
+    from nomad_tpu_torch import metrics
+    from nomad_tpu_torch.loadgen import federation
+    from nomad_tpu_torch.testing import faults
+    from nomad_tpu_torch.tpu import batch_sched, drain, kernel
+
+    t_phase = time.perf_counter()
+    # every knob set here, so that no FED_* variable of the environment
+    # changes the phase's storm
+    cfg = federation.federation_storm()
+    cfg.regions, cfg.servers_per_region = 2, 3
+    cfg.nodes_per_region = size["nodes"]
+    cfg.job_slots, cfg.churn_rate, cfg.cross_region_p = 32, 8.0, 0.25
+    cfg.churn_s, cfg.quiesce_timeout = size["churn_s"], size["quiesce_s"]
+    cfg.n_workers = FED_WORKERS
+    cfg.server_settings = dict(FED_SETTINGS)
+    on_card = dev.type == "cuda"
+
+    def allocated() -> int:
+        return torch.cuda.memory_allocated() if on_card else 0
+
+    out: dict = dict(memory_before=allocated(), memory_after_restart=[], planes_vs_cold={})
+    real_restart, real_stop = federation.FederatedCluster.restart, federation.FederatedCluster.stop
+    restarted: set = set()
+
+    def restart(self, fs):
+        real_restart(self, fs)
+        restarted.add(fs.name)
+        out["memory_after_restart"].append((fs.name, allocated()))
+
+    def stop(self):
+        # quiesced and swept: before the servers stop, each live server
+        # that was restarted holds device planes equal to a cold build (the
+        # refresh this takes is not the storm's: its launches are taken
+        # off the phase's counts)
+        out["servers"] = {fs.name: fs.alive for fs in self.servers}
+        out["mirrors"] = {
+            fs.name: {k: v for k, v in fs.agent.server.columnar_mirror.stats().items()
+                      if k in ("uploads", "refreshes", "rows_scattered", "stale", "hits")}
+            for fs in self.servers if fs.alive}
+        before = dict(kernel.LAUNCHES)
+        for fs in self.servers:
+            if fs.alive and fs.name in restarted:
+                out["planes_vs_cold"][fs.name] = planes_vs_cold_build(fs.agent.server)
+        out["check_launches"] = {k: kernel.LAUNCHES[k] - before[k] for k in before}
+        real_stop(self)
+
+    drain0, modes0 = dict(drain.DRAIN_COUNTERS), batch_sched.counters_snapshot()
+    metrics0 = metrics.snapshot()
+    threads0 = set(threading.enumerate())
+    probe = ServerProbe(dev, replay_s=FED_REPLAY_S)
+    clock = StageClock()
+    names = ("exact_scan", "wavefront", "runs", "windowed", "verify_rows", "used_bases",
+             "scatter_rows")
+    with clock.installed(), probe.installed(), server_threads(), \
+            mock.patch.object(federation.FederatedCluster, "restart", restart), \
+            mock.patch.object(federation.FederatedCluster, "stop", stop):
+        kernel.reset_launches()
+        t_run = time.perf_counter()
+        report = federation.run_federation(cfg, seed=FED_SEED, device=dev)
+        out["run_s"] = time.perf_counter() - t_run
+        launches = path_launches(names)
+    for k, n in out.pop("check_launches", {}).items():
+        if k in launches:
+            launches[k] -= n
+    out["memory_end"] = allocated()
+    # every thread of the six servers, their HTTP servers, gossip members,
+    # drivers, scorekeeper and chaos executor has ended, and the fault
+    # plane is uninstalled
+    t = time.perf_counter()
+    while True:
+        left = [th for th in threading.enumerate() if th not in threads0 and th.is_alive()
+                and th.name != "eval-broker-timers"]
+        if not left or time.perf_counter() - t > 60.0:
+            break
+        time.sleep(0.05)
+    if left:
+        fail(f"federation: threads alive 60 s after the storm: {[th.name for th in left]}")
+    if faults.ACTIVE is not None:
+        fail("federation: the fault plane is still installed after the storm")
+    event_ms = probe.event_ms()
+    log(f"federation phase launches: {launches}")
+
+    # ---- the storm's grading ------------------------------------------------
+    slo = report["slo"]
+    log(f"federation: SLO table {json.dumps(slo)}")
+    log(federation.summary_line(report))
+    # ---- the numbers --------------------------------------------------------
+    after = batch_sched.counters_snapshot()
+    routed = {k: v - modes0["fallback_reasons"].get(k, 0)
+              for k, v in after["fallback_reasons"].items()
+              if v != modes0["fallback_reasons"].get(k, 0)}
+    modes = {k: v - modes0["modes"].get(k, 0) for k, v in after["modes"].items()
+             if v != modes0["modes"].get(k, 0)}
+    drained = {k: drain.DRAIN_COUNTERS[k] - drain0[k] for k in drain0}
+    drained["kernel_evals"] = after["kernel_evals"] - modes0["kernel_evals"]
+    drained["drain_evals"] = after["drain_evals"] - modes0["drain_evals"]
+    m1 = metrics.snapshot()
+    counters = {k: v - metrics0["counters"].get(k, 0) for k, v in m1["counters"].items()
+                if v != metrics0["counters"].get(k, 0)}
+    wall = out["run_s"]
+    stages = clock.stats(wall)
+    lags = [p["lag_s"] for p in report["replication_probes"]]
+    by_server: dict = {}
+    by_region: dict = {}
+    for (who, name), n in sorted(probe.by_server.items()):
+        by_server.setdefault(who, {})[name] = n
+        region = by_region.setdefault(who.split("/")[0], {})
+        region[name] = region.get(name, 0) + n
+    out.update(
+        regions=report["region_names"], servers_total=report["servers_total"],
+        driver={k: report["driver"][k] for k in ("fired", "ok", "failed", "expected_miss", "shed")},
+        heal_s=report["fed_heal_s"], heal_times=report["fed_heal_times"],
+        fwd=dict(attempted=report["fed_fwd_attempted"], failed=report["fed_fwd_failed"],
+                 failed_in_chaos=report["fed_fwd_failed_in_chaos"],
+                 err_rate=report["fed_fwd_err_rate"],
+                 oracle_forwarded=report["oracle_forwarded_submits"]),
+        replication=dict(probes=len(lags), p50_s=_pcts(lags)[0] if lags else None,
+                         p99_s=_pcts(lags)[2] if lags else None,
+                         steady_p99_s=report["fed_replication_lag_p99_s"],
+                         chaos_max_s=report["fed_replication_lag_chaos_max_s"]),
+        invariants=dict(violations=report["fed_invariant_violations"],
+                        transient=report["fed_transient_violations"],
+                        lost=report["fed_lost_placements"],
+                        double=report["fed_double_placements"]),
+        quiesced=report["quiesced"], drain=drained, modes=modes, routed=routed,
+        kernel_faults=counters.get("scheduler.kernel_fault_degrade", 0),
+        verify_degrades={k: v for k, v in counters.items()
+                         if k.startswith("plan.verify_device_degrade")},
+        stages=stages, by_server=by_server, by_region=by_region,
+        chaos=report["chaos"], slo_passed=slo["passed"], slo_failed=slo["failed"])
+    log(f"federation: {report['servers_total']} servers in {report['region_names']}, "
+        f"{size['nodes']} nodes a region; the storm's wall {wall:.1f} s; driver {out['driver']}")
+    log(f"federation: chaos {json.dumps(report['chaos'])}")
+    log(f"federation: heal times {report['fed_heal_times']} s (max {report['fed_heal_s']} s); "
+        f"forwarded submits {out['fwd']}")
+    log(f"federation: ACL replication lag over {len(lags)} probes: p50 "
+        f"{out['replication']['p50_s']} s, p99 {out['replication']['p99_s']} s; outside chaos "
+        f"p99 {report['fed_replication_lag_p99_s']} s; in chaos max "
+        f"{report['fed_replication_lag_chaos_max_s']} s")
+    log(f"federation: invariants {out['invariants']}; quiesced {report['quiesced']}")
+    log(f"federation: fused batches and evals {drained}; modes {modes}; routed to the scalar "
+        f"scheduler by design {routed}; kernel faults {out['kernel_faults']}; verify degrades "
+        f"{out['verify_degrades']}")
+    log(f"federation: kernel calls by server (worker threads) {json.dumps(by_server)}; the live "
+        f"servers' mirrors at the end {json.dumps(out.get('mirrors', {}))}")
+    for name in ("plan.raft_apply", "plan.verify_device", "plan.evaluate", "eval.e2e"):
+        st = stages[name]
+        share = f"{100 * st['wall_share']:.1f}%" if st["wall_share"] is not None else "-"
+        log(f"federation: stage {name}: {st['count']} samples, {st['sum_ms']:.1f} ms summed, "
+            f"{st['wall_ms']:.1f} ms of wall covered ({share} of the {wall:.1f} s storm)")
+    log(f"federation: CUDA memory allocated (bytes) before the storm {out['memory_before']}, "
+        f"after each restart {out['memory_after_restart']}, at the end {out['memory_end']}")
+    log(f"federation: restarted servers' device planes against a cold build "
+        f"{out['planes_vs_cold']}")
+    for name, ms in sorted(event_ms.items()):
+        log(f"federation: {name} by events, ms a call (least {min(ms):.4f}, median "
+            f"{float(np.median(ms)):.4f}, {len(ms)} calls)")
+    held = probe.check()
+    for name, h in sorted(held.items()):
+        log(f"federation: {name} held against its plain version on {h['replayed']} of its "
+            f"{h['calls']} calls ({h['lanes_replayed']} lanes replayed, {h['lanes_left']} not) "
+            f"in {h['seconds']:.1f} s, max abs err {h['max_abs_err']}")
+        if h["max_abs_err"]:
+            fail(f"federation: {name} differs from its plain version (max abs err "
+                 f"{h['max_abs_err']})")
+        if not h["replayed"]:
+            fail(f"federation: no call of {name} held against its plain version")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"federation phase: {out['phase_s']:.1f} s")
+    log(f"federation timings: {json.dumps(dict(out, held=held, event_ms=event_ms, launches=launches))}")
+
+    # ---- the checks ----------------------------------------------------------
+    # (the plain versions on the CPU count no launch: a rehearsal there
+    # checks that the storm called each wrapper)
+    calls = {k: len(probe.calls.get(k, ())) for k in names}
+    seen = launches if on_card else calls
+    missing = [k for k in FED_KERNELS if seen[k] < 1]
+    if missing:
+        fail(f"federation: kernels not launched by the storm: {missing} (launches {launches}, "
+             f"wrapper calls {calls})")
+    for region in report["region_names"]:
+        short = [k for k in FED_REGION_KERNELS if by_region.get(region, {}).get(k, 0) < 1]
+        if short:
+            fail(f"federation: region {region}'s servers made no call of {short} "
+                 f"(by server {by_server})")
+    if slo["failed"] or not report["quiesced"]:
+        failed = {k: v for k, v in slo["checks"].items() if not v["pass"]}
+        fail(f"federation: the storm failed its SLOs {failed} (final violations "
+             f"{report['final_violations'][:5]}; mid-storm "
+             f"{[report['regions'][r]['mid_storm_violations'][:3] for r in report['region_names']]}; "
+             f"errors {[report['regions'][r]['failed_ops'][:5] for r in report['region_names']]})")
+    if set(routed) - set(SOAK_ROUTED) or out["kernel_faults"]:
+        fail(f"federation: scheduler fallbacks {routed}, kernel faults {out['kernel_faults']}")
+    if not out["planes_vs_cold"]:
+        fail("federation: no restarted server was live at the end to hold its planes")
+    for name, cmp in out["planes_vs_cold"].items():
+        if cmp["max_abs_err"] is None or cmp["max_abs_err"]:
+            fail(f"federation: {name}'s device planes differ from a cold build {cmp}")
+    return dict(launches=launches, event_ms=event_ms, held=held, timings=out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -3216,7 +3556,19 @@ def main() -> int:
         if name in soak["held"]:
             row["soak_held"] = soak["held"][name]
             row["max_abs_err"] = max(row["max_abs_err"], soak["held"][name]["max_abs_err"])
-    # (path_launches added the storm's standalone primitive launches)
+    phase_done("soak")
+    # ---- 10. the federated storm ----------------------------------------------
+    fed = federation_phase(dev)
+    for row in kernels:
+        name = row["name"]
+        if fed["launches"].get(name):
+            row["paths"]["federation"] = fed["launches"][name]
+            row["launches"] = sum(row["paths"].values())
+            row["federation_event_ms"] = fed["event_ms"].get(name, [])
+        if name in fed["held"]:
+            row["federation_held"] = fed["held"][name]
+            row["max_abs_err"] = max(row["max_abs_err"], fed["held"][name]["max_abs_err"])
+    # (path_launches added the storms' standalone primitive launches)
     # K1-K4's own kernels are not launched on the paths: the primitives run
     # inside every launch of the kernels that inline them
     launched = {row["name"]: row["launches"] for row in kernels}
@@ -3225,7 +3577,7 @@ def main() -> int:
         row["inlined_launches"] = sum(launched[k] for k in row["inlined_in"])
         row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
     kernels = primitives + kernels
-    phase_done("soak")
+    phase_done("federation")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

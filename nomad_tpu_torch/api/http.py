@@ -6,8 +6,7 @@ canonical dict encoding is the wire format.
 
 The port's copy of ``nomad_tpu/api/http.py``. Routes that reach a module
 the port does not have raise an error naming its ROADMAP item: the
-client's alloc filesystem, logs and exec (the client and its drivers) and
-the ACL endpoints (gossip, federation and ACL).
+client's alloc filesystem, logs and exec (the client and its drivers).
 """
 
 from __future__ import annotations
@@ -2334,45 +2333,93 @@ class HTTPServer:
     # -- acl (ref acl_endpoint.go + command/agent/acl_endpoint.go) -------
     @route("PUT", r"/v1/acl/bootstrap", acl="anonymous")
     def acl_bootstrap(self, m, query, body):
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        token = self.server.acl_bootstrap()
+        return _acl_token_dict(token), None
 
     @route("GET", r"/v1/acl/policies")
     def acl_list_policies(self, m, query, body):
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        return [
+            {"Name": p.name, "Description": p.description}
+            for p in self.server.state.acl_policies()
+        ], self.server.state.latest_index()
 
     @route("GET", r"/v1/acl/policy/(?P<name>[^/]+)")
     def acl_get_policy(self, m, query, body):
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        p = self.server.state.acl_policy_by_name(m["name"])
+        if p is None:
+            raise KeyError(f"policy not found: {m['name']}")
+        return {
+            "Name": p.name,
+            "Description": p.description,
+            "Rules": p.rules,
+        }, None
 
     @route("PUT", r"/v1/acl/policy/(?P<name>[^/]+)")
     def acl_put_policy(self, m, query, body):
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        from ..structs.model import AclPolicy
+
+        body = body or {}
+        policy = AclPolicy(
+            name=m["name"],
+            description=body.get("Description", ""),
+            rules=body.get("Rules", ""),
+        )
+        self.server.acl_upsert_policies([policy])
+        return {}, None
 
     @route("DELETE", r"/v1/acl/policy/(?P<name>[^/]+)")
     def acl_delete_policy(self, m, query, body):
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        self.server.acl_delete_policies([m["name"]])
+        return {}, None
 
     @route("GET", r"/v1/acl/tokens")
     def acl_list_tokens(self, m, query, body):
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        return [
+            {
+                "AccessorID": t.accessor_id,
+                "Name": t.name,
+                "Type": t.type,
+                "Policies": list(t.policies),
+                "Global": t.global_token,
+            }
+            for t in self.server.state.acl_tokens()
+        ], self.server.state.latest_index()
 
     @route("PUT", r"/v1/acl/token")
     def acl_create_token(self, m, query, body):
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        from ..structs.model import AclToken
+
+        body = body or {}
+        token = AclToken(
+            name=body.get("Name", ""),
+            type=body.get("Type", "client"),
+            policies=list(body.get("Policies", [])),
+            global_token=bool(body.get("Global", False)),
+        )
+        token = self.server.acl_create_token(token)
+        return _acl_token_dict(token), None
 
     @route("DELETE", r"/v1/acl/token/(?P<accessor>[^/]+)")
     def acl_delete_token(self, m, query, body):
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        self.server.acl_delete_tokens([m["accessor"]])
+        return {}, None
 
     @route("GET", r"/v1/acl/token/self", acl="anonymous")
     def acl_token_self(self, m, query, body):
         """ref acl_endpoint.go GetToken (self); resolves the request's own
         secret, so it needs no management capability."""
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        secret = query.get("__secret__", "")
+        token = self.server.state.acl_token_by_secret(secret)
+        if token is None:
+            raise KeyError("token not found for provided secret")
+        return _acl_token_dict(token), None
 
     @route("GET", r"/v1/acl/token/(?P<accessor>[^/]+)")
     def acl_get_token(self, m, query, body):
-        raise _not_ported("ACL", "gossip, federation and ACL")
+        token = self.server.state.acl_token_by_accessor(m["accessor"])
+        if token is None:
+            raise KeyError(f"token not found: {m['accessor']}")
+        return _acl_token_dict(token), None
 
     # -- search (ref search_endpoint.go) ---------------------------------
     @route("PUT", r"/v1/search", acl="ns:read-job")
@@ -2400,6 +2447,17 @@ class HTTPServer:
 
         self.server._apply(fsm_mod.SCHEDULER_CONFIG, {"config": body or {}})
         return {"Updated": True}, None
+
+
+def _acl_token_dict(t) -> dict:
+    return {
+        "AccessorID": t.accessor_id,
+        "SecretID": t.secret_id,
+        "Name": t.name,
+        "Type": t.type,
+        "Policies": list(t.policies),
+        "Global": t.global_token,
+    }
 
 
 def _alloc_stub(a: Allocation) -> dict:

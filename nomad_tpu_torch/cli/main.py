@@ -7,9 +7,8 @@ JAX CLI lacks, ``-device`` (default ``cuda``): the server's device tier
 runs there, and without a card the agent raises unless given ``-device
 cpu``. What reaches a module the port does not have raises naming its
 ROADMAP item: in-process or networked clients and a ``consul`` stanza
-(the client and its drivers), ``operator keygen`` (gossip, federation and
-ACL); the client's fs, logs and exec and the ACL commands get that error
-back from the agent's HTTP routes.
+(the client and its drivers); the client's fs, logs and exec commands get
+that error back from the agent's HTTP routes.
 """
 
 from __future__ import annotations
@@ -1083,9 +1082,10 @@ def cmd_operator_device(args):
 
 
 def cmd_operator_keygen(args):
-    from ..core.server import _not_ported
+    from ..gossip.keyring import generate_key
 
-    raise _not_ported("operator keygen (the gossip keyring)", "gossip, federation and ACL")
+    print(generate_key())
+    return 0
 
 
 def cmd_operator_keyring(args):

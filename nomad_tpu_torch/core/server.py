@@ -16,9 +16,9 @@ device)`` runs its device tier (the workers' schedulers, the drain
 collector, the mirror's device planes and the applier's dense verify) on
 ``device``: CUDA unless the caller passes ``"cpu"``; without a card it
 raises. The ``prewarm_kernels`` stanza launches the warm-up ladder
-(``tpu/warmup.py``) on ``device`` in a background thread. The stanzas that
-reach modules not yet ported raise an error that names their ROADMAP item
-(``gossip``, ACL and its replication client, ``shard_devices``).
+(``tpu/warmup.py``) on ``device`` in a background thread. The
+``shard_devices`` stanza, which reaches the mesh the port does not have
+yet, raises an error that names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -95,8 +95,6 @@ class Server:
         self.config = config or {}
         #: the device tier's device (nomad_tpu_torch.resolve_device)
         self.device = resolve_device(device)
-        if self.acl_enabled():
-            raise _not_ported("the acl stanza", "gossip, federation and ACL")
         # trace{} stanza (OBSERVABILITY.md): enabled, sample_rate,
         # retain, slow_keep, error_keep. The tracer is process-wide
         # (metrics-registry idiom); only keys present are applied, so
@@ -371,7 +369,36 @@ class Server:
         gcfg = self.config.get("gossip")
         if not gcfg:
             return None
-        raise _not_ported("the gossip stanza", "gossip, federation and ACL")
+        import random as random_mod
+
+        from ..gossip import Gossip
+
+        seed = self.config.get("seed")
+        return Gossip(
+            name=self.raft.node_id,
+            bind=tuple(gcfg.get("bind", ("127.0.0.1", 0))),
+            tags={
+                "raft": self.raft.address,
+                "role": "server",
+                "region": self.region,
+            },
+            probe_interval=float(gcfg.get("probe_interval", 0.3)),
+            ack_timeout=float(gcfg.get("ack_timeout", 0.3)),
+            suspect_timeout=float(gcfg.get("suspect_timeout", 1.5)),
+            reap_timeout=float(gcfg.get("reap_timeout", 3.0)),
+            on_event=self._gossip_event,
+            rng=random_mod.Random(seed),
+            # serf encryption: server { encrypt = "<base64>" } in agent HCL
+            encrypt_key=gcfg.get("encrypt")
+            or self.config.get("encrypt", ""),
+            # runtime-installed keys survive restarts when a data dir
+            # exists (serf's keyring file)
+            keyring_path=(
+                os.path.join(self.config["data_dir"], "keyring.json")
+                if self.config.get("data_dir")
+                else ""
+            ),
+        )
 
     def _gossip_event(self, event: str, member):
         """Serf events → raft membership, leader-side only (followers
@@ -1459,7 +1486,48 @@ class Server:
         Resolutions cache on (secret, token-table index, policy-table
         index) so the hot path skips the token scan + policy parse until an
         ACL write invalidates it."""
-        raise _not_ported("ACL token resolution", "gossip, federation and ACL")
+        from ..acl import ACL_ANONYMOUS, ACL_MANAGEMENT, compile_acl, parse_policy
+        from ..structs.model import ACL_TOKEN_TYPE_MANAGEMENT
+
+        if not self.acl_enabled():
+            return ACL_MANAGEMENT
+        if not secret:
+            return ACL_ANONYMOUS
+        key = (
+            secret,
+            self.state.table_index("acl_token"),
+            self.state.table_index("acl_policy"),
+        )
+        cached = self._acl_cache.get(key)
+        if cached is not None:
+            return cached
+        token = self.state.acl_token_by_secret(secret)
+        if token is None:
+            if not self.raft.is_leader():
+                # a follower's table may simply LAG — a freshly restarted
+                # server serves HTTP before its FSM catches up to the
+                # commit index, and a replica region's follower may not
+                # have replicated a new global token yet. Only the
+                # leader's miss is authoritative (ref acl.go: resolution
+                # falls through to the authoritative source on a local
+                # miss); the RPC/HTTP layers forward on this error.
+                raise NotLeaderError(
+                    self.raft.leader_address(), self.raft.leader_id
+                )
+            raise PermissionError("ACL token not found")
+        if token.type == ACL_TOKEN_TYPE_MANAGEMENT:
+            acl = ACL_MANAGEMENT
+        else:
+            parsed = []
+            for name in token.policies:
+                policy = self.state.acl_policy_by_name(name)
+                if policy is not None:
+                    parsed.append(parse_policy(policy.rules))
+            acl = compile_acl(parsed)
+        if len(self._acl_cache) > 512:
+            self._acl_cache.clear()
+        self._acl_cache[key] = acl
+        return acl
 
     # ------------------------------------------------------------------
     # ACL replication (ref leader.go:277 replicateACLPolicies/Tokens:
@@ -1539,7 +1607,79 @@ class Server:
             st["failures"] += 1
             st["last_error"] = f"no path to authoritative region {auth!r}"
             return stats
-        raise _not_ported("ACL replication", "gossip, federation and ACL")
+        from ..api.client import ApiClient
+        from ..structs.model import AclPolicy, AclToken
+
+        api = ApiClient(
+            address=peers[0],
+            token=self.config.get("acl", {}).get("replication_token", ""),
+        )
+
+        # policies: authoritative region owns the namespace wholesale
+        remote_names = {p["Name"] for p in api.acl_policies()}
+        upserts = []
+        for name in remote_names:
+            doc = api.acl_policy(name)
+            local = self.state.acl_policy_by_name(name)
+            if local is None or local.rules != doc["Rules"]:
+                upserts.append(
+                    AclPolicy(
+                        name=name,
+                        description=doc.get("Description", ""),
+                        rules=doc["Rules"],
+                    )
+                )
+        if upserts:
+            self.acl_upsert_policies(upserts)
+            stats["policies_upserted"] = len(upserts)
+        stale = [
+            p.name
+            for p in self.state.acl_policies()
+            if p.name not in remote_names
+        ]
+        if stale:
+            self.acl_delete_policies(stale)
+            stats["policies_deleted"] = len(stale)
+
+        # tokens: only global ones replicate (ref leader.go
+        # replicateACLTokens; local tokens stay region-scoped)
+        remote_tokens = {
+            t["AccessorID"]: t for t in api.acl_tokens() if t.get("Global")
+        }
+        token_upserts = []
+        for accessor, row in remote_tokens.items():
+            local = self.state.acl_token_by_accessor(accessor)
+            if local is not None and local.policies == row.get("Policies"):
+                continue
+            doc = api.acl_token(accessor)  # full doc incl. the secret
+            token_upserts.append(
+                AclToken(
+                    accessor_id=doc["AccessorID"],
+                    secret_id=doc["SecretID"],
+                    name=doc.get("Name", ""),
+                    type=doc.get("Type", "client"),
+                    policies=list(doc.get("Policies", [])),
+                    global_token=True,
+                )
+            )
+        if token_upserts:
+            self._apply(
+                fsm_mod.ACL_TOKEN_UPSERT,
+                {"tokens": [t.to_dict() for t in token_upserts]},
+            )
+            stats["tokens_upserted"] = len(token_upserts)
+        stale_tokens = [
+            t.accessor_id
+            for t in self.state.acl_tokens()
+            if t.global_token and t.accessor_id not in remote_tokens
+        ]
+        if stale_tokens:
+            self.acl_delete_tokens(stale_tokens)
+            stats["tokens_deleted"] = len(stale_tokens)
+        st["rounds"] += 1
+        st["last_success_wall"] = time.time()
+        st.pop("last_error", None)
+        return stats
 
     def acl_bootstrap(self):
         """One-shot creation of the initial management token
@@ -1566,7 +1706,17 @@ class Server:
         return token
 
     def acl_upsert_policies(self, policies: list):
-        raise _not_ported("ACL policies", "gossip, federation and ACL")
+        from ..acl import parse_policy
+
+        self._check_leader()
+        for p in policies:
+            if not p.name:
+                raise ValueError("policy requires a name")
+            parse_policy(p.rules)  # validate before replicating
+        self._apply(
+            fsm_mod.ACL_POLICY_UPSERT,
+            {"policies": [p.to_dict() for p in policies]},
+        )
 
     def acl_delete_policies(self, names: list[str]):
         self._check_leader()

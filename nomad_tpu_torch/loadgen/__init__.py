@@ -23,9 +23,8 @@ Run one with ``python -m nomad_tpu_torch.loadgen --scenario smoke --seed 7``
 
 The port's copy of ``nomad_tpu/loadgen/`` and its
 ``testing/invariants.py``: the storms, the grammar and the grading are
-the JAX package's, and the server they drive is the port's. The
-federated storm (``federation.py``) waits for gossip, federation and
-ACL (ROADMAP queue A, item 5).
+the JAX package's, and the server they drive is the port's, the
+federated storm's (``federation.py``) six servers in two regions too.
 """
 
 from .grammar import Op, OpStream, Phase, Scenario, compile_stream, named_rng

@@ -6,10 +6,10 @@ exits — two runs with the same seed must print byte-identical output,
 which is the cheap way to eyeball the determinism contract.
 
 The port's copy of ``nomad_tpu/loadgen/__main__.py``. ``--device`` (default
-``cuda``, as the agent's ``-device``) is where the server's device tier
-runs; ``--federation`` raises ``NotImplementedError`` before any server
-starts, since the federated storm waits for gossip, federation and ACL
-(ROADMAP queue A, item 5).
+``cuda``, as the agent's ``-device``) is where the servers' device tier
+runs, for every storm: ``--federation`` runs the federated storm
+(``federation.run_federation_from_env``) with the JAX CLI's ``FED_*`` env
+knobs and defaults.
 """
 
 from __future__ import annotations
@@ -40,8 +40,10 @@ def main(argv=None) -> int:
     )
     parser.add_argument(
         "--federation", action="store_true",
-        help="the multi-region federated storm: not ported yet (it needs "
-        "gossip, federation and ACL, ROADMAP queue A item 5); raises",
+        help="run the multi-region federated storm (partition, "
+        "failover, rolling restart as scored chaos phases; env knobs "
+        "FED_PROFILE / FED_REGIONS / FED_SERVERS / FED_NODES / "
+        "FED_CHURN_S / FED_CROSS_P; see scripts/federation.sh)",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -71,12 +73,6 @@ def main(argv=None) -> int:
     )
     parser.add_argument("-v", "--verbose", action="store_true")
     args = parser.parse_args(argv)
-    if args.federation:
-        raise NotImplementedError(
-            "nomad_tpu_torch.loadgen: the federated storm needs gossip, "
-            "federation and ACL, which are not ported yet (ROADMAP queue A, "
-            "item 5)"
-        )
 
     from . import compile_stream, get_scenario, list_scenarios
 
@@ -114,6 +110,18 @@ def main(argv=None) -> int:
         )
         print(json.dumps(report["slo"], indent=1))
         print(overload_summary(report))
+        return 0 if report["slo"]["failed"] == 0 else 1
+
+    if args.federation:
+        from .federation import run_federation_from_env
+        from .federation import summary_line as fed_summary
+
+        report = run_federation_from_env(
+            args.seed, out=args.out, time_scale=args.time_scale,
+            device=args.device,
+        )
+        print(json.dumps(report["slo"], indent=1))
+        print(fed_summary(report))
         return 0 if report["slo"]["failed"] == 0 else 1
 
     scenario = get_scenario(args.scenario)

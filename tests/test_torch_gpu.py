@@ -1636,3 +1636,162 @@ def test_smoke_storm_on_the_card_through_the_drain(cuda_device):
             break
         time.sleep(0.05)
     assert not left, [t.name for t in left]
+
+
+# ---------------------------------------------------------------------------
+# gossip, ACL and federation: two regions, forwarding, a restart
+# ---------------------------------------------------------------------------
+
+#: the soak scenario's device settings, as chip_smoke.py phase 10 gives them
+FED_SETTINGS = {"default_scheduler": "tpu-batch", "batch_drain": 8, "plan_apply_batch": 8}
+
+
+def _threads_left(threads0, limit_s=10.0) -> list:
+    import time
+
+    deadline = time.monotonic() + limit_s
+    while True:
+        left = [t for t in threading.enumerate() if t not in threads0 and t.is_alive()
+                and t.name != "eval-broker-timers"]
+        if not left or time.monotonic() > deadline:
+            return [t.name for t in left]
+        time.sleep(0.05)
+
+
+def _two_regions_forwarded(dev, node_docs, job_docs) -> tuple:
+    """Two regions of one server each on ``dev``, ACL on (east
+    authoritative), the soak's device settings: the jobs enter west's HTTP
+    with ``?region=east`` and the management token, and east's one drain
+    worker, started once both evals wait, plans them; returns the
+    placements, the launches and west's replicated tokens."""
+    import os
+    import time
+
+    from nomad_tpu_torch.api.client import ApiClient
+    from nomad_tpu_torch.loadgen import federation
+    from nomad_tpu_torch.structs.model import Node
+
+    cfg = federation.FederationConfig(regions=2, servers_per_region=1, n_workers=0,
+                                      server_settings=dict(FED_SETTINGS))
+    cluster = federation.FederatedCluster(cfg, seed=42, device=dev)
+    try:
+        cluster.start()
+        cluster.wait_ready()
+        east, west = (cluster.leader_of(r) for r in ("east", "west"))
+        server = east.agent.server
+        for d in node_docs:
+            server.node_register(Node.from_dict(d))
+        api = ApiClient(address=west.http.address, token=cluster.mgmt_token)
+        eval_ids = [api.put("/v1/jobs", body={"Job": d}, region="east")[0]["EvalID"]
+                    for d in job_docs]
+        before = dict(tk.LAUNCHES)
+        server.start_workers(1)
+        deadline = time.monotonic() + 60.0
+        while not all(server.state.eval_by_id(e).status == "complete" for e in eval_ids):
+            assert time.monotonic() < deadline, [server.state.eval_by_id(e).status
+                                                 for e in eval_ids]
+            time.sleep(0.02)
+        launches = {k: tk.LAUNCHES[k] - before[k] for k in tk.LAUNCHES}
+        placed = sorted((d["id"], a.name, a.node_id) for d in job_docs
+                        for a in server.state.allocs_by_job("default", d["id"]))
+        tokens = sorted(t.name for t in west.agent.server.state.acl_tokens())
+        assert os.path.isdir(cluster._tmpdir)
+        return placed, launches, tokens, list(west.agent.server.state.jobs())
+    finally:
+        cluster.stop()
+
+
+@pytest.mark.gpu
+def test_two_regions_with_acl_place_a_forwarded_job_on_the_card(cuda_device):
+    """A job forwarded from west to east, each region one server on the
+    card with ACL on: east plans it through the fused drain's kernels,
+    west holds no copy of it, the bootstrap token replicated, the
+    placements equal the same run's through the plain versions, and every
+    thread of both regions stops."""
+    from nomad_tpu_torch import mock
+
+    node_docs = _sched_cluster(64, 2)
+    jobs = []
+    for i, count in enumerate((24, 30)):
+        job = mock.job()
+        job.datacenters = ["dc1", "dc2"]
+        job.task_groups[0].count = count
+        job.task_groups[0].tasks[0].resources.networks = []
+        job.task_groups[0].tasks[0].resources.cpu = (250, 500)[i]
+        jobs.append(job.to_dict())
+    threads0 = set(threading.enumerate())
+    got, launches, tokens, west_jobs = _two_regions_forwarded(cuda_device, node_docs, jobs)
+    assert _threads_left(threads0) == []
+    want, _, _, _ = _two_regions_forwarded("cpu", node_docs, jobs)
+    assert _threads_left(threads0) == []
+    assert len(got) == 54 and got == want
+    assert launches["exact_scan"] >= 1 and launches["used_bases"] >= 1, launches
+    assert tokens == ["Bootstrap Token"] and west_jobs == []
+
+
+@pytest.mark.gpu
+def test_a_restarted_server_rebuilds_device_planes_equal_to_a_cold_build(cuda_device, tmp_path):
+    """A server on the card with a data dir plans two fused drain batches,
+    stops, and comes back as a new ``Server`` from its data dir on the same
+    port: once its state has caught up, its device planes equal those it
+    had before the stop and planes built cold from its tables."""
+    import time
+
+    import chip_smoke
+    from nomad_tpu_torch import mock
+    from nomad_tpu_torch.agent import ServerAgent
+    from nomad_tpu_torch.structs.model import Node
+
+    node_docs = _sched_cluster(200, 2)
+    threads0 = set(threading.enumerate())
+    cfg = {"seed": 42, "heartbeat_ttl": 3600.0, **FED_SETTINGS}
+
+    def boot(port=0):
+        agent = ServerAgent("s0", port=port, data_dir=str(tmp_path / "s0"), config=dict(cfg),
+                            device=cuda_device)
+        agent.start(num_workers=0, wait_for_leader=10.0)
+        return agent
+
+    agent = boot()
+    try:
+        server = agent.server
+        for d in node_docs:
+            server.node_register(Node.from_dict(d))
+        ids = []
+        for count in (40, 60, 20):
+            job = mock.job()
+            job.datacenters = ["dc1", "dc2"]
+            job.task_groups[0].count = count
+            job.task_groups[0].tasks[0].resources.networks = []
+            ids.append(server.job_register(job))
+        tk.reset_launches()
+        server.start_workers(1)
+        deadline = time.monotonic() + 60.0
+        while not all(server.state.eval_by_id(e).status == "complete" for e in ids):
+            assert time.monotonic() < deadline
+            time.sleep(0.02)
+        assert tk.LAUNCHES["exact_scan"] >= 1
+        before = chip_smoke.planes_vs_cold_build(server)
+        snap = server.state.snapshot()
+        planes = [t.cpu() for t in server.columnar_mirror.device_state(before["rows"], snap._gen)]
+        index, port = server.raft.last_applied, int(agent.address.rsplit(":", 1)[1])
+    finally:
+        agent.stop()
+    agent = boot(port)
+    try:
+        server = agent.server
+        deadline = time.monotonic() + 30.0
+        while server.raft.last_applied < index:
+            assert time.monotonic() < deadline, (server.raft.last_applied, index)
+            time.sleep(0.02)
+        after = chip_smoke.planes_vs_cold_build(server)
+        snap = server.state.snapshot()
+        again = server.columnar_mirror.device_state(after["rows"], snap._gen)
+        assert before["max_abs_err"] == after["max_abs_err"] == 0, (before, after)
+        assert after["nodes"] == 200 and after["rows"] == before["rows"]
+        for got, want in zip(again, planes):
+            _same(got, want.to(cuda_device))
+        assert server.columnar_mirror.device.type == cuda_device.type
+    finally:
+        agent.stop()
+    assert _threads_left(threads0) == []

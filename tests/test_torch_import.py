@@ -129,6 +129,13 @@ MODULES = [
     "nomad_tpu_torch.loadgen.overload",
     "nomad_tpu_torch.loadgen.fanout",
     "nomad_tpu_torch.loadgen.__main__",
+    "nomad_tpu_torch.acl",
+    "nomad_tpu_torch.acl.policy",
+    "nomad_tpu_torch.acl.acl",
+    "nomad_tpu_torch.gossip",
+    "nomad_tpu_torch.gossip.keyring",
+    "nomad_tpu_torch.gossip.swim",
+    "nomad_tpu_torch.loadgen.federation",
 ]
 
 
@@ -221,9 +228,9 @@ def test_chip_smoke_refuses_without_a_card():
 
 def test_server_and_its_device_tier_default_to_cuda():
     """``Server()``, ``new_scheduler(...)`` and the mirror want the card
-    unless given ``device="cpu"``; the stanzas that reach modules not yet
-    ported raise an error that names their ROADMAP item (the warm-up
-    stanza runs: tests/test_torch_warmup.py)."""
+    unless given ``device="cpu"``; the stanza that reaches the mesh, not yet
+    ported, raises an error that names its ROADMAP item (the warm-up
+    stanza runs: tests/test_torch_warmup.py; the acl stanza is built)."""
     from nomad_tpu_torch.core.server import Server
     from nomad_tpu_torch.scheduler import Harness, new_scheduler
     from nomad_tpu_torch.state import StateStore
@@ -260,9 +267,9 @@ def test_server_and_its_device_tier_default_to_cuda():
             assert len(h.plans[0].node_allocation) > 0
     server = Server({"seed": 1}, device="cpu")
     assert server.device.type == "cpu" and server.columnar_mirror.device.type == "cpu"
-    for stanza, item in (({"acl": {"enabled": True}}, "ACL"),):
-        with pytest.raises(NotImplementedError, match=item):
-            Server(stanza, device="cpu")
+    # the acl stanza is ported: the server enforces it
+    acl_server = Server({"acl": {"enabled": True}}, device="cpu")
+    assert acl_server.acl_enabled()
     for stanza, item in (("shard_devices", "A12"),):
         s = Server({stanza: 1}, device="cpu")
         with pytest.raises(NotImplementedError, match=item):

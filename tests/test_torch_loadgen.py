@@ -14,8 +14,9 @@ values (documents, report dicts, bytes):
   own report artifacts;
 - (d)-(f) the port's smoke storm, a tiny overload storm and a tiny
   in-process fan-out run end to end against a port server on the CPU;
-- (g) the CLI prints the JAX CLI's stream bytes and refuses the
-  federated storm.
+- (g) the CLI prints the JAX CLI's stream bytes and its ``--federation``
+  help, and ``operator keygen`` prints a key both packages' keyrings
+  take.
 
 Every test that starts a server or a driver stops it in ``finally`` (the
 runners do), and a fixture checks after each test that no thread it
@@ -48,6 +49,7 @@ from nomad_tpu_torch import agent as tagent
 from nomad_tpu_torch.core import broker as tbroker
 from nomad_tpu_torch.loadgen import __main__ as tcli
 from nomad_tpu_torch.loadgen import fanout as tfanout
+from nomad_tpu_torch.loadgen import federation as tfederation
 from nomad_tpu_torch.loadgen import grammar as tg
 from nomad_tpu_torch.loadgen import overload as toverload
 from nomad_tpu_torch.loadgen import scenarios as tsc
@@ -418,22 +420,47 @@ class _Out(io.StringIO):
 def _cli_bytes(main, argv) -> tuple:
     out = _Out()
     with contextlib.redirect_stdout(out):
-        rc = main(argv)
+        try:
+            rc = main(argv)
+        except SystemExit as e:  # --help
+            rc = e.code
     return rc, out.buffer.getvalue() + out.getvalue().encode()
+
+
+def _option_lines(text: bytes, option: bytes) -> bytes:
+    """The lines of ``option`` in an argparse help text."""
+    lines = text.splitlines(keepends=True)
+    start = next(i for i, line in enumerate(lines) if line.lstrip().startswith(option))
+    end = next(i for i in range(start + 1, len(lines)) if lines[i].lstrip().startswith(b"-"))
+    return b"".join(lines[start:end])
 
 
 @pytest.mark.parametrize("argv", [["--print-stream", "--seed", "7"],
                                   ["--print-stream", "--seed", "3", "--duration", "2"],
-                                  ["--list"]])
-def test_cli_prints_the_jax_clis_bytes(argv):
+                                  ["--list"], ["--help"]])
+def test_cli_prints_the_jax_clis_bytes(argv, monkeypatch):
+    monkeypatch.setenv("COLUMNS", "80")
     want = _cli_bytes(jcli.main, argv)
     got = _cli_bytes(tcli.main, argv + ["--device", "cpu"])
+    if argv == ["--help"]:
+        # the port's help has its own prog name and its --device option; the
+        # --federation option's lines are the JAX CLI's bytes
+        want = want[0], _option_lines(want[1], b"--federation")
+        got = got[0], _option_lines(got[1], b"--federation")
+        assert b"FED_PROFILE" in got[1]
     assert got == want and want[0] == 0 and want[1]
 
 
-def test_cli_refuses_the_federated_storm():
-    with pytest.raises(NotImplementedError, match="queue A, item 5"):
-        tcli.main(["--federation", "--device", "cpu"])
+def test_operator_keygen_prints_a_key_both_keyrings_take(capsys):
+    from nomad_tpu.gossip import keyring as jkeyring
+    from nomad_tpu_torch.cli import main as tmain
+    from nomad_tpu_torch.gossip import keyring as tkeyring
+
+    assert tmain(["operator", "keygen"]) == 0
+    key = capsys.readouterr().out.strip()
+    t, j = tkeyring.Keyring(key), jkeyring.Keyring(key)
+    assert j.open(t.seal(b"ping")) == b"ping" and t.open(j.seal(b"ack")) == b"ack"
+    assert t.list_keys() == j.list_keys() == {"PrimaryKey": key, "Keys": [key]}
 
 
 def test_storms_want_the_card_and_refuse_before_any_thread():
@@ -450,4 +477,8 @@ def test_storms_want_the_card_and_refuse_before_any_thread():
         tfanout.run_fanout(subs=2, storm_s=1.0, in_proc=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(["--scenario", "smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfederation.run_federation(tfederation.federation_smoke(), seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcli.main(["--federation"])
     assert set(threading.enumerate()) <= before

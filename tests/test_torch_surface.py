@@ -10,6 +10,7 @@ agents' own history) are scrubbed. Every agent, listener and pool is
 stopped in ``finally`` and no thread of a test outlives it.
 """
 
+import base64
 import importlib
 import json
 import os
@@ -404,5 +405,6 @@ def test_dev_agent_with_a_client_names_the_client_item(capsys):
     assert tcli.main(["agent", "-dev", "-device", "cpu"]) == 1
     err = capsys.readouterr().err
     assert "NotImplementedError" in err and "the client and its drivers" in err
-    assert tcli.main(["operator", "keygen"]) == 1
-    assert "gossip, federation and ACL" in capsys.readouterr().err
+    # operator keygen is ported with the gossip keyring: a 32-byte key
+    assert tcli.main(["operator", "keygen"]) == 0
+    assert len(base64.b64decode(capsys.readouterr().out.strip())) == 32
