@@ -228,9 +228,40 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and evals, kernel calls by server, the stages' wall shares
    (``plan.raft_apply`` among them), the CUDA memory allocated before the
    storm, after each restart and at the end, and the phase's seconds;
-11. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
-   scheduler, server, agent, soak and federation launches), the card's
-   name and power limit, and last ``{"ok": true, "device": {...}}``.
+11. the client, with every launch counter set to 0 before and read after:
+   ``DevAgent(num_clients=4, device="cuda")`` with phase 7's server
+   settings and an ``HTTPServer``; 2,000 of phase 8's mock nodes (their
+   tiers, all in the clients' datacenter dc1) registered through
+   ``node_register``, so the kernels plan over the whole node axis while
+   the mock fleet (which advertises only ``exec`` and ``mock_driver``)
+   cannot run a ``raw_exec`` task; every client must fingerprint the card
+   (``NvidiaDevicePlugin``: nvidia/gpu, the card's UUID as its instance id)
+   and the node axis must hold the 2,004 nodes. Over HTTP: a ``raw_exec``
+   batch job of 16 allocs that prints ``$NOMAD_ALLOC_ID``, whose eval must
+   launch a kernel (its route from ``SCHED_COUNTERS`` and the launches are
+   printed), whose allocs must all end ``complete`` with exit 0 on the
+   four clients, each stdout read back through ``/v1/client/fs/logs``
+   equal to its alloc id (the job is then stopped: the reference's
+   ``tpu-batch`` places a completed batch alloc again, ROADMAP C4); a
+   ``raw_exec`` service job with ``device "nvidia/gpu" { count = 1 }``
+   that prints its CUDA_VISIBLE_DEVICES and runs ``nvidia-smi -L``: it must
+   reserve a card its node fingerprinted, its env must hold that id and its
+   log must name the card (its eval's route is printed), and after ``job
+   stop`` its task process must end. Then the client that ran the most of
+   the batch allocs stops and a new ``Client`` starts on its data dir: it
+   must come back as the same node and rerun none of its completed allocs
+   (their log files unchanged). Every kernel call of the phase is held
+   against its plain version (``ServerProbe``), and every thread and task
+   process must end. Then ``python -m nomad_tpu_torch agent -dev -device
+   cuda -port 0`` in a process of its own: ``job run`` of a raw_exec
+   jobspec and ``alloc logs`` through the CLI must give its output, a
+   service task runs, and SIGTERM must end the agent with exit 0 within
+   30 s and leave no process under it. ``import chip_smoke;
+   chip_smoke.client_phase(torch.device("cpu"), chip_smoke.CLIENT_SMALL,
+   nvidia_smi=<a fake nvidia-smi>)`` rehearses the phase on the CPU;
+12. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
+   scheduler, server, agent, soak, federation and client launches), the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
 """
@@ -2209,13 +2240,43 @@ def _ledger_keys(metrics: dict, flavor: str) -> dict:
             if e["flavor"] == flavor}
 
 
+def spawn_agent(argv: list, pattern: str, env=None) -> tuple:
+    """``python -m nomad_tpu_torch agent <argv>`` started from the repo root,
+    its stdout read on a thread until a line matches ``pattern``: returns
+    (the process, the match, the reader thread). No such line within
+    AGENT_START_S fails the phase, and the process is killed."""
+    import os
+    import queue
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "nomad_tpu_torch", "agent", *argv],
+                            cwd=root, stdout=subprocess.PIPE, text=True, env=env)
+    lines: queue.Queue = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                              name="agent-stdout", daemon=True)
+    reader.start()
+    try:
+        while True:
+            try:
+                ln = lines.get(timeout=max(0.1, AGENT_START_S - (time.perf_counter() - t0)))
+            except queue.Empty:
+                fail(f"agent {' '.join(argv)}: no start line in {AGENT_START_S:.0f} s")
+            start = re.search(pattern, ln)
+            if start is not None:
+                return proc, start, reader
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+
+
 def agent_phase(device: str = "cuda", size: dict = AGENT) -> dict:
     """The agent phase (module docstring, phase 8). Returns the agent
     path's launches per kernel and its numbers."""
     import importlib
     import io
     import os
-    import queue
     import signal
     import socket
     import tempfile
@@ -2228,7 +2289,6 @@ def agent_phase(device: str = "cuda", size: dict = AGENT) -> dict:
 
     cli = importlib.import_module("nomad_tpu_torch.cli.main")
     flavor = "cuda" if device == "cuda" else "plain"
-    root = os.path.dirname(os.path.abspath(__file__))
     t_phase = time.perf_counter()
     out: dict = {}
     with socket.socket() as s:
@@ -2239,24 +2299,11 @@ def agent_phase(device: str = "cuda", size: dict = AGENT) -> dict:
         with open(hcl, "w") as f:
             f.write(AGENT_HCL.format(drain=AGENT_DRAIN, nodes=size["nodes"], rpc=rpc_port))
         t_spawn = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "nomad_tpu_torch", "agent", "-device", device,
-             "-config", hcl, "-port", "0"],
-            cwd=root, stdout=subprocess.PIPE, text=True)
-        lines: queue.Queue = queue.Queue()
-        reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
-                                  name="agent-stdout", daemon=True)
-        reader.start()
+        # ---- start: the addresses from the start line ----------------------
+        proc, start, reader = spawn_agent(["-device", device, "-config", hcl, "-port", "0"],
+                                          r"http (\S+) rpc (\S+)")
         pool = ConnPool()
         try:
-            # ---- start: the addresses from the start line ------------------
-            start = None
-            while start is None:
-                try:
-                    ln = lines.get(timeout=max(0.1, AGENT_START_S - (time.perf_counter() - t_spawn)))
-                except queue.Empty:
-                    fail(f"agent: no start line in {AGENT_START_S:.0f} s")
-                start = re.search(r"http (\S+) rpc (\S+)", ln)
             http, rpc_addr = start.groups()
             out["start_s"] = time.perf_counter() - t_spawn
             api = ApiClient(address=http)
@@ -3031,6 +3078,519 @@ def federation_phase(dev, size: dict = FED_SIZE) -> dict:
     return dict(launches=launches, event_ms=event_ms, held=held, timings=out)
 
 
+CLIENT = dict(clients=4, nodes=2_000, count=16)
+#: the CPU rehearsal's size (``client_phase(torch.device("cpu"), CLIENT_SMALL,
+#: nvidia_smi=...)`` with a fake nvidia-smi)
+CLIENT_SMALL = dict(clients=4, nodes=200, count=16)
+#: seconds of planner replays a kernel (``ServerProbe``)
+CLIENT_REPLAY_S = 10.0
+CLIENT_WAIT_S = 120.0
+#: the jobs of phase 11, as a user writes them (``{smi}`` is the absolute
+#: path of nvidia-smi: the task's PATH is the raw_exec driver's own)
+CLIENT_ECHO_HCL = """job "echo" {{
+  datacenters = ["dc1"]
+  type = "batch"
+  group "echo" {{
+    count = {count}
+    task "echo" {{
+      driver = "raw_exec"
+      config {{
+        command = "/bin/sh"
+        args = ["-c", "printf %s $NOMAD_ALLOC_ID"]
+      }}
+      resources {{
+        cpu = 20
+        memory = 16
+      }}
+    }}
+  }}
+}}
+"""
+CLIENT_GPU_HCL = """job "gpu" {{
+  datacenters = ["dc1"]
+  type = "service"
+  group "gpu" {{
+    task "smi" {{
+      driver = "raw_exec"
+      config {{
+        command = "/bin/sh"
+        args = ["-c", "echo CUDA_VISIBLE_DEVICES=$CUDA_VISIBLE_DEVICES; {smi} -L; exec sleep 600"]
+      }}
+      resources {{
+        cpu = 20
+        memory = 16
+        device "nvidia/gpu" {{
+          count = 1
+        }}
+      }}
+    }}
+  }}
+}}
+"""
+CLIENT_SLEEP_HCL = """job "sleeper" {
+  datacenters = ["dc1"]
+  type = "service"
+  group "sleeper" {
+    task "sleep" {
+      driver = "raw_exec"
+      config {
+        command = "/bin/sleep"
+        args = ["600"]
+      }
+      resources {
+        cpu = 20
+        memory = 16
+      }
+    }
+  }
+}
+"""
+CLIENT_DEV_MARKER = "hello from agent -dev"
+CLIENT_DEV_HCL = """job "hello" {
+  datacenters = ["dc1"]
+  type = "batch"
+  group "hello" {
+    task "hello" {
+      driver = "raw_exec"
+      config {
+        command = "/bin/echo"
+        args = ["-n", "%s"]
+      }
+      resources {
+        cpu = 20
+        memory = 16
+      }
+    }
+  }
+}
+""" % CLIENT_DEV_MARKER
+
+
+def descendants(pid: int) -> set:
+    """The live (not zombie) processes under ``pid``, from /proc."""
+    import os
+
+    children: dict = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat", "rb") as f:
+                rest = f.read().decode("ascii", "replace").rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if rest[0] != "Z":
+            children.setdefault(int(rest[1]), []).append(int(entry))
+    out, todo = set(), [pid]
+    while todo:
+        for c in children.get(todo.pop(), ()):
+            if c not in out:
+                out.add(c)
+                todo.append(c)
+    return out
+
+
+def pid_alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie does not)."""
+    try:
+        with open(f"/proc/{pid}/stat", "rb") as f:
+            return f.read().decode("ascii", "replace").rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def client_phase(dev, size: dict = CLIENT, nvidia_smi=None) -> dict:
+    """The client phase (module docstring, phase 11): an in-process
+    cluster whose clients run the jobs, then ``agent -dev`` in a process
+    of its own. ``nvidia_smi`` (a rehearsal's fake) replaces the card's
+    nvidia-smi in the clients' device plugin and in the device job.
+    Returns the phase's launches per kernel, the replays against the plain
+    versions and its numbers."""
+    import glob
+    import importlib
+    import io
+    import os
+    import shutil
+    import urllib.parse
+    import urllib.request
+
+    from nomad_tpu_torch.agent import DevAgent
+    from nomad_tpu_torch.api import ApiClient
+    from nomad_tpu_torch.api.http import HTTPServer
+    from nomad_tpu_torch.client import Client
+    from nomad_tpu_torch.client.devices import NvidiaDevicePlugin
+    from nomad_tpu_torch.jobspec import parse_job
+    from nomad_tpu_torch.structs.node_class import compute_class
+    from nomad_tpu_torch.tpu import batch_sched, kernel
+
+    cli = importlib.import_module("nomad_tpu_torch.cli.main")
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    smi = nvidia_smi or shutil.which("nvidia-smi")
+    if smi is None:
+        fail("client: no nvidia-smi on PATH")
+    smi = os.path.abspath(smi)
+    out: dict = {}
+    names = ("exact_scan", "wavefront", "runs", "windowed", "verify_rows", "used_bases",
+             "scatter_rows")
+    threads0 = set(threading.enumerate())
+    procs0 = descendants(os.getpid())
+    probe = ServerProbe(dev, replay_s=CLIENT_REPLAY_S)
+
+    def set_up(c) -> "Client":
+        c.max_restart_delay = 1.0
+        if nvidia_smi is not None:  # the rehearsal's fake card
+            c.device_manager.plugins = [NvidiaDevicePlugin(nvidia_smi=smi)]
+            c.device_manager.fingerprint_node(c.node)
+            compute_class(c.node)
+        return c
+
+    def cards_of(c) -> list:
+        return [g for g in c.node.node_resources.devices if (g.vendor, g.type) == ("nvidia", "gpu")]
+
+    with probe.installed():
+        agent = DevAgent(num_clients=size["clients"], server_config=dict(SERVER_CONFIG),
+                         num_workers=2, device=dev)
+        for c in agent.clients:
+            set_up(c)
+            if not cards_of(c):
+                fail(f"client: node {c.node.id} fingerprinted no nvidia/gpu device "
+                     f"(devices {c.node.node_resources.devices})")
+        card = cards_of(agent.clients[0])[0]
+        out["card"] = dict(name=card.name, ids=[d.id for d in card.instances],
+                           attributes={k: v.to_dict() for k, v in card.attributes.items()})
+        log(f"client: every client fingerprinted the card: {out['card']}")
+        http = HTTPServer(agent.server, port=0, agent=agent)
+        kernel.reset_launches()
+        try:
+            agent.start()
+            http.start()
+            api = ApiClient(address=http.address)
+            server = agent.server
+            t0 = time.perf_counter()
+            for n in sched_nodes(size["nodes"], 1):
+                server.node_register(n)
+            out["register_s"] = time.perf_counter() - t0
+            axis = len(server.state.planes.nodes)
+            want_axis = size["nodes"] + size["clients"]
+            log(f"client: {size['nodes']} mock nodes registered in {out['register_s']:.1f} s; "
+                f"the node axis holds {axis} rows")
+            if axis != want_axis:
+                fail(f"client: the node axis holds {axis} rows, not the fleet's {want_axis}")
+            out["axis"] = axis
+
+            def wait_allocs(job_id: str, count: int, done) -> list:
+                deadline = time.perf_counter() + CLIENT_WAIT_S
+                while True:
+                    allocs = server.state.allocs_by_job("default", job_id)
+                    if len(allocs) == (count or len(allocs)) and all(done(a) for a in allocs):
+                        return allocs
+                    if time.perf_counter() > deadline:
+                        fail(f"client: job {job_id}'s allocs not done in {CLIENT_WAIT_S:.0f} s: "
+                             f"{[(a.id[:8], a.client_status) for a in allocs]}")
+                    time.sleep(0.05)
+
+            def wait_eval(eval_id: str) -> None:
+                deadline = time.perf_counter() + CLIENT_WAIT_S
+                while True:
+                    ev = server.state.eval_by_id(eval_id)
+                    if ev is not None and ev.status == "complete":
+                        return
+                    if ev is not None and ev.status in ("failed", "cancelled"):
+                        fail(f"client: eval {eval_id} ended {ev.status}: {ev.status_description}")
+                    if time.perf_counter() > deadline:
+                        fail(f"client: eval {eval_id} not complete in {CLIENT_WAIT_S:.0f} s")
+                    time.sleep(0.01)
+
+            def logs(alloc_id: str, task: str) -> str:
+                q = urllib.parse.urlencode({"task": task, "type": "stdout"})
+                with urllib.request.urlopen(f"{http.address}/v1/client/fs/logs/{alloc_id}?{q}",
+                                            timeout=30) as r:
+                    return json.loads(r.read())["Data"]
+
+            def routed(before: dict) -> dict:
+                after = batch_sched.counters_snapshot()
+                return dict(
+                    modes={k: v - before["modes"].get(k, 0) for k, v in after["modes"].items()
+                           if v != before["modes"].get(k, 0)},
+                    fallback_reasons={k: v - before["fallback_reasons"].get(k, 0)
+                                      for k, v in after["fallback_reasons"].items()
+                                      if v != before["fallback_reasons"].get(k, 0)},
+                    kernel_evals=after["kernel_evals"] - before["kernel_evals"],
+                    drain_evals=after["drain_evals"] - before["drain_evals"])
+
+            # ---- 1. the raw_exec batch job, count 16 --------------------------
+            echo = parse_job(CLIENT_ECHO_HCL.format(count=size["count"])).to_dict()
+            modes0, launches0 = batch_sched.counters_snapshot(), dict(kernel.LAUNCHES)
+            calls0 = {k: len(probe.calls.get(k, ())) for k in names}
+            t0 = time.perf_counter()
+            eid = api.register_job(echo)["EvalID"]
+            wait_eval(eid)
+            out["echo_eval_s"] = time.perf_counter() - t0
+            out["echo_route"] = routed(modes0)
+            out["echo_launches"] = {k: kernel.LAUNCHES[k] - launches0[k] for k in names
+                                    if kernel.LAUNCHES[k] != launches0[k]}
+            out["echo_calls"] = {k: len(probe.calls.get(k, ())) - calls0[k] for k in names
+                                 if len(probe.calls.get(k, ())) != calls0[k]}
+            out["echo_kernel"] = {k: batch_sched.LAST_KERNEL_STATS.get(k)
+                                  for k in ("mode", "n_nodes", "n_padded_nodes", "n_allocs")}
+            log(f"client: the count-{size['count']} raw_exec eval took {out['echo_eval_s']:.3f} s; "
+                f"route {out['echo_route']}; kernel launches {out['echo_launches']}; wrapper "
+                f"calls {out['echo_calls']}; the planner's last eval {out['echo_kernel']}")
+            if not (out["echo_launches"] if on_card else out["echo_calls"]):
+                fail(f"client: the count-{size['count']} eval launched no kernel "
+                     f"(route {out['echo_route']})")
+            # the first eval's allocs (the reference's tpu-batch plans a
+            # batch eval with service semantics: each alloc that completes
+            # is placed again, ROADMAP C4; the job is stopped below)
+            deadline = time.perf_counter() + CLIENT_WAIT_S
+            while True:
+                allocs = [a for a in server.state.allocs_by_job("default", "echo")
+                          if a.eval_id == eid]
+                if len(allocs) == size["count"] and all(
+                        a.client_status in ("complete", "failed") for a in allocs):
+                    break
+                if time.perf_counter() > deadline:
+                    fail(f"client: the echo eval's allocs not done in {CLIENT_WAIT_S:.0f} s: "
+                         f"{[(a.id[:8], a.client_status) for a in allocs]}")
+                time.sleep(0.05)
+            out["echo_done_s"] = time.perf_counter() - t0
+            api.deregister_job("echo")
+            every = wait_allocs("echo", None, lambda a: a.client_terminal_status() or (
+                a.server_terminal_status() and a.client_status != "running"))
+            out["echo_replaced"] = len(every) - len(allocs)
+            bad = [(a.id, a.client_status, {n: (ts.state, ts.failed) for n, ts in a.task_states.items()})
+                   for a in allocs if a.client_status != "complete"
+                   or any(ts.failed for ts in a.task_states.values())]
+            if bad:
+                fail(f"client: echo allocs not complete with exit 0: {bad}")
+            exits = []
+            for a in allocs:
+                for ev in a.task_states["echo"].events:
+                    if ev["type"] == "Terminated":
+                        exits.append(ev["message"])
+            if sorted(exits) != ["Exit Code: 0"] * len(allocs):
+                fail(f"client: echo tasks' exits {exits}")
+            by_node: dict = {}
+            for a in allocs:
+                by_node[a.node_id] = by_node.get(a.node_id, 0) + 1
+                got = logs(a.id, "echo")
+                if got != a.id:
+                    fail(f"client: alloc {a.id}'s stdout read over HTTP is {got!r}")
+            client_ids = {c.node.id for c in agent.clients}
+            if set(by_node) - client_ids:
+                fail(f"client: echo allocs placed off the clients: {by_node}")
+            out["echo_by_node"] = by_node
+            log(f"client: {len(allocs)} allocs complete in {out['echo_done_s']:.2f} s after the "
+                f"register, by node {by_node}; every task exited 0 and every stdout read over "
+                f"HTTP equals its alloc id; {out['echo_replaced']} completed allocs placed again "
+                f"before the job stopped (ROADMAP C4)")
+
+            # ---- 2. the device job: handed the card -------------------------
+            gpu = parse_job(CLIENT_GPU_HCL.format(smi=smi)).to_dict()
+            modes0 = batch_sched.counters_snapshot()
+            t0 = time.perf_counter()
+            eid = api.register_job(gpu)["EvalID"]
+            wait_eval(eid)
+            out["gpu_route"] = routed(modes0)
+            (alloc,) = wait_allocs("gpu", 1, lambda a: a.client_status == "running")
+            reserved = alloc.allocated_resources.tasks["smi"].devices
+            if len(reserved) != 1 or len(reserved[0].device_ids) != 1:
+                fail(f"client: the device job reserved {reserved}")
+            dev_id = reserved[0].device_ids[0]
+            host = next(c for c in agent.clients if c.node.id == alloc.node_id)
+            if dev_id not in [d.id for g in cards_of(host) for d in g.instances]:
+                fail(f"client: reserved {dev_id}, not a card its node {alloc.node_id} fingerprinted")
+            deadline = time.perf_counter() + CLIENT_WAIT_S
+            while card.name not in (text := logs(alloc.id, "smi")):
+                if time.perf_counter() > deadline:
+                    fail(f"client: the device task's log does not name {card.name}: {text!r}")
+                time.sleep(0.05)
+            out["gpu_s"] = time.perf_counter() - t0
+            lines = text.splitlines()
+            if lines[0] != f"CUDA_VISIBLE_DEVICES={dev_id}":
+                fail(f"client: the device task's env is {lines[0]!r}, not its reserved {dev_id}")
+            if on_card and torch.cuda.get_device_name(0) not in text:
+                fail(f"client: the device task's nvidia-smi -L does not name "
+                     f"{torch.cuda.get_device_name(0)}: {text!r}")
+            runner = host.alloc_runners[alloc.id].task_runners["smi"]
+            task_pid = runner.handle.pid
+            out["gpu"] = dict(node=alloc.node_id, reserved=dev_id, log=text.strip())
+            log(f"client: the device job's eval route {out['gpu_route']}; placed on "
+                f"{alloc.node_id[:8]} with {dev_id}; its log: {text.strip()!r}")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["-address", http.address, "job", "stop", "gpu"])
+            if rc != 0:
+                fail(f"client: job stop gpu exited {rc}: {buf.getvalue()}")
+            wait_allocs("gpu", 1, lambda a: a.client_status in ("complete", "failed"))
+            deadline = time.perf_counter() + 30.0
+            while pid_alive(task_pid):
+                if time.perf_counter() > deadline:
+                    fail(f"client: the device task (pid {task_pid}) survived job stop")
+                time.sleep(0.05)
+            log(f"client: job stop gpu: the task (pid {task_pid}) ended")
+
+            # ---- 3. a client restarts on its data dir ------------------------
+            i = max(range(len(agent.clients)),
+                    key=lambda j: by_node.get(agent.clients[j].node.id, 0))
+            old = agent.clients[i]
+            done = [a.id for a in allocs if a.node_id == old.node.id]
+            files = {p: (os.stat(p).st_size, os.stat(p).st_mtime_ns)
+                     for aid in done
+                     for p in glob.glob(os.path.join(old.data_dir, "allocs", aid, "**", "*.std*"),
+                                        recursive=True)}
+            t0 = time.perf_counter()
+            old.stop(destroy_allocs=False)
+            fresh = set_up(Client(server, data_dir=old.data_dir))
+            agent.clients[i] = fresh
+            fresh.start()
+            out["restart_s"] = time.perf_counter() - t0
+            if fresh.node.id != old.node.id:
+                fail(f"client: the restarted client is node {fresh.node.id}, not {old.node.id}")
+            time.sleep(2.0)  # the alloc watch's polls see the node's allocs
+            rerun = [aid for aid in done if aid in fresh.alloc_runners]
+            changed = [p for p, st in files.items()
+                       if (os.stat(p).st_size, os.stat(p).st_mtime_ns) != st]
+            if rerun or changed:
+                fail(f"client: the restarted client reran completed allocs {rerun} "
+                     f"(log files rewritten {changed})")
+            for aid in done:
+                if logs(aid, "echo") != aid:
+                    fail(f"client: alloc {aid}'s log after the restart differs")
+            out["restart"] = dict(node=fresh.node.id, completed=len(done), log_files=len(files))
+            log(f"client: client {i} restarted on its data dir in {out['restart_s']:.2f} s as "
+                f"the same node {fresh.node.id[:8]}; its {len(done)} completed allocs not rerun")
+        finally:
+            http.stop()
+            agent.stop()
+        launches = path_launches(names)
+    event_ms = probe.event_ms()
+    # every thread of the agent, its clients and the HTTP server has ended,
+    # and no task process is left
+    t = time.perf_counter()
+    while True:
+        left = [th for th in threading.enumerate() if th not in threads0 and th.is_alive()
+                and th.name != "eval-broker-timers"]
+        if not left or time.perf_counter() - t > 60.0:
+            break
+        time.sleep(0.05)
+    if left:
+        fail(f"client: threads alive 60 s after the agent stopped: {[th.name for th in left]}")
+    procs = descendants(os.getpid()) - procs0
+    if procs:
+        fail(f"client: processes left after the agent stopped: {sorted(procs)}")
+    shutil.rmtree(agent._tmpdir, ignore_errors=True)
+    log(f"client phase launches: {launches}")
+    held = probe.check()
+    for name, h in sorted(held.items()):
+        log(f"client: {name} held against its plain version on {h['replayed']} of its "
+            f"{h['calls']} calls ({h['lanes_replayed']} lanes replayed, {h['lanes_left']} not) "
+            f"in {h['seconds']:.1f} s, max abs err {h['max_abs_err']}")
+        if h["max_abs_err"]:
+            fail(f"client: {name} differs from its plain version (max abs err "
+                 f"{h['max_abs_err']})")
+        if not h["replayed"]:
+            fail(f"client: no call of {name} held against its plain version")
+    for name, ms in sorted(event_ms.items()):
+        log(f"client: {name} by events, ms a call (least {min(ms):.4f}, median "
+            f"{float(np.median(ms)):.4f}, {len(ms)} calls)")
+    out["in_process_s"] = time.perf_counter() - t_phase
+
+    # ---- 4. agent -dev, the normal entry point -------------------------------
+    out["dev"] = agent_dev_run(dev.type)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"client phase: {out['phase_s']:.1f} s")
+    log(f"client timings: {json.dumps(dict(out, held=held, event_ms=event_ms, launches=launches))}")
+    return dict(launches=launches, event_ms=event_ms, held=held, timings=out)
+
+
+def agent_dev_run(device: str) -> dict:
+    """``python -m nomad_tpu_torch agent -dev -device <device>`` in a process
+    of its own: ``job run`` of a raw_exec jobspec and ``alloc logs`` through
+    the CLI, a service task running, then SIGTERM: exit 0 within 30 s, and
+    no process left under the agent."""
+    import importlib
+    import io
+    import os
+    import signal
+    import tempfile
+
+    from nomad_tpu_torch.api import ApiClient
+
+    cli = importlib.import_module("nomad_tpu_torch.cli.main")
+    out: dict = {}
+    t_spawn = time.perf_counter()
+    # the dev mode's start line is printed unflushed
+    proc, start, reader = spawn_agent(["-dev", "-device", device, "-port", "0"],
+                                      r"agent started: (\S+) ",
+                                      env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    try:
+        http = start.group(1)
+        out["start_s"] = time.perf_counter() - t_spawn
+        api = ApiClient(address=http)
+
+        def run_cli(*argv) -> tuple:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["-address", http, *argv])
+            return rc, buf.getvalue()
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dev_") as tmp:
+            for name, text in (("hello.nomad", CLIENT_DEV_HCL), ("sleeper.nomad", CLIENT_SLEEP_HCL)):
+                with open(os.path.join(tmp, name), "w") as f:
+                    f.write(text)
+            t0 = time.perf_counter()
+            rc, run_out = run_cli("job", "run", os.path.join(tmp, "hello.nomad"))
+            if rc != 0 or "Evaluation status: complete" not in run_out:
+                fail(f"agent -dev: job run exited {rc}: {run_out}")
+            deadline = time.perf_counter() + CLIENT_WAIT_S
+            while True:
+                allocs = api.job_allocations("hello")
+                if allocs and all(a["ClientStatus"] in ("complete", "failed") for a in allocs):
+                    break
+                if time.perf_counter() > deadline:
+                    fail(f"agent -dev: the hello alloc not done in {CLIENT_WAIT_S:.0f} s: {allocs}")
+                time.sleep(0.05)
+            out["job_s"] = time.perf_counter() - t0
+            if [a["ClientStatus"] for a in allocs] != ["complete"]:
+                fail(f"agent -dev: the hello allocs ended {allocs}")
+            rc, logs_out = run_cli("alloc", "logs", allocs[0]["ID"], "hello")
+            if rc != 0 or logs_out != CLIENT_DEV_MARKER:
+                fail(f"agent -dev: alloc logs exited {rc}: {logs_out!r}")
+            rc, run_out = run_cli("job", "run", os.path.join(tmp, "sleeper.nomad"))
+            if rc != 0 or "Evaluation status: complete" not in run_out:
+                fail(f"agent -dev: job run sleeper exited {rc}: {run_out}")
+            deadline = time.perf_counter() + CLIENT_WAIT_S
+            while not any(a["ClientStatus"] == "running" for a in api.job_allocations("sleeper")):
+                if time.perf_counter() > deadline:
+                    fail("agent -dev: the sleeper task not running")
+                time.sleep(0.05)
+        tasks = descendants(proc.pid)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=AGENT_STOP_S)
+        except subprocess.TimeoutExpired:
+            fail(f"agent -dev: still running {AGENT_STOP_S:.0f} s after SIGTERM")
+        out["stop_s"] = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"agent -dev: exited {rc} after SIGTERM")
+        left = [p for p in tasks if pid_alive(p)]
+        if left:
+            fail(f"agent -dev: processes left after it exited: {left}")
+        out["processes_under_agent"] = len(tasks)
+        log(f"agent -dev: started in {out['start_s']:.1f} s; job run and alloc logs in "
+            f"{out['job_s']:.2f} s ({CLIENT_DEV_MARKER!r}); SIGTERM with {len(tasks)} processes "
+            f"under it (the sleeper task among them): exit 0 in {out['stop_s']:.2f} s, none left")
+        return out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=5)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -3568,6 +4128,18 @@ def main() -> int:
         if name in fed["held"]:
             row["federation_held"] = fed["held"][name]
             row["max_abs_err"] = max(row["max_abs_err"], fed["held"][name]["max_abs_err"])
+    phase_done("federation")
+    # ---- 11. the client -------------------------------------------------------
+    client = client_phase(dev)
+    for row in kernels:
+        name = row["name"]
+        if client["launches"].get(name):
+            row["paths"]["client"] = client["launches"][name]
+            row["launches"] = sum(row["paths"].values())
+            row["client_event_ms"] = client["event_ms"].get(name, [])
+        if name in client["held"]:
+            row["client_held"] = client["held"][name]
+            row["max_abs_err"] = max(row["max_abs_err"], client["held"][name]["max_abs_err"])
     # (path_launches added the storms' standalone primitive launches)
     # K1-K4's own kernels are not launched on the paths: the primitives run
     # inside every launch of the kernels that inline them
@@ -3577,7 +4149,7 @@ def main() -> int:
         row["inlined_launches"] = sum(launched[k] for k in row["inlined_in"])
         row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
     kernels = primitives + kernels
-    phase_done("federation")
+    phase_done("client")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,22 +8,20 @@ node agent that talks to servers over RPC via ServerProxy.
 
 The port's copy of ``nomad_tpu/agent.py``. ``DevAgent`` and
 ``ServerAgent`` take ``device`` and hand it to their ``Server``: CUDA
-unless the caller passes ``"cpu"``, and without a card they raise. The
-node client is not ported (ROADMAP queue A, the client and its drivers):
-``DevAgent`` runs with ``num_clients=0``, and asking for clients, a
-``ClientAgent`` or a ``plugin`` stanza raises naming that item.
+unless the caller passes ``"cpu"``, and without a card they raise before
+any client is built. The clients hold no tensor.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import tempfile
 from typing import Optional
 
 from . import resolve_device
+from .client import Client
 from .core import Server
-from .core.server import _not_ported
-
-_CLIENT_ITEM = "the client and its drivers"
 
 
 class DevAgent:
@@ -36,13 +34,16 @@ class DevAgent:
         num_workers: int = 2,
         device=None,
     ):
-        if num_clients:
-            raise _not_ported(f"DevAgent with {num_clients} in-process client(s)", _CLIENT_ITEM)
         config = {"heartbeat_ttl": 3.0}
         config.update(server_config or {})
         self.server = Server(config, device=device)
         self.num_workers = num_workers
-        self.clients: list = []
+        self.clients: list[Client] = []
+        self._tmpdir = tempfile.mkdtemp(prefix="nomad_tpu_dev_")
+        for i in range(num_clients):
+            self.clients.append(
+                Client(self.server, data_dir=f"{self._tmpdir}/client{i}")
+            )
 
     def start(self):
         self.server.start(num_workers=self.num_workers)
@@ -75,10 +76,50 @@ def apply_client_config(agent: "DevAgent", config: dict) -> None:
     if vault_cfg.get("address"):
         for client in agent.clients:
             client.vault_config = dict(vault_cfg)
-    # plugin "name" { ... } stanzas load driver and device plugins into
-    # the clients, which the port does not have
-    if config.get("plugin"):
-        raise _not_ported("the plugin stanza", _CLIENT_ITEM)
+    # plugin "name" { type = "driver"|"device", spec = "pkg.mod:factory",
+    # config {...} } — external subprocess plugins (ref command/agent
+    # plugin stanza + helper/pluginutils/loader; device.proto / driver.proto)
+    plugins = config.get("plugin") or {}
+    if plugins:
+        from .plugins.external import ExternalDevicePlugin, ExternalDriver
+        from .structs.node_class import compute_class as _cc
+
+        for pname, body in plugins.items():
+            body = body or {}
+            spec = str(body.get("spec", ""))
+            if not spec:
+                logging.getLogger("nomad_tpu.agent").warning(
+                    "plugin %r has no spec; skipped", pname
+                )
+                continue
+            kind = str(body.get("type", "driver"))
+            if kind not in ("driver", "device"):
+                logging.getLogger("nomad_tpu.agent").warning(
+                    "plugin %r has unknown type %r (want driver|device); "
+                    "skipped", pname, kind
+                )
+                continue
+            pconfig = body.get("config") or {}
+            for client in agent.clients:
+                if kind == "device":
+                    plugin = ExternalDevicePlugin(
+                        spec, name=pname, config=pconfig
+                    )
+                    client.device_manager.plugins.append(plugin)
+                    # the node was fingerprinted at construction; merge the
+                    # new plugin's device groups before registration
+                    client.device_manager.fingerprint_node(client.node)
+                    _cc(client.node)
+                else:
+                    client.drivers[pname] = ExternalDriver(
+                        spec, name=pname, config=pconfig
+                    )
+                    # re-fingerprint so node.drivers advertises the new
+                    # driver at registration (feasible.py filters nodes
+                    # missing a task's driver); the device branch merges
+                    # symmetrically above
+                    client._fingerprint_drivers(client.node)
+                    _cc(client.node)
     if not volumes and not meta:
         return
     from .structs.model import ClientHostVolumeConfig
@@ -215,7 +256,60 @@ class ServerAgent:
 
 class ClientAgent:
     """A node agent connected to servers over RPC (ref command/agent client
-    mode): the node client is not in the port yet."""
+    mode; server list managed like client/servers/manager.go)."""
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("the client agent", _CLIENT_ITEM)
+    def __init__(
+        self,
+        servers: list[str],
+        data_dir: Optional[str] = None,
+        node=None,
+        drivers: Optional[dict] = None,
+        bind: str = "127.0.0.1",
+        advertise: Optional[str] = None,
+        tls: Optional[dict] = None,
+    ):
+        from .client.fs import register_alloc_rpc, register_fs_rpc
+        from .rpc import ConnPool, RpcServer, ServerProxy
+        from .tlsutil import contexts_from_config
+
+        server_ctx, client_ctx = contexts_from_config(tls or {})
+        pool = ConnPool(tls_context=client_ctx) if client_ctx else None
+        self.proxy = ServerProxy(servers, pool=pool)
+        self.client = Client(
+            self.proxy,
+            data_dir=data_dir or tempfile.mkdtemp(prefix="nomad_tpu_client_"),
+            node=node,
+            drivers=drivers,
+        )
+        # Connect sidecars ride the same cluster identity: with TLS
+        # configured, sidecar↔sidecar hops are mutually authenticated
+        # (the Consul-CA role the reference delegates)
+        self.client.tls_server_context = server_ctx
+        self.client.tls_client_context = client_ctx
+        # the client's own RPC listener: servers/agents forward alloc
+        # fs/logs/exec here (the reverse-streaming path of
+        # client_fs_endpoint.go, served as plain RPC). ``bind`` must be a
+        # reachable interface (and ``advertise`` the reachable address) in
+        # multi-host topologies.
+        self.rpc = RpcServer(bind, 0, tls_context=server_ctx)
+        register_fs_rpc(self.rpc, self.client)
+        register_alloc_rpc(self.rpc, self.client)
+        self.client.node.attributes["unique.advertise.client_rpc"] = (
+            advertise or self.rpc.address
+        )
+        from .structs.node_class import compute_class
+
+        compute_class(self.client.node)
+
+    @property
+    def node(self):
+        return self.client.node
+
+    def start(self):
+        self.rpc.start()
+        self.client.start()
+
+    def stop(self):
+        self.client.stop()
+        self.rpc.stop()
+        self.proxy.pool.close()

@@ -4,9 +4,8 @@ Blocking queries are supported via ?index=N&wait=DUR on list endpoints, the
 same long-poll contract the reference exposes. JSON in/out; the model's
 canonical dict encoding is the wire format.
 
-The port's copy of ``nomad_tpu/api/http.py``. Routes that reach a module
-the port does not have raise an error naming its ROADMAP item: the
-client's alloc filesystem, logs and exec (the client and its drivers).
+The port's copy of ``nomad_tpu/api/http.py``, with the port's kernel
+launch counts and warm-up count added to ``/v1/metrics``.
 """
 
 from __future__ import annotations
@@ -21,7 +20,6 @@ from typing import Optional
 from urllib.parse import parse_qs, unquote, urlparse
 
 from .. import metrics
-from ..core.server import _not_ported
 from ..core.overload import (
     DeadlineExceeded,
     ErrOverloaded,
@@ -1951,29 +1949,89 @@ class HTTPServer:
 
     @route("GET", r"/v1/client/fs/ls/(?P<alloc_id>[^/]+)", acl="ns:read-fs")
     def fs_ls(self, m, query, body):
-        raise _not_ported("the client's alloc filesystem, logs and exec",
-                          "the client and its drivers")
+        from ..client import fs
+
+        self._check_alloc_ns(query, m["alloc_id"], "read-fs")
+        path = query.get("path", "/")
+        try:
+            base = self._alloc_dir(m["alloc_id"])
+        except KeyError:
+            return self._forward_client_fs(
+                m["alloc_id"], "ClientFS.List", {"path": path}
+            ), None
+        return fs.list_dir(base, path), None
 
     @route("GET", r"/v1/client/fs/cat/(?P<alloc_id>[^/]+)", acl="ns:read-fs")
     def fs_cat(self, m, query, body):
-        raise _not_ported("the client's alloc filesystem, logs and exec",
-                          "the client and its drivers")
+        from ..client import fs
+
+        self._check_alloc_ns(query, m["alloc_id"], "read-fs")
+        params = {
+            "path": query.get("path", "/"),
+            "offset": int(query.get("offset", 0)),
+            "limit": int(query.get("limit", 1 << 20)),
+        }
+        try:
+            base = self._alloc_dir(m["alloc_id"])
+        except KeyError:
+            return self._forward_client_fs(
+                m["alloc_id"], "ClientFS.Cat", params
+            ), None
+        return fs.cat(base, **params), None
 
     @route("GET", r"/v1/client/fs/logs/(?P<alloc_id>[^/]+)", acl="ns:read-logs")
     def fs_logs(self, m, query, body):
         """Task log window: ?task=&type=stdout|stderr&offset=&origin=
         (the non-streaming core of fs_endpoint.go Logs; clients follow by
         polling with the returned offset)."""
-        raise _not_ported("the client's alloc filesystem, logs and exec",
-                          "the client and its drivers")
+        from ..client import fs
+
+        task = query.get("task", "")
+        if not task:
+            raise ValueError("task is required")
+        self._check_alloc_ns(query, m["alloc_id"], "read-logs")
+        kind = query.get("type", "stdout")
+        offset = int(query.get("offset", 0))
+        origin = query.get("origin", "start")
+        limit = int(query.get("limit", 1 << 20))
+        try:
+            base = self._alloc_dir(m["alloc_id"])
+        except KeyError:
+            return self._forward_client_fs(
+                m["alloc_id"],
+                "ClientFS.Logs",
+                {
+                    "task": task, "type": kind, "offset": offset,
+                    "origin": origin, "limit": limit,
+                },
+            ), None
+        return fs.logs(
+            base, task, kind, offset=offset, origin=origin, limit=limit
+        ), None
 
     @route("PUT", r"/v1/client/exec/(?P<alloc_id>[^/]+)", acl="ns:alloc-exec")
     def alloc_exec(self, m, query, body):
         """One-shot command in the task's working directory
         (ref alloc exec; the reference's interactive streaming session is
         served here as a run-to-completion exec with captured output)."""
-        raise _not_ported("the client's alloc filesystem, logs and exec",
-                          "the client and its drivers")
+        from ..client import fs
+
+        body = body or {}
+        task = body.get("Task", "")
+        cmd = body.get("Cmd") or []
+        if not task or not cmd:
+            raise ValueError("Task and Cmd are required")
+        self._check_alloc_ns(query, m["alloc_id"], "alloc-exec")
+        timeout = float(body.get("Timeout", 30.0))
+        try:
+            base = self._alloc_dir(m["alloc_id"])
+        except KeyError:
+            return self._forward_client_fs(
+                m["alloc_id"],
+                "ClientFS.Exec",
+                {"task": task, "cmd": cmd, "timeout": timeout},
+            ), None
+        return fs.exec_in(base, task, cmd, timeout=timeout), None
 
     def _serve_exec_ws(self, handler, alloc_id: str, query: dict):
         """Interactive exec over a websocket (ref command/agent/
@@ -1983,8 +2041,118 @@ class HTTPServer:
         {"data":b64}} and {"exited":true,"result":{"exit_code":N}} down.
         Local allocs bridge straight to the driver; remote allocs ride the
         server's duplex RPC forward to the hosting node."""
-        raise _not_ported("the client's alloc filesystem, logs and exec",
-                          "the client and its drivers")
+        import base64
+        import threading as threading_mod
+
+        from ..rpc.mux import StreamClosed, StreamError, pipe_streams
+        from . import ws as ws_mod
+
+        task = query.get("task", "")
+        try:
+            cmd = json.loads(query.get("command", "[]"))
+        except json.JSONDecodeError:
+            raise ValueError("command must be a JSON array")
+        if not isinstance(cmd, list) or not cmd:
+            raise ValueError("command is required")
+        tty = str(query.get("tty", "false")).lower() in ("true", "1")
+        self._check_alloc_ns(query, alloc_id, "alloc-exec")
+
+        # resolve the exec source BEFORE upgrading, so failures are
+        # ordinary HTTP errors rather than a dead websocket
+        client = self._local_client_with_alloc(alloc_id)
+        if client is not None:
+            from ..client.execstream import bridge_exec
+
+            proc = client.exec_session(alloc_id, task, cmd, tty=tty)
+            stream, remote = pipe_streams()
+            threading_mod.Thread(
+                target=bridge_exec, args=(proc, remote), daemon=True,
+                name="exec-ws-bridge",
+            ).start()
+        else:
+            stream = self.server.open_client_exec(
+                alloc_id, {"task": task, "cmd": cmd, "tty": tty}
+            )
+
+        sock = ws_mod.server_handshake(handler)
+
+        def down():
+            try:
+                for frame in stream:
+                    if frame.get("stdout"):
+                        ws_mod.send_message(sock, json.dumps({
+                            "stdout": {
+                                "data": base64.b64encode(
+                                    frame["stdout"]
+                                ).decode()
+                            }
+                        }))
+                    if frame.get("stderr"):
+                        ws_mod.send_message(sock, json.dumps({
+                            "stderr": {
+                                "data": base64.b64encode(
+                                    frame["stderr"]
+                                ).decode()
+                            }
+                        }))
+                    if "exit" in frame:
+                        ws_mod.send_message(sock, json.dumps({
+                            "exited": True,
+                            "result": {"exit_code": frame["exit"]},
+                        }))
+            except StreamError as e:
+                try:
+                    ws_mod.send_message(
+                        sock, json.dumps({"error": str(e)})
+                    )
+                except OSError:
+                    pass
+            except OSError:
+                pass
+            finally:
+                ws_mod.send_close(sock)
+
+        dt = threading_mod.Thread(target=down, daemon=True, name="exec-ws-down")
+        dt.start()
+        try:
+            while True:
+                try:
+                    _, payload = ws_mod.read_message(sock)
+                except (ws_mod.WsClosed, OSError):
+                    break
+                try:
+                    obj = json.loads(payload.decode())
+                except (json.JSONDecodeError, UnicodeDecodeError):
+                    continue
+                try:
+                    stdin = obj.get("stdin") or {}
+                    if stdin.get("data"):
+                        stream.send(
+                            {"stdin": base64.b64decode(stdin["data"])}
+                        )
+                    if stdin.get("close"):
+                        stream.send({"eof": True})
+                    size = obj.get("tty_size") or {}
+                    if size:
+                        stream.send({
+                            "resize": [
+                                int(size.get("height", 24)),
+                                int(size.get("width", 80)),
+                            ]
+                        })
+                except StreamClosed:
+                    break
+        finally:
+            # the websocket is gone (or the session ended): tear the exec
+            # down fully — a half-close would leave an orphaned process
+            # pumping output nowhere
+            if hasattr(stream, "abort"):
+                stream.abort()  # local pipe: kills the process via bridge
+            else:
+                stream.close(
+                    {"code": "connection", "message": "websocket closed"}
+                )
+            dt.join(timeout=5.0)
 
     # -- alloc lifecycle (ref alloc_endpoint.go Stop +
     # client_alloc_endpoint.go Restart/Signal) ---------------------------

@@ -5,10 +5,8 @@ family per reference command file).
 The port's copy of ``nomad_tpu/cli/main.py``. ``agent`` takes one flag the
 JAX CLI lacks, ``-device`` (default ``cuda``): the server's device tier
 runs there, and without a card the agent raises unless given ``-device
-cpu``. What reaches a module the port does not have raises naming its
-ROADMAP item: in-process or networked clients and a ``consul`` stanza
-(the client and its drivers); the client's fs, logs and exec commands get
-that error back from the agent's HTTP routes.
+cpu``. An agent installs its SIGINT/SIGTERM handlers before it prints its
+start line.
 """
 
 from __future__ import annotations
@@ -83,16 +81,6 @@ def _wait_for_signals(cleanup, stop):
     return 0
 
 
-def _consul_sync(config: dict):
-    """The consul{} stanza's catalog sync runs in the client package,
-    which the port does not have: a configured stanza raises."""
-    if config.get("consul"):
-        from ..core.server import _not_ported
-
-        raise _not_ported("the consul stanza", "the client and its drivers")
-    return None
-
-
 def _run_networked_server(args, config: dict):
     """One real cluster member per process (ref command/agent server mode;
     the forked-binary e2e harness spawns three of these)."""
@@ -102,7 +90,6 @@ def _run_networked_server(args, config: dict):
 
     server_stanza = config.get("server", {}) or {}
     name = config.get("name", "server-1")
-    consul_sync = _consul_sync(config)  # before anything starts
     server_cfg = server_config_from_agent(config)
     agent = ServerAgent(
         name,
@@ -122,9 +109,11 @@ def _run_networked_server(args, config: dict):
     )
     http = HTTPServer(agent.server, host=args.bind, port=port)
     http.start()
+    from ..client.consul_sync import syncer_from_config
     from ..metrics import configure_telemetry
 
     telemetry = configure_telemetry(config)
+    consul_sync = syncer_from_config(config, agent.server.state.snapshot)
     stop = _stop_on_signals()
     print(
         f"==> nomad-tpu server {name} started: http {http.address} "
@@ -193,7 +182,6 @@ def cmd_agent(args):
 
     config = load_agent_config(config_paths)
     apply_log_level(config)
-    consul_sync = _consul_sync(config)  # before anything starts
 
     # networked modes (the forked-binary topology of testutil/server.go:
     # each `nomad agent` process is one real cluster member):
@@ -242,9 +230,11 @@ def cmd_agent(args):
     )
     http = HTTPServer(agent.server, host=args.bind, port=port, agent=agent)
     http.start()
+    from ..client.consul_sync import syncer_from_config
     from ..metrics import configure_telemetry
 
     telemetry = configure_telemetry(config)
+    consul_sync = syncer_from_config(config, agent.server.state.snapshot)
     stop = _stop_on_signals()
 
     def _reload(*_a):

@@ -1,8 +1,12 @@
 """Native helpers: the C batch-materialization module ``_fastobj.c``,
 compiled on demand with the system C compiler and cached next to the
 source (or in NOMAD_TPU_NATIVE_DIR when the package directory is
-read-only). A host extension, not a device kernel: without a compiler
-its callers take their pure-Python loops."""
+read-only), and the exec driver's namespace shepherd ``nsexec.cc``,
+compiled on demand with the system C++ compiler into
+``build/nomad_tpu_torch/native/`` at the repository root (or
+NOMAD_TPU_NATIVE_DIR). Host code, not device kernels: without a compiler
+``fastobj`` callers take their pure-Python loops and the exec driver
+reports itself unhealthy."""
 
 from __future__ import annotations
 
@@ -25,6 +29,46 @@ def _build_dir() -> str:
         os.makedirs(d, exist_ok=True)
         return d
     return _HERE
+
+
+def _nsexec_dir() -> str:
+    d = os.environ.get("NOMAD_TPU_NATIVE_DIR") or os.path.join(
+        os.path.dirname(os.path.dirname(_HERE)), "build", "nomad_tpu_torch", "native"
+    )
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def nsexec_path(rebuild: bool = False) -> str:
+    """Path to the compiled nsexec binary, building it if stale or absent."""
+    src = os.path.join(_HERE, "nsexec.cc")
+    out = os.path.join(_nsexec_dir(), "nsexec")
+    with _BUILD_LOCK:
+        if (
+            not rebuild
+            and os.path.exists(out)
+            and os.path.getmtime(out) >= os.path.getmtime(src)
+        ):
+            return out
+        cxx = shutil.which("g++") or shutil.which("c++") or shutil.which("clang++")
+        if cxx is None:
+            raise NativeBuildError("no C++ compiler on PATH")
+        # per-process tmp name, as for _fastobj below
+        tmp = f"{out}.tmp.{os.getpid()}"
+        proc = subprocess.run(
+            [cxx, "-O2", "-static", "-o", tmp, src],
+            capture_output=True,
+            text=True,
+        )
+        if proc.returncode != 0:
+            # retry without -static (glibc-only toolchains)
+            proc = subprocess.run(
+                [cxx, "-O2", "-o", tmp, src], capture_output=True, text=True
+            )
+        if proc.returncode != 0:
+            raise NativeBuildError(f"nsexec build failed:\n{proc.stderr}")
+        os.replace(tmp, out)
+        return out
 
 
 _FASTOBJ = None
@@ -95,3 +139,15 @@ def _build_fastobj():
     mod = importlib.util.module_from_spec(spec)
     loader.exec_module(mod)
     return mod
+
+
+def isolation_available() -> bool:
+    """Whether namespace isolation works here (nsexec --check)."""
+    try:
+        binary = nsexec_path()
+    except NativeBuildError:
+        return False
+    try:
+        return subprocess.run([binary, "--check"], timeout=10).returncode == 0
+    except Exception:
+        return False

@@ -322,7 +322,13 @@ class Raft:
         while True:
             with self._lock:
                 role = self.role
-            if role == SHUTDOWN:
+                # a vote or append request that lands between shutdown()
+                # and this look sets the role back to follower; without the
+                # flag the loop would stand for election and, elected,
+                # re-enter _run_leader (which returns at once on the flag)
+                # forever, a core's worth of CPU after the server stopped
+                stopped = self._shutdown
+            if role == SHUTDOWN or stopped:
                 return
             if role == FOLLOWER:
                 self._run_follower()

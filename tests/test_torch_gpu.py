@@ -1795,3 +1795,106 @@ def test_a_restarted_server_rebuilds_device_planes_equal_to_a_cold_build(cuda_de
     finally:
         agent.stop()
     assert _threads_left(threads0) == []
+
+
+@pytest.mark.gpu
+def test_the_card_plugin_fingerprints_the_card(cuda_device):
+    """The client's default device plugin finds this machine's card: one
+    nvidia/gpu group named as torch names the card, its instance ids the
+    cards' UUIDs, a driver version, and the node's count attribute."""
+    import shutil
+    import subprocess
+
+    from nomad_tpu_torch.client.devices import DeviceManager, NvidiaDevicePlugin
+    from nomad_tpu_torch.structs.model import Node, NodeResources
+
+    manager = DeviceManager()
+    assert [type(p) for p in manager.plugins] == [NvidiaDevicePlugin]
+    node = Node(node_resources=NodeResources())
+    assert manager.fingerprint_node(node) >= 1
+    (group,) = [g for g in node.node_resources.devices if g.name == torch.cuda.get_device_name(0)]
+    assert (group.vendor, group.type) == ("nvidia", "gpu")
+    listed = subprocess.run([shutil.which("nvidia-smi"), "-L"], capture_output=True, text=True,
+                            check=True).stdout
+    ids = [d.id for d in group.instances]
+    assert ids and all(i.startswith("GPU-") and i in listed for i in ids)
+    assert group.attributes["driver_version"].string_val not in ("", "unknown")
+    total = sum(len(g.instances) for g in node.node_resources.devices)
+    assert node.attributes["device.nvidia.gpu.count"] == str(total) == str(torch.cuda.device_count())
+    assert manager.reserve_env(
+        [type("A", (), dict(vendor="nvidia", type="gpu", name=group.name, device_ids=ids[:1]))]
+    ) == {"CUDA_VISIBLE_DEVICES": ids[0]}
+
+
+@pytest.mark.gpu
+def test_a_device_job_is_handed_the_card(cuda_device):
+    """A raw_exec job asking for ``nvidia/gpu`` on a client on the card: its
+    task's CUDA_VISIBLE_DEVICES holds the reserved card's UUID, nvidia-smi
+    -L in the task names the card, and a torch child process under that env
+    sees one card of that name."""
+    import os
+    import shutil
+    import sys
+    import tempfile
+    import time
+
+    from nomad_tpu_torch.client import Client
+    from nomad_tpu_torch.core.server import Server
+    from nomad_tpu_torch.jobspec import parse_job
+
+    smi = shutil.which("nvidia-smi")
+    probe = ("import torch; print(torch.cuda.device_count(), torch.cuda.get_device_name(0))")
+    hcl = f'''job "gpu" {{
+  datacenters = ["dc1"]
+  type = "batch"
+  group "gpu" {{
+    task "smi" {{
+      driver = "raw_exec"
+      config {{
+        command = "/bin/sh"
+        args = ["-c", "echo $CUDA_VISIBLE_DEVICES; {smi} -L; {sys.executable} -c '{probe}'"]
+      }}
+      resources {{
+        cpu = 20
+        memory = 64
+        device "nvidia/gpu" {{
+          count = 1
+        }}
+      }}
+    }}
+  }}
+}}
+'''
+    before = set(threading.enumerate())
+    server = Server({"seed": 1, "heartbeat_ttl": 60.0}, device=cuda_device)
+    data_dir = tempfile.mkdtemp(prefix="gpu_client_")
+    client = Client(server, data_dir=data_dir)
+    try:
+        server.start(num_workers=1)
+        client.start()
+        server.job_register(parse_job(hcl))
+        deadline = time.monotonic() + 120
+        while True:
+            allocs = server.state.allocs_by_job("default", "gpu")
+            if allocs and allocs[0].client_status in ("complete", "failed"):
+                break
+            assert time.monotonic() < deadline, [a.client_status for a in allocs]
+            time.sleep(0.1)
+        (alloc,) = allocs
+        assert alloc.client_status == "complete"
+        (reserved,) = alloc.allocated_resources.tasks["smi"].devices
+        (card_id,) = reserved.device_ids
+        with open(os.path.join(data_dir, "allocs", alloc.id, "smi", "logs", "smi.stdout.0")) as f:
+            lines = f.read().splitlines()
+        assert lines[0] == card_id
+        assert card_id in lines[1] and torch.cuda.get_device_name(0) in lines[1]
+        assert lines[-1] == f"1 {torch.cuda.get_device_name(0)}"
+    finally:
+        client.stop()
+        server.stop()
+    deadline = time.monotonic() + 10
+    while [t for t in set(threading.enumerate()) - before
+           if t.is_alive() and t.name != "eval-broker-timers"] and time.monotonic() < deadline:
+        time.sleep(0.05)
+    assert not [t.name for t in set(threading.enumerate()) - before
+                if t.is_alive() and t.name != "eval-broker-timers"]

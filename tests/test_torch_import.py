@@ -136,6 +136,31 @@ MODULES = [
     "nomad_tpu_torch.gossip.keyring",
     "nomad_tpu_torch.gossip.swim",
     "nomad_tpu_torch.loadgen.federation",
+    "nomad_tpu_torch.client",
+    "nomad_tpu_torch.client.state",
+    "nomad_tpu_torch.client.taskenv",
+    "nomad_tpu_torch.client.logmon",
+    "nomad_tpu_torch.client.stats",
+    "nomad_tpu_torch.client.fingerprint",
+    "nomad_tpu_torch.client.devices",
+    "nomad_tpu_torch.client.driver",
+    "nomad_tpu_torch.client.hooks",
+    "nomad_tpu_torch.client.template",
+    "nomad_tpu_torch.client.checks",
+    "nomad_tpu_torch.client.allocwatcher",
+    "nomad_tpu_torch.client.connect",
+    "nomad_tpu_torch.client.client",
+    "nomad_tpu_torch.client.fs",
+    "nomad_tpu_torch.client.execstream",
+    "nomad_tpu_torch.client.consul_sync",
+    "nomad_tpu_torch.drivers",
+    "nomad_tpu_torch.drivers.docker",
+    "nomad_tpu_torch.drivers.java",
+    "nomad_tpu_torch.drivers.qemu",
+    "nomad_tpu_torch.plugins",
+    "nomad_tpu_torch.plugins.hclspec",
+    "nomad_tpu_torch.plugins.external",
+    "nomad_tpu_torch.plugins.serve",
 ]
 
 
@@ -278,9 +303,10 @@ def test_server_and_its_device_tier_default_to_cuda():
 
 
 def test_agents_and_the_cli_agent_default_to_cuda():
-    """``ServerAgent()``, ``DevAgent(num_clients=0)`` and the CLI's ``agent``
-    want the card unless given ``device="cpu"`` / ``-device cpu``; they
-    refuse before binding a socket or starting a thread."""
+    """``ServerAgent()``, ``DevAgent(num_clients=0)``, ``DevAgent()`` with its
+    default client and the CLI's ``agent`` want the card unless given
+    ``device="cpu"`` / ``-device cpu``; they refuse before binding a socket
+    or starting a thread."""
     import importlib
     import threading
 
@@ -294,8 +320,12 @@ def test_agents_and_the_cli_agent_default_to_cuda():
         ServerAgent("agent-1")
     with pytest.raises(RuntimeError, match="CUDA"):
         DevAgent(num_clients=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DevAgent()
     parsed = cli.build_parser().parse_args(["agent", "-config", "x.hcl"])
     assert parsed.device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.cmd_agent(cli.build_parser().parse_args(["agent", "-dev", "-clients", "0"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.cmd_agent(cli.build_parser().parse_args(["agent", "-dev"]))
     assert set(threading.enumerate()) <= before

@@ -397,14 +397,41 @@ def test_agent_entry_point_serves_and_stops_on_sigterm(tmp_path):
 
 
 def test_dev_agent_with_a_client_names_the_client_item(capsys):
-    with pytest.raises(NotImplementedError, match="the client and its drivers"):
-        TDevAgent(num_clients=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="the client and its drivers"):
-        TDevAgent(device="cpu")  # one client by default, as in the JAX package
-    # the CLI's -dev keeps the JAX default of one client
-    assert tcli.main(["agent", "-dev", "-device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    assert "NotImplementedError" in err and "the client and its drivers" in err
+    """The client is ported: ``DevAgent`` with a client, and its default of
+    one (the JAX package's), runs its clients, and the CLI's ``agent -dev``
+    (one client by default) starts, registers its client's node and stops
+    on SIGTERM. (The name is the one this test had while the client and its
+    drivers raised naming their ROADMAP item.)"""
+    for n, agent in ((2, TDevAgent(num_clients=2, device="cpu")), (1, TDevAgent(device="cpu"))):
+        try:
+            agent.start()
+            assert len(agent.clients) == n
+            for c in agent.clients:
+                assert agent.state.node_by_id(c.node.id) is not None
+                assert c.node.attributes["driver.raw_exec"] == "1"
+        finally:
+            agent.stop()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nomad_tpu_torch", "agent", "-dev", "-device", "cpu", "-port", "0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONUNBUFFERED": "1"},
+    )
+    try:
+        line = proc.stdout.readline()
+        m = re.search(r"agent started: (\S+) ", line)
+        assert m, (line, proc.stderr.read() if proc.poll() is not None else "")
+        clients = re.findall(r"'([0-9a-f]{8})'", proc.stdout.readline())
+        assert len(clients) == 1
+        with urllib.request.urlopen(f"{m.group(1)}/v1/nodes", timeout=10) as r:
+            assert [n["ID"][:8] for n in json.loads(r.read())] == clients
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=30)
+        assert proc.returncode == 0, (proc.returncode, out, err)
+        assert "shutting down" in out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     # operator keygen is ported with the gossip keyring: a 32-byte key
     assert tcli.main(["operator", "keygen"]) == 0
     assert len(base64.b64decode(capsys.readouterr().out.strip())) == 32

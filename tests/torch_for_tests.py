@@ -17,10 +17,14 @@ each of which releases the GIL, and a busy Python thread left running by
 an earlier test keeps the GIL for the whole switch interval (5 ms) after
 each release. The fixture shortens the interval while the module's tests
 run, so such a thread costs them microseconds a call instead of
-milliseconds.
+milliseconds. Even so one busy thread made tests/test_torch_wavefront.py
+take 265.5 s instead of 32.9 s on the CPU, so the fixture also ends the
+one such thread known (ROADMAP C2): the run loop of a JAX-package raft
+that was shut down and then revived by a late vote or append request.
 """
 
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -41,8 +45,28 @@ finally:
 GIL_SWITCH_S = 1e-5
 
 
+def end_revived_rafts() -> list:
+    """Sets the role of every raft whose run loop is alive although the
+    raft was shut down back to shutdown, which ends that loop; returns
+    their node ids. A request that lands between ``Raft.shutdown()`` and
+    the loop's next look at the role revives the JAX package's raft
+    (tests/test_torch_raft.py); tests/test_operator.py's gossip test, which
+    stops three servers one after another, leaves one so now and then."""
+    ended = []
+    for thread in threading.enumerate():
+        raft = getattr(getattr(thread, "_target", None), "__self__", None)
+        if (type(raft).__name__ == "Raft" and thread.name == f"raft-{raft.node_id}"
+                and getattr(raft, "_shutdown", False) and raft.role != "shutdown"):
+            with raft._cond:
+                raft.role = "shutdown"
+                raft._cond.notify_all()
+            ended.append(raft.node_id)
+    return ended
+
+
 @pytest.fixture(autouse=True)
 def gil_handoff():
+    end_revived_rafts()
     before = sys.getswitchinterval()
     sys.setswitchinterval(GIL_SWITCH_S)
     yield
