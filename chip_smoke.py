@@ -259,9 +259,25 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    30 s and leave no process under it. ``import chip_smoke;
    chip_smoke.client_phase(torch.device("cpu"), chip_smoke.CLIENT_SMALL,
    nvidia_smi=<a fake nvidia-smi>)`` rehearses the phase on the CPU;
-12. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
-   scheduler, server, agent, soak, federation and client launches), the
-   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+12. the mesh (``nomad_tpu_torch.tpu.shard``): ``multichip.dryrun_multichip``
+   at 4 and 8 shards (512 allocs over 1,024 nodes through the sharded
+   exact scan, equal to the unsharded scan); then, with
+   ``shard.configure(4, device="cuda")`` and every launch counter set to
+   0 before and read after, phase 4's three evals through
+   ``planner.plan_eval`` over 4 shards: each sharded kernel (K5s, K6s,
+   K7s in csrc/mesh.cu) must launch once, no unsharded planner at all,
+   and the placements must equal the unsharded kernels'. Each sharded
+   kernel is timed by CUDA events at full width beside the unsharded one
+   (``devprof.mesh_comm_frac``) and held against its sharded plain
+   version on the card (K6s and K7s at full width, K5s at the first
+   1,024 of its 8,192 lanes, with the kernel on the same cut). Then phase
+   6's headline eval through ``TPUBatchScheduler`` under the mesh: its
+   placements equal phase 6's, its ``eval.plan_kernel`` span tagged with
+   4 shards, its ``process()`` ms printed. The mesh is off again after;
+13. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
+   scheduler, server, agent, soak, federation, client and mesh
+   launches), the card's name and power limit, and last ``{"ok": true,
+   "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
 """
@@ -319,10 +335,14 @@ PAGED_KERNELS = ("tile_count", "tile_window")
 #: the score primitives and the kernels that inline them (K1-K4)
 PRIMITIVES = {
     "binpack": ("nomad_tpu/tpu/kernel.py:151",
-                ("exact_scan", "runs", "windowed", "wavefront", "tile_window")),
-    "class_boosts": ("nomad_tpu/tpu/kernel.py:161", ("exact_scan", "runs", "wavefront")),
-    "scores": ("nomad_tpu/tpu/kernel.py:203", ("exact_scan", "runs", "wavefront")),
-    "rot_incl": ("nomad_tpu/tpu/kernel.py:255", ("exact_scan", "windowed", "wavefront")),
+                ("exact_scan", "runs", "windowed", "wavefront", "tile_window", "mesh_exact",
+                 "mesh_runs", "mesh_windowed")),
+    "class_boosts": ("nomad_tpu/tpu/kernel.py:161",
+                     ("exact_scan", "runs", "wavefront", "mesh_exact", "mesh_runs")),
+    "scores": ("nomad_tpu/tpu/kernel.py:203",
+               ("exact_scan", "runs", "wavefront", "mesh_exact", "mesh_runs")),
+    "rot_incl": ("nomad_tpu/tpu/kernel.py:255",
+                 ("exact_scan", "windowed", "wavefront", "mesh_exact", "mesh_windowed")),
 }
 
 
@@ -1621,6 +1641,8 @@ def scheduler_phase(dev, size: dict = SCHED) -> tuple:
 
     # ---- the headline eval's timings: three more runs on fresh stores -------
     case = cases["headline"][0]
+    SCHED_HEADLINE.update(case=case, outcome=got["headline"][0],
+                          process_ms=got["headline"][2] * 1e3)
     timings = [got["headline"]]
     for _ in range(3):
         h = case.harness(dev)
@@ -3591,6 +3613,229 @@ def agent_dev_run(device: str) -> dict:
         reader.join(timeout=5)
 
 
+#: phase 12: the node axis split into shards on the card (the mesh's
+#: count for the main path, the dry runs' counts), the exact scan's lanes
+#: its sharded plain version is held at (a cut of the 8,192), and the
+#: sharded kernels
+MESH_SHARDS = 4
+MESH_DRYRUN_SHARDS = (4, 8)
+MESH_SCAN_CUT = 1024
+MESH_KERNELS = ("mesh_exact", "mesh_runs", "mesh_windowed")
+#: each sharded kernel: (the phase-4 mode it plans, the unsharded kernel
+#: beside it, the JAX program it replaces)
+MESH_OF = {
+    "mesh_runs": ("runs", "runs", "nomad_tpu/tpu/kernel.py:716"),
+    "mesh_windowed": ("windowed", "windowed", "nomad_tpu/tpu/kernel.py:954"),
+    "mesh_exact": ("exact-scan", "exact_scan", "nomad_tpu/tpu/kernel.py:361"),
+}
+#: phase 6's headline eval (its documents and outcome), which phase 12
+#: plans again under the mesh
+SCHED_HEADLINE: dict = {}
+
+
+def _timed_ms(fn, dev) -> tuple:
+    """``cuda_ms`` on the card; one host-timed call on the CPU (the
+    rehearsal)."""
+    if dev.type == "cuda":
+        return cuda_ms(fn)
+    t0 = time.perf_counter()
+    out = fn()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def _mesh_call(mode: str, planes: dict, mesh, dev, lanes=None) -> tuple:
+    """(a call of ``mode``'s sharded kernel on ``planes`` padded and placed
+    over ``mesh``, the same call of its sharded plain version, the padded
+    planes). ``lanes``: the exact scan's first lanes only."""
+    from nomad_tpu_torch.tpu import kernel, planner
+
+    p = planner.pad_planes(planes, mesh)
+    A = p["demands"].shape[0]
+    if mode == "runs":
+        args, init = planner.runs_inputs(p, dev, mesh)
+        return (lambda: kernel.plan_batch_runs(args, init, A),
+                lambda: kernel.plan_batch_runs_sharded_ref(args, init, A), p)
+    if mode == "windowed":
+        args, used0, coll0 = planner.window_inputs(p, dev, mesh)
+        return (lambda: kernel.plan_batch_windowed(args, used0, coll0, p["n_real"], A),
+                lambda: kernel.plan_batch_windowed_sharded_ref(args, used0, coll0, p["n_real"], A),
+                p)
+    args, state = planner.exact_inputs(p, dev, mesh)
+    if lanes is not None:
+        args = args._replace(demands=args.demands[lanes], groups=args.groups[lanes],
+                             limits=args.limits[lanes], valid=args.valid[lanes])
+    return (lambda: kernel.plan_batch(args, state, p["n_real"]),
+            lambda: kernel.plan_batch_sharded_ref(args, state, p["n_real"]), p)
+
+
+def _mesh_placements(mode: str, out) -> tuple:
+    """(placements, rounds or None, final state or None) of a planner's
+    result."""
+    if mode == "exact-scan":
+        from nomad_tpu_torch.tpu import shard
+
+        state, placements = out
+        return placements, None, shard.gather(state)
+    return out[0], out[1], None
+
+
+def mesh_phase(dev, evals: dict, flat: dict, flat_rows: dict) -> list:
+    """Phase 12 (module docstring): the mesh for one eval. ``evals`` are
+    phase 4's evals by mode, ``flat`` their placements through the
+    unsharded kernels, ``flat_rows`` the unsharded kernels' (ms, bytes
+    moved, operations) at those shapes by kernel name (the bounds of the
+    sharded kernels, which do the same work). Returns the kernels-line rows
+    of the three sharded kernels."""
+    from nomad_tpu_torch.debug import devprof
+    from nomad_tpu_torch.tpu import kernel, multichip, planner, shard
+    from nomad_tpu_torch.trace import tracer
+
+    t_phase = time.perf_counter()
+    plain_timed = host_ms if dev.type == "cuda" else (lambda fn: _timed_ms(fn, dev))
+    card = card_line() if dev.type == "cuda" else "the CPU"
+
+    # the dry runs: 512 allocs over 1,024 nodes through K5s, each against
+    # the unsharded scan
+    dry = {}
+    for s in MESH_DRYRUN_SHARDS:
+        report = multichip.dryrun_multichip(s, dev)
+        if report["placed"] != report["allocs"] or report["mismatches"]:
+            fail(f"mesh dry run at {s} shards: {report}")
+        dry[s] = report["placed"]
+    log(f"mesh dry runs: placed {dry} of 512 (shards: placed), equal to the unsharded scan")
+
+    def counted_path(n_shards: int) -> dict:
+        """Phase 4's evals through plan_eval over ``n_shards`` shards,
+        every launch counter set to 0 before and read after."""
+        kernel.reset_launches()
+        results = {mode: planner.plan_eval(planes, dev) for mode, planes in evals.items()}
+        launches = path_launches(MESH_KERNELS)
+        log(f"mesh path launches at {n_shards} shards: {launches}")
+        flat_launches = sum(kernel.LAUNCHES[k] for k in ("exact_scan", "runs", "windowed"))
+        if flat_launches:
+            fail(f"the mesh path launched {flat_launches} unsharded planner kernels")
+        for name, n in launches.items():
+            if n != 1 and dev.type == "cuda":
+                fail(f"sharded kernel {name} launched {n} times on the mesh path, expected 1")
+        for mode, (placements, stats) in results.items():
+            if stats["mode"] != mode or stats["shards"] != n_shards:
+                fail(f"mesh eval {mode}: mode {stats['mode']}, shards {stats['shards']}")
+            diff = int((placements != flat[mode]).sum())
+            if diff:
+                fail(f"mesh eval {mode}: {diff} placements differ from the unsharded kernel's")
+            placed = check_capacity(evals[mode], placements, f"mesh {mode}")
+            log(f"mesh {mode}: {evals[mode]['a_real']} allocs x {evals[mode]['n_real']} nodes "
+                f"over {n_shards} shards, placed {placed}, identical to the unsharded kernel; "
+                f"rounds {stats['rounds']}, kernel {stats['kernel_s'] * 1e3:.2f} ms; {card}")
+        return launches
+
+    rows = []
+    try:
+        # ---- 8 shards: the path and each kernel's time ----------------------
+        mesh8 = shard.configure(max(MESH_DRYRUN_SHARDS), device=dev.type)
+        launches8 = counted_path(mesh8.size)
+        ms8 = {name: _timed_ms(_mesh_call(mode, evals[mode], mesh8, dev)[0], dev)[0]
+               for name, (mode, _, _) in MESH_OF.items()}
+        # ---- MESH_SHARDS shards: the counted main path -------------------------
+        mesh = shard.configure(MESH_SHARDS, device=dev.type)
+        if shard.active_mesh(max(p["n_real"] for p in evals.values())) is not mesh:
+            fail("mesh: configure gave no active mesh")
+        launches = counted_path(MESH_SHARDS)
+
+        # ---- each sharded kernel at full width: times, plain versions -----
+        for name, (mode, flat_name, replaces) in MESH_OF.items():
+            call, _, p = _mesh_call(mode, evals[mode], mesh, dev)
+            A, (N, C) = p["demands"].shape[0], p["capacity"].shape
+            ms, out = _timed_ms(call, dev)
+            got, rounds, _ = _mesh_placements(mode, out)
+            cut = ""
+            if mode == "exact-scan":
+                # the plain version at the first MESH_SCAN_CUT lanes, with
+                # the kernel on the same cut
+                lanes = slice(0, min(MESH_SCAN_CUT, A))
+                call, plain, _ = _mesh_call(mode, evals[mode], mesh, dev, lanes)
+                cut_got, _, cut_state = _mesh_placements(mode, call())
+                plain_ms, want_out = plain_timed(plain)
+                want, _, want_state = _mesh_placements(mode, want_out)
+                err = max_abs_err([(cut_got, want), *zip(cut_state, want_state)])
+                if max_abs_err([(cut_got, got[lanes])]):
+                    fail(f"{name}: the cut's placements differ from the full run's first lanes")
+                rounds = p["a_real"]
+                cut = f"; plain version at the first {lanes.stop} of {A} lanes"
+            else:
+                plain_ms, (want, want_rounds) = plain_timed(_mesh_call(mode, evals[mode], mesh,
+                                                                       dev)[1])
+                err = max_abs_err([(got, want)]) + abs(int(rounds) - want_rounds)
+            if err:
+                fail(f"{name}: kernel differs from its sharded plain version ({err})")
+            if max_abs_err([(got[: p["a_real"]], torch.from_numpy(flat[mode]))]):
+                fail(f"{name}: differs from the unsharded kernel at full width")
+            flat_ms, moved, ops = flat_rows[flat_name]
+            bound_ms, bound_by = bound(moved, ops)
+            shape = {}
+            if dev.type == "cuda":
+                shape = kernel.mesh_shape(name, MESH_SHARDS, N, *(
+                    (p["feasible"].shape[0], p["spread_desired"].shape[1], p["perm"].shape[0])
+                    if mode == "exact-scan" else (1, 1, 1)))
+            rows.append(dict(
+                name=name, route="cuda", source="nomad_tpu_torch/tpu/csrc/mesh.cu",
+                replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, rounds=int(rounds), unsharded_ms=flat_ms,
+                mesh_comm_frac=devprof.mesh_comm_frac(flat_ms, ms), shards=MESH_SHARDS,
+                blocks_a_shard=shape.get("blocks_a_shard"), ms_8_shards=ms8[name],
+                mesh_comm_frac_8_shards=devprof.mesh_comm_frac(flat_ms, ms8[name]),
+                shape=f"N={N} A={A} C={C} over {MESH_SHARDS} shards{cut}",
+                paths={"mesh": launches[name], "mesh_8_shards": launches8[name]},
+            ))
+            log(f"{name}: {ms:.3f} ms per launch over {MESH_SHARDS} shards "
+                f"({shape.get('blocks_a_shard')} blocks a shard), {ms8[name]:.3f} ms over 8; "
+                f"unsharded {flat_name} {flat_ms:.3f} ms, mesh_comm_frac "
+                f"{rows[-1]['mesh_comm_frac']} and {rows[-1]['mesh_comm_frac_8_shards']}; sharded "
+                f"plain version {plain_ms:.1f} ms, identical (max abs err {err}); bound "
+                f"{bound_ms:.4f} ms by {bound_by}; rounds {int(rounds)}{cut}; {card}")
+
+        # ---- the scheduler's headline eval under the mesh ------------------
+        case, want = SCHED_HEADLINE.get("case"), SCHED_HEADLINE.get("outcome")
+        if case is not None:
+            seen = []
+            span = tracer.span
+
+            def spy(name, parent=None, tags=None, metric=None):
+                if name == "eval.plan_kernel":
+                    seen.append(dict(tags or {}))
+                return span(name, parent=parent, tags=tags, metric=metric)
+
+            kernel.reset_launches()
+            with mock.patch.object(tracer, "span", spy):
+                h = case.harness(dev)
+                sched, secs, stats = sched_process(h, case.evals[0])
+            got = sched_outcome(h, case.jobs, [sched])
+            if stats.get("mode") != "runs" or stats.get("shards") != MESH_SHARDS:
+                fail(f"mesh scheduler headline: mode {stats.get('mode')}, "
+                     f"shards {stats.get('shards')}")
+            if not seen or seen[-1].get("shards") != MESH_SHARDS:
+                fail(f"mesh scheduler headline: span tags {seen}")
+            if got != want:
+                diff = sum(want["placements"].get(k) != v for k, v in got["placements"].items())
+                fail(f"mesh scheduler headline: {diff} placements differ from phase 6's")
+            if kernel.LAUNCHES["mesh_runs"] != 1 and dev.type == "cuda":
+                fail(f"mesh scheduler headline: launches {kernel.LAUNCHES}")
+            for row in rows:
+                row["paths"]["mesh_scheduler"] = kernel.LAUNCHES[row["name"]]
+            log(f"mesh scheduler headline: {len(got['placements'])} placed over {MESH_SHARDS} "
+                f"shards, identical to phase 6; span tags {seen[-1]}; process {secs * 1e3:.1f} ms"
+                f" (phase 6: {SCHED_HEADLINE['process_ms']:.1f} ms), planner launch to sync "
+                f"{stats['kernel_s'] * 1e3:.1f} ms, by events {stats['device_s']}; {card}")
+    finally:
+        shard.configure(enabled=False)
+    if shard.active_mesh() is not None:
+        fail("the mesh is still active after phase 12")
+    for row in rows:
+        row["launches"] = sum(row["paths"].values())
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the card",
@@ -4140,6 +4385,12 @@ def main() -> int:
         if name in client["held"]:
             row["client_held"] = client["held"][name]
             row["max_abs_err"] = max(row["max_abs_err"], client["held"][name]["max_abs_err"])
+    phase_done("client")
+    # ---- 12. the mesh -----------------------------------------------------------
+    flat = {mode: placements for mode, (placements, _) in results.items()}
+    flat_rows = {row[0]: (row[3], row[5], row[6]) for row in rows}
+    mesh_rows = mesh_phase(dev, evals, flat, flat_rows)
+    kernels.extend(mesh_rows)
     # (path_launches added the storms' standalone primitive launches)
     # K1-K4's own kernels are not launched on the paths: the primitives run
     # inside every launch of the kernels that inline them
@@ -4149,7 +4400,7 @@ def main() -> int:
         row["inlined_launches"] = sum(launched[k] for k in row["inlined_in"])
         row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
     kernels = primitives + kernels
-    phase_done("client")
+    phase_done("mesh")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -611,13 +611,16 @@ class Planner:
         mirror = self.mirror_fn()
         if mirror is None:
             return None
+        from ..tpu import shard
         from ..tpu.problems import bucket
 
         # the node bucket the drain batches pad to: both consumers must
         # agree per n_pad or the mirror's DeviceState cache rebuilds the
         # full planes on every alternation. A CUDA error in the upload or
-        # the dirty-row scatter propagates (no mesh here: ROADMAP A12)
+        # the dirty-row scatter propagates; the verify under a mesh is
+        # ROADMAP A12b and raises
         n_real = len(base_snap.nodes())
+        shard.refuse_under_mesh("the applier's device verify under a mesh", n_real)
         handles = mirror.verify_handles(base_snap, bucket(n_real))
         if handles is None:
             metrics.incr("plan.verify_device_degrade.stale")

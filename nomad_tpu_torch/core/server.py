@@ -30,7 +30,7 @@ import threading
 import time
 from typing import Optional
 
-from .. import metrics, resolve_device
+from .. import metrics, not_ported, resolve_device
 from ..testing import faults as _faults
 from ..raft import InmemTransport, NotLeaderError, Raft, RaftConfig
 from ..raft.log import InmemLogStore, SnapshotStore, StableStore
@@ -78,14 +78,6 @@ DEFAULT_HEARTBEAT_TTL = 30.0
 HTTP_ADDR_QUARANTINE = 10.0
 #: seconds ``stop`` waits for a running warm-up to finish
 PREWARM_STOP_S = 120.0
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    """The error of a stanza or call that reaches a module the port does
-    not have yet; ``item`` names its entry in ROADMAP.md's queue A."""
-    return NotImplementedError(
-        f"{what} is not ported to nomad_tpu_torch yet (ROADMAP queue A: {item})"
-    )
 
 
 class Server:
@@ -979,8 +971,9 @@ class Server:
             self.flight_recorder.start()
         if self.config.get("shard_devices"):
             # mesh-shard the planner node axis (the JAX package's
-            # tpu/shard.py): not in the port yet
-            raise _not_ported("the shard_devices stanza", "A12, the mesh")
+            # tpu/shard.py): the port's mesh plans one eval
+            # (tpu/shard.py), the server path under it is not ported
+            raise not_ported("the shard_devices stanza", "A12b, the mesh's server path")
         if self.config.get("wavefront"):
             # wavefront placement plane (tpu/wavefront.py): route the
             # exact-scan dispatch through conflict-free batched commits.

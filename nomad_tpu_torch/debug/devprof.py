@@ -155,8 +155,9 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 
-#: every (planner, shape_key, flavor) launched in this process: the
-#: port's counterpart of the jit caches, which reset() leaves alone
+#: every (planner, shape_key, flavor) launched in this process, with
+#: "sharded" appended for a launch over a mesh: the port's counterpart of
+#: the jit caches, which reset() leaves alone
 _LAUNCHED: set = set()
 
 
@@ -198,17 +199,18 @@ def record_compile(
 
 
 def record_launch(planner: str, shape_key: str, flavor: str,
-                  seconds: float):
+                  seconds: float, sharded: bool = False):
     """One planner launch: its first in the process is a compile event of
     ``seconds`` (the wrapper's host time, no sync added); every launch
-    updates the last-dispatch table."""
-    key = (planner, shape_key, flavor)
+    updates the last-dispatch table. ``sharded``: the launch ran over a
+    mesh (tpu/shard.py)."""
+    key = (planner, shape_key, flavor) + (("sharded",) if sharded else ())
     with _lock:
         first = key not in _LAUNCHED
         _LAUNCHED.add(key)
     if first:
-        record_compile(planner, shape_key, False, flavor, seconds)
-    record_dispatch(planner, shape_key, False, flavor)
+        record_compile(planner, shape_key, sharded, flavor, seconds)
+    record_dispatch(planner, shape_key, sharded, flavor)
 
 
 def record_dispatch(planner: str, shape_key: str, sharded: bool,
@@ -327,7 +329,10 @@ def device_put(x, device):
     import torch
 
     count_h2d(_host_nbytes(x))
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    a = np.asarray(x)
+    if not a.flags.c_contiguous:
+        a = np.ascontiguousarray(a)
+    return torch.from_numpy(a).to(device)
 
 
 # ---------------------------------------------------------------------------

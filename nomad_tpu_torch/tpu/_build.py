@@ -47,6 +47,10 @@ _ENTRY_POINTS = {
     "ntt_class_boosts": (8, 1),
     "ntt_scores": (16, 3),
     "ntt_rot_incl": (2, 2),
+    "ntt_mesh_shape": (2, 6),
+    "ntt_mesh_exact": (1, 8),
+    "ntt_mesh_runs": (1, 7),
+    "ntt_mesh_windowed": (1, 6),
 }
 
 _LIB = None

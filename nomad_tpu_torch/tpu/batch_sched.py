@@ -22,7 +22,9 @@ eval on the exact-np host oracle, counted in
 ``scheduler.kernel_fault_degrade``; a CUDA build, launch or sync error
 propagates and fails the eval. A solo eval's planner runs inside an
 ``eval.plan_kernel`` span tagged with its mode and its device ledger
-entry. Left out of this copy: the mesh branches.
+entry. Under an active mesh (``tpu/shard.py``) the planner runs over
+the node axis split into shards (``planner.launch_eval``); the span and
+the stats carry the shard count, as the JAX scheduler's do.
 
 Preemption semantics are preserved without a device-side pick: at this
 reference version only the SYSTEM scheduler preempts (service/batch
@@ -329,8 +331,15 @@ class TPUBatchScheduler(GenericScheduler):
         # the solo planner's stage of the eval's span tree (the fused
         # drain path records its spans in drain.py)
         from ..trace import tracer
+        from . import shard as _shard
 
-        with tracer.span("eval.plan_kernel", tags={"allocs": len(place)}) as kspan:
+        # sharded dispatches tag their topology so a trace reader can tell
+        # a mesh run from a single-card one span-locally
+        span_tags = {"allocs": len(place)}
+        span_mesh = _shard.active_mesh(len(nodes))
+        if span_mesh is not None:
+            span_tags.update(_shard.shard_tags(span_mesh))
+        with tracer.span("eval.plan_kernel", tags=span_tags) as kspan:
             self._kernel_placements(place, nodes, by_dc, groups, kernel_span=kspan)
 
     # ------------------------------------------------------------------
@@ -707,6 +716,7 @@ class TPUBatchScheduler(GenericScheduler):
             n_padded_allocs=pending.a_pad,
             mode=mode,
             launches=pending.launches,
+            shards=pending.shards,
         )
         if mode == "paged":
             pstats = pending.extra

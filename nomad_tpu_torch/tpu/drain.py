@@ -31,7 +31,7 @@ uploads its host planes (``tpu.drain_paged_fallback``). The device
 ledger counts the batch's host upload and, when its first eval takes its
 slices back, the batch's placements and bases device to host (the JAX
 collector counts them at its first consumer's sync). Left out: the mesh
-(ROADMAP A12).
+(ROADMAP A12b); under an active mesh the collector raises.
 """
 
 from __future__ import annotations
@@ -421,6 +421,10 @@ class KernelBatchCollector:
 
     def __init__(self, shared: SharedCluster, expected: int, timeout: float = 60.0,
                  pad_evals: int = 0, device=None):
+        from . import shard
+
+        # the fused batch over a sharded node axis: ROADMAP A12b
+        shard.refuse_under_mesh("the fused drain batch under a mesh", shared.n_real)
         self.shared = shared
         self.device = resolve_device(device)
         ds = shared.device_state

@@ -34,6 +34,7 @@ import torch
 
 from .. import resolve_device
 from ..debug import devprof as _devprof
+from . import shard as _shard
 
 MAX_SKIP = 3  # ref stack.go:17
 NEG_INF = -1e30
@@ -131,19 +132,24 @@ def _fault_point() -> None:
         raise KernelFault(f"tpu.kernel fault point: {e}") from e
 
 
-def _to_tensor(x, device: torch.device) -> torch.Tensor:
+def pin_host(x) -> np.ndarray:
+    """``x`` as a numpy plane of the planners' dtypes: bool, int32 (checked
+    to fit) or float32."""
     a = np.asarray(x)
     if a.dtype == np.bool_:
-        out = a
-    elif np.issubdtype(a.dtype, np.integer):
+        return a
+    if np.issubdtype(a.dtype, np.integer):
         if a.size and (a.min() < np.iinfo(np.int32).min or a.max() > np.iinfo(np.int32).max):
             raise ValueError("integer plane does not fit int32")
-        out = a.astype(np.int32)
-    elif np.issubdtype(a.dtype, np.floating):
-        out = a.astype(np.float32)
-    else:
-        raise TypeError(f"unsupported plane dtype {a.dtype}")
-    return torch.from_numpy(np.array(out, order="C")).to(device)  # a copy: callers' arrays may be read-only
+        return a.astype(np.int32)
+    if np.issubdtype(a.dtype, np.floating):
+        return a.astype(np.float32)
+    raise TypeError(f"unsupported plane dtype {a.dtype}")
+
+
+def _to_tensor(x, device: torch.device) -> torch.Tensor:
+    # a copy: callers' arrays may be read-only
+    return torch.from_numpy(np.array(pin_host(x), order="C")).to(device)
 
 
 def from_numpy(obj, device=None):
@@ -599,6 +605,344 @@ def plan_batch_windowed_ref(args: WindowArgs, used0, collisions0, n_real: int, a
 
 
 # ---------------------------------------------------------------------------
+# tournament reductions: a local stage per shard of the [S, N/S] view, then
+# an S-wide finish; the same integers and floats as the flat reduction
+# (the wavefront's S > 1 branches and the sharded plain versions below)
+# ---------------------------------------------------------------------------
+
+def _tsum(x: torch.Tensor, s: int) -> torch.Tensor:
+    if s <= 1:
+        return x.sum(dtype=x.dtype)
+    return x.reshape(s, -1).sum(dim=1, dtype=x.dtype).sum(dtype=x.dtype)
+
+
+def _tmax(x: torch.Tensor, s: int) -> torch.Tensor:
+    if s <= 1:
+        return x.max()
+    return x.reshape(s, -1).amax(dim=1).max()
+
+
+def _tmin(x: torch.Tensor, s: int) -> torch.Tensor:
+    if s <= 1:
+        return x.min()
+    return x.reshape(s, -1).amin(dim=1).min()
+
+
+def _tcumsum(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Inclusive prefix sum along axis 0: local scans per shard, rebased by
+    the exclusive scan of the shard totals."""
+    if s <= 1:
+        return torch.cumsum(x, 0, dtype=x.dtype)
+    loc = torch.cumsum(x.reshape(s, -1, *x.shape[1:]), 1, dtype=x.dtype)
+    base = torch.cumsum(loc[:, -1], 0, dtype=x.dtype) - loc[:, -1]
+    return (loc + base[:, None]).reshape(x.shape)
+
+
+def _targmin(x: torch.Tensor, positions: torch.Tensor, s: int) -> int:
+    """The first position holding the least value: the least value by a
+    tournament, then the least position holding it by another."""
+    least = _tmin(x, s)
+    return int(_tmin(torch.where(x == least, positions, 2**30), s))
+
+
+def _rot_incl_t(x: torch.Tensor, offset: int, total, positions: torch.Tensor, s: int):
+    """``_rot_incl`` with its prefix sum staged as a tournament."""
+    xi = x.to(torch.int32)
+    xc = _tcumsum(xi, s)
+    x_off = (xc - xi)[offset]
+    return torch.where(positions >= offset, xc - x_off, total - x_off + xc)
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the three planners over a node axis split into shards
+# ---------------------------------------------------------------------------
+#
+# Each takes a tree placed by ``shard.put`` (node rows, node columns and
+# rotation positions split into S contiguous slabs; the small tables
+# replicated) and gives the unsharded version's placements, state for
+# state. Every elementwise step is the unsharded one on the concatenated
+# planes (a node's score reads its own row only); every reduction over the
+# node or position axis is staged as the sharded kernel (csrc/mesh.cu)
+# stages it, a local stage per shard's slab and an S-wide finish; and
+# ``final[perm]`` reads rows that other shards own, the kernel's explicit
+# gather. Ties go to the smallest global position. Every staged reduction
+# is an exact int32 sum or a float max or min, so the staging cannot change
+# a bit of the result: it writes down the order the kernel combines in,
+# and the tests hold these versions equal to the unsharded ones.
+
+def plan_batch_sharded_ref(args: BatchArgs, init: BatchState, n_real: int):
+    """Sharded plain version of the exact scan: returns (final state, split
+    as ``init`` is, node index per alloc or -1)."""
+    del n_real
+    s = _shard.shards_of((args, init))
+    sharded_init = init
+    args, init = _shard.gather(args), _shard.gather(init)
+    n_pad = args.capacity.shape[0]
+    dev = args.capacity.device
+    positions = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    used, coll, counts, present, offset = (t.clone() for t in init)
+    groups = args.groups.tolist()
+    limits = args.limits.tolist()
+    valid = args.valid.tolist()
+    group_eval = args.group_eval.tolist()
+    ring = args.ring.tolist()
+    out = torch.full((len(groups),), -1, dtype=torch.int32, device=dev)
+
+    def count(x):
+        return _tsum(x.to(torch.int32), s)
+
+    for i, g in enumerate(groups):
+        if not valid[i]:
+            continue
+        demand = args.demands[i]
+        limit = limits[i]
+        e = group_eval[g]
+        ring_size = ring[e]
+        perm = args.perm[e]
+        in_ring = positions < ring_size
+        state = BatchState(used, coll, counts, present, offset)
+
+        fit_nodes = args.feasible[g] & (used + demand[None, :] <= args.capacity).all(dim=1)
+        final = _scores(args, state, g, demand)
+        fit_p = fit_nodes[perm] & in_ring
+        score_p = final[perm]
+        off = int(offset[e])
+
+        nonpos = fit_p & (score_p <= 0.0)
+        skipped = nonpos & (_rot_incl_t(nonpos, off, count(nonpos), positions, s) <= MAX_SKIP)
+        kept = fit_p & ~skipped
+        returned = kept & (_rot_incl_t(kept, off, count(kept), positions, s) <= limit)
+        n_returned = int(count(returned))
+        need = max(limit - n_returned, 0)
+        replay = skipped & (_rot_incl_t(skipped, off, count(skipped), positions, s) <= need)
+        candidates = returned | replay
+
+        rot_rank = torch.where(positions >= off, positions - off, ring_size - off + positions)
+        max_score = _tmax(torch.where(candidates, score_p, NEG_INF), s)
+        tie = candidates & (score_p == max_score)
+        visit_order = rot_rank + torch.where(replay, n_pad, 0)
+        best_p = _targmin(torch.where(tie, visit_order, 2**30), positions, s)
+        last_ret_rank = int(_tmax(torch.where(returned, rot_rank, -1), s))
+        consumed = last_ret_rank + 1 if n_returned >= limit else ring_size
+
+        if int(count(candidates)) > 0:
+            b = int(perm[best_p])
+            out[i] = b
+            used[b] += demand
+            coll[g, b] += 1
+            v = int(args.node_value[g, b])
+            if bool(args.spread_active[g]) and v >= 0:
+                counts[g, v] += 1
+                present[g, v] = True
+        offset[e] = (off + consumed) % max(ring_size, 1)
+    final_state = BatchState(used, coll, counts, present, offset)
+    return _shard.split_like(final_state, sharded_init), out
+
+
+def plan_batch_runs_sharded_ref(args: RunArgs, init, a_pad: int, even_mode: bool = False):
+    """Sharded plain version of the run planner: returns (node index per
+    alloc slot [a_pad], -1 = unplaced; rounds)."""
+    s = _shard.shards_of((args, init))
+    args, init = _shard.gather(args), _shard.gather(init)
+    n_pad = args.capacity.shape[0]
+    dev = args.capacity.device
+    used, coll, counts, present = (t.clone() for t in init)
+    V = counts.shape[0]
+    count_f = args.group_count.float()
+    pos = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    cls = torch.where(args.node_value >= 0, args.node_value, V).long()
+    aff_term = torch.where(args.affinity_present, args.affinity, 0.0)
+    aff_f = args.affinity_present.float()
+    desired_eff = torch.where(
+        args.spread_desired >= 0.0, args.spread_desired, args.spread_implicit
+    )
+    delta_v = torch.where(
+        desired_eff >= 0.0,
+        args.spread_weight_frac / torch.clamp_min(desired_eff, _f32(1e-9)),
+        0.0,
+    )
+    delta_v = torch.where(args.spread_active & ~args.spread_even, delta_v, 0.0)
+    delta_node = torch.cat([delta_v, delta_v.new_zeros(1)])[cls]
+    demand_f2 = args.demand[:2].float()
+    active = bool(args.spread_active)
+    n_allocs = int(args.n_allocs)
+
+    def score_at(used, coll, boosts, extra: int):
+        util = (used + (1 + extra) * args.demand[None, :])[:, :2].float()
+        free = 1.0 - util / args.usable
+        binpack = _binpack(free[:, 0], free[:, 1])
+        coll_e = coll + extra
+        ap = coll_e > 0
+        an = torch.where(ap, -(coll_e.float() + 1.0) / count_f, 0.0)
+        sp = boosts[cls] - extra * delta_node
+        fired = args.spread_active & (sp != 0.0)
+        num = 1.0 + ap.float() + aff_f + fired.float()
+        return (binpack + an + aff_term + torch.where(fired, sp, 0.0)) / num, num
+
+    placements = torch.full((a_pad,), -1, dtype=torch.int32, device=dev)
+    placed = rounds = 0
+    progress = True
+    while placed < n_allocs and progress:
+        rounds += 1
+        fit = args.feasible & (used + args.demand[None, :] <= args.capacity).all(dim=1)
+        boosts = _class_boosts(
+            counts, present, args.spread_desired, args.spread_implicit,
+            args.spread_weight_frac, args.spread_even, args.spread_active,
+        )
+        score, num = score_at(used, coll, boosts, 0)
+        progress = int(_tsum(fit.to(torch.int32), s)) > 0
+        if not progress:
+            break
+        max_score = _tmax(torch.where(fit, score, NEG_INF), s)
+
+        nonpos = fit & (score <= 0.0)
+        deferred = nonpos & (_tcumsum(nonpos.to(torch.int32), s) <= MAX_SKIP)
+        visit = pos + torch.where(deferred, n_pad, 0)
+
+        tied = fit & (score == max_score)
+        best = _targmin(torch.where(tied, visit, 2**30), pos, s)
+        runner_other = _tmax(torch.where(fit & (pos != best), score, NEG_INF), s)
+        runner_nontied = _tmax(torch.where(fit & ~tied, score, NEG_INF), s)
+        remaining = n_allocs - placed
+
+        n_acc = 0
+        if not even_mode:
+            # each tied position's rank in its class: the class's tied
+            # positions before it, local prefix plus the earlier shards'
+            onehot = torch.nn.functional.one_hot(cls, V + 1).to(torch.int32)
+            t_mat = _tcumsum(onehot * tied[:, None].to(torch.int32), s)
+            t_own = t_mat.gather(1, cls[:, None])[:, 0].float() - 1.0
+            key = score - t_own * delta_node / num
+            accept0 = tied & (key > runner_nontied)
+            key_min0 = _tmin(torch.where(accept0, key, float("inf")), s)
+            score2, _ = score_at(used, coll, boosts, 1)
+            guard = score2 <= key_min0
+            bad_key = _tmax(torch.where(accept0 & ~guard, key, NEG_INF), s)
+            accept = accept0 & (key > bad_key)
+            n_acc = int(_tsum(accept.to(torch.int32), s))
+
+        if n_acc > 1:
+            # the accepted lanes of every shard, in shard order, ranked by
+            # (key descending, visit ascending)
+            lanes = torch.nonzero(accept)[:, 0]
+            lanes = lanes[torch.sort(visit[lanes], stable=True).indices]
+            lanes = lanes[torch.sort(_lexsort_key(-key[lanes]), stable=True).indices]
+            take = min(remaining, n_acc)
+            chosen = lanes[:take]
+            placements[placed: placed + take] = args.perm[chosen]
+            used[chosen] += args.demand
+            coll[chosen] += 1
+            if active:
+                hit = torch.bincount(cls[chosen], minlength=V + 1)[:V].to(torch.int32)
+                counts += hit
+                present |= hit > 0
+            placed += take
+        else:
+            used_b = used[best]
+            coll_b = coll[best].float()
+            cls_b = int(cls[best])
+            jj = torch.arange(RUNCAP, dtype=torch.int32, device=dev)
+            jf = jj.float()
+            util_j = used_b[:2].float()[None, :] + (jf[:, None] + 1.0) * demand_f2[None, :]
+            free_j = 1.0 - util_j / args.usable[best][None, :]
+            bp_j = _binpack(free_j[:, 0], free_j[:, 1])
+            coll_j = coll_b + jf
+            ap_j = coll_j > 0.0
+            an_j = torch.where(ap_j, -(coll_j + 1.0) / count_f, 0.0)
+            sp_j = boosts[cls_b] - jf * delta_node[best]
+            fired_j = args.spread_active & (sp_j != 0.0)
+            num_j = 1.0 + ap_j.float() + aff_f[best] + fired_j.float()
+            traj = (bp_j + an_j + aff_term[best] + torch.where(fired_j, sp_j, 0.0)) / num_j
+            fit_j = (
+                used_b[None, :] + (jj[:, None] + 1) * args.demand[None, :]
+                <= args.capacity[best][None, :]
+            ).all(dim=1)
+            if even_mode:
+                ok = torch.zeros(RUNCAP, dtype=torch.bool, device=dev)
+            else:
+                ok = fit_j & (traj > runner_other) & (jj < remaining)
+            run = 1 + int(torch.cumprod(ok[1:].to(torch.int32), 0).sum())
+            run = min(run, remaining)
+            placements[placed: placed + run] = args.perm[best]
+            used[best] += run * args.demand
+            coll[best] += run
+            if active and cls_b < V:
+                counts[cls_b] += run
+                present[cls_b] |= run > 0
+            placed += run
+    return placements, rounds
+
+
+def plan_batch_windowed_sharded_ref(args: WindowArgs, used0, collisions0, n_real: int,
+                                    a_pad: int):
+    """Sharded plain version of the windowed planner: returns (node index
+    per alloc slot [a_pad], -1 = unplaced; rounds)."""
+    s = _shard.shards_of((args, used0, collisions0))
+    args, used0, collisions0 = _shard.gather((args, used0, collisions0))
+    n_pad = args.capacity.shape[0]
+    dev = args.capacity.device
+    positions = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    in_ring = positions < n_real
+    nseg = n_real + 1
+    L = int(args.limit)
+    n_allocs = int(args.n_allocs)
+    count_f = args.group_count.float()
+    used = used0.clone()
+    collisions = collisions0.clone()
+    placements = torch.full((a_pad,), -1, dtype=torch.int32, device=dev)
+    offset = placed = rounds = 0
+    progress = True
+    while placed < n_allocs and progress:
+        rounds += 1
+        fit_nodes = args.feasible & (used + args.demand[None, :] <= args.capacity).all(dim=1)
+        util = used + args.demand[None, :]
+        free_cpu = 1.0 - util[:, 0].float() / args.usable[:, 0]
+        free_mem = 1.0 - util[:, 1].float() / args.usable[:, 1]
+        binpack = _binpack(free_cpu, free_mem)
+        anti_present = collisions > 0
+        anti = torch.where(anti_present, -(collisions.float() + 1.0) / count_f, 0.0)
+        final = (binpack + anti) / (1.0 + anti_present.float())
+
+        fit_p = fit_nodes[args.perm] & in_ring
+        score_p = final[args.perm]
+        total_feas = int(_tsum(fit_p.to(torch.int32), s))
+        feas_rank = _rot_incl_t(fit_p, offset, total_feas, positions, s) - fit_p.to(torch.int32)
+
+        remaining = n_allocs - placed
+        w_avail = max(total_feas // max(L, 1), 1) if total_feas > 0 else 0
+        w_use = min(w_avail, remaining)
+        window = feas_rank // max(L, 1)
+        active = fit_p & (window < w_use)
+        seg = torch.where(active, window, nseg - 1).long()
+
+        # per window: its max score and the first in rotation among the
+        # maxima, each a local stage per shard, then the finish
+        seg_max = torch.full((s, nseg), float("-inf"), device=dev).scatter_reduce(
+            1, seg.reshape(s, -1), torch.where(active, score_p, NEG_INF).reshape(s, -1), "amax",
+            include_self=False,
+        ).amax(dim=0)
+        is_best = active & (score_p == seg_max[seg])
+        seg_min_rank = torch.full((s, nseg), 2**30, dtype=torch.int32, device=dev).scatter_reduce(
+            1, seg.reshape(s, -1), torch.where(is_best, feas_rank, 2**30).reshape(s, -1), "amin",
+            include_self=False,
+        ).amin(dim=0)
+        chosen = is_best & (feas_rank == seg_min_rank[seg])
+
+        nodes = args.perm[chosen].long()
+        used[nodes] += args.demand
+        collisions[nodes] += 1
+        placements[(placed + window[chosen]).long()] = args.perm[chosen]
+
+        rot_rank = torch.where(positions >= offset, positions - offset, n_real - offset + positions)
+        last = int(_tmax(torch.where(fit_p & (feas_rank < w_use * L), rot_rank, -1), s))
+        consumed = n_real if total_feas < w_use * L else last + 1
+        offset = (offset + max(consumed, 0)) % n_real
+        placed += w_use
+        progress = w_use > 0
+    return placements, rounds
+
+
+# ---------------------------------------------------------------------------
 # public wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
@@ -610,6 +954,7 @@ LAUNCHES = {
     "used_bases": 0, "scatter_rows": 0, "verify_rows": 0,
     "wavefront": 0, "tile_count": 0, "tile_window": 0,
     "binpack": 0, "class_boosts": 0, "scores": 0, "rot_incl": 0,
+    "mesh_exact": 0, "mesh_runs": 0, "mesh_windowed": 0,
 }
 
 
@@ -711,12 +1056,14 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(_stream_ptr(device))
 
 
-def _ledger(planner: str, shape_key: str, device: torch.device, t0: float) -> None:
+def _ledger(planner: str, shape_key: str, device: torch.device, t0: float,
+            sharded: bool = False) -> None:
     """Note a planner launch in the device ledger: the first of its
-    (planner, shape, flavor) in the process counts as its compile, timed
-    from ``t0`` by the host clock (nothing waits for the card)."""
+    (planner, shape, sharded, flavor) in the process counts as its
+    compile, timed from ``t0`` by the host clock (nothing waits for the
+    card)."""
     flavor = "cuda" if device.type == "cuda" else "plain"
-    _devprof.record_launch(planner, shape_key, flavor, time.perf_counter() - t0)
+    _devprof.record_launch(planner, shape_key, flavor, time.perf_counter() - t0, sharded)
 
 
 def _library():
@@ -749,18 +1096,24 @@ def plan_batch(args: BatchArgs, init: BatchState, n_real: int, n_valid: int = No
     device = args.capacity.device
     A = int(args.demands.shape[0])
     key = f"E{args.perm.shape[0]}G{args.feasible.shape[0]}A{A}N{args.capacity.shape[0]}"
+    sharded = _shard.is_sharded((args, init))
+    if walked is not None and (sharded or device.type == "cpu"):
+        raise ValueError("only the unsharded kernel counts the ring positions it walks")
     if device.type == "cpu":
-        if walked is not None:
-            raise ValueError("only the kernel counts the ring positions it walks")
         t0 = time.perf_counter()
-        out = plan_batch_ref(args, init, n_real)
+        ref = plan_batch_sharded_ref if sharded else plan_batch_ref
+        out = ref(args, init, n_real)
     else:
         lib = _library()
         t0 = time.perf_counter()
-        out = _plan_batch_cuda(lib, args, init, walked, device)
-    _ledger("exact", key, device, t0)
-    # one scan step per alloc lane, each a full-ring score and argmax
-    _devprof.count_rounds("exact", A, A if n_valid is None else int(n_valid), False)
+        if sharded:
+            out = _plan_batch_mesh_cuda(lib, args, init, device)
+        else:
+            out = _plan_batch_cuda(lib, args, init, walked, device)
+    _ledger("exact", key, device, t0, sharded)
+    # one scan step per alloc lane, each a full-ring score and argmax —
+    # under a mesh, one cross-shard round of collectives per lane
+    _devprof.count_rounds("exact", A, A if n_valid is None else int(n_valid), sharded)
     return out
 
 
@@ -800,15 +1153,18 @@ def plan_batch_runs(args: RunArgs, init, a_pad: int, even_mode: bool = False,
     _fault_point()
     device = args.capacity.device
     key = f"N{args.capacity.shape[0]}A{a_pad}"
+    sharded = _shard.is_sharded((args, init))
     if device.type == "cpu":
         t0 = time.perf_counter()
-        placements, rounds = plan_batch_runs_ref(args, init, a_pad, even_mode)
+        ref = plan_batch_runs_sharded_ref if sharded else plan_batch_runs_ref
+        placements, rounds = ref(args, init, a_pad, even_mode)
     else:
         lib = _library()
         t0 = time.perf_counter()
-        placements, rounds = _plan_batch_runs_cuda(lib, args, init, a_pad, even_mode, device)
-    _ledger("runs", key, device, t0)
-    _devprof.count_rounds("runs", rounds, args.n_allocs if n_valid is None else n_valid, False)
+        launch = _plan_batch_runs_mesh_cuda if sharded else _plan_batch_runs_cuda
+        placements, rounds = launch(lib, args, init, a_pad, even_mode, device)
+    _ledger("runs", key, device, t0, sharded)
+    _devprof.count_rounds("runs", rounds, args.n_allocs if n_valid is None else n_valid, sharded)
     return placements, rounds
 
 
@@ -871,17 +1227,19 @@ def plan_batch_windowed(args: WindowArgs, used0, collisions0, n_real: int, a_pad
     _fault_point()
     device = args.capacity.device
     key = f"N{args.capacity.shape[0]}A{a_pad}"
+    sharded = _shard.is_sharded((args, used0, collisions0))
     if device.type == "cpu":
         t0 = time.perf_counter()
-        placements, rounds = plan_batch_windowed_ref(args, used0, collisions0, n_real, a_pad)
+        ref = plan_batch_windowed_sharded_ref if sharded else plan_batch_windowed_ref
+        placements, rounds = ref(args, used0, collisions0, n_real, a_pad)
     else:
         lib = _library()
         t0 = time.perf_counter()
-        placements, rounds = _plan_batch_windowed_cuda(lib, args, used0, collisions0, n_real,
-                                                       a_pad, device)
-    _ledger("windowed", key, device, t0)
+        launch = _plan_batch_windowed_mesh_cuda if sharded else _plan_batch_windowed_cuda
+        placements, rounds = launch(lib, args, used0, collisions0, n_real, a_pad, device)
+    _ledger("windowed", key, device, t0, sharded)
     _devprof.count_rounds("windowed", rounds, args.n_allocs if n_valid is None else n_valid,
-                          False)
+                          sharded)
     return placements, rounds
 
 
@@ -910,6 +1268,173 @@ def _plan_batch_windowed_cuda(lib, args: WindowArgs, used0, collisions0, n_real:
         N, C, n_real, a_pad,
         _stream(device),
     )
+    return placements, rounds[0]
+
+
+# ---------------------------------------------------------------------------
+# the sharded kernels (csrc/mesh.cu): one cooperative launch of S shards of
+# Q blocks, every slab of a sharded leaf passed by its own pointer
+# ---------------------------------------------------------------------------
+
+#: shards a sharded kernel takes (its pointer table's width)
+MESH_MAX_SHARDS = 16
+#: resource columns the sharded kernels keep in registers
+MESH_MAX_COLS = 8
+_MESH_WHICH = {"mesh_exact": 0, "mesh_runs": 1, "mesh_windowed": 2}
+_MESH_REFUSED = 0x4E5410
+
+
+def mesh_shape(kernel: str, n_shards: int, N: int, G: int = 1, V: int = 1, E: int = 1) -> dict:
+    """The launch of sharded kernel ``kernel`` (``mesh_exact``,
+    ``mesh_runs``, ``mesh_windowed``) over ``n_shards`` shards of an N-row
+    axis on the current card: its ``blocks_a_shard``, ``blocks``, the
+    card's co-resident ``max_blocks`` and the global ``scratch`` bytes.
+    Shards that cannot all be co-resident raise ``KernelFault``."""
+    if not 1 <= n_shards <= MESH_MAX_SHARDS:
+        raise KernelFault(f"the sharded kernels take 1 to {MESH_MAX_SHARDS} shards, not {n_shards}")
+    out = (ctypes.c_int * 2)()
+    scratch = ctypes.c_longlong(0)
+    rc = _library().ntt_mesh_shape(out, ctypes.addressof(scratch), _MESH_WHICH[kernel],
+                                   n_shards, N, G, V, E, None)
+    if rc == _MESH_REFUSED:
+        raise KernelFault(f"{n_shards} shards of {kernel} cannot be co-resident on the card "
+                          f"({out[1]} blocks)")
+    _launch_status(kernel, rc)
+    return dict(shards=n_shards, blocks_a_shard=out[0], blocks=n_shards * out[0],
+                max_blocks=out[1], scratch=scratch.value)
+
+
+class _Meta:
+    """What ``_check_cuda`` reads of a tensor, for a sharded leaf: its
+    slabs' device and dtype, its full shape, contiguous when every slab is
+    and all have one shape."""
+
+    def __init__(self, x: _shard.Sharded):
+        t0 = x.slabs[0]
+        self.device, self.dtype, self.shape = t0.device, t0.dtype, x.shape
+        self._contiguous = all(t.is_contiguous() and t.shape == t0.shape for t in x.slabs)
+
+    def is_contiguous(self) -> bool:
+        return self._contiguous
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+
+def _check_mesh(named: dict, specs: dict, shapes: dict, device: torch.device) -> dict:
+    """``_check_cuda`` over a sharded tree whose leaves split as ``specs``
+    say (the spec tree the kernel reads them by): every split leaf over
+    the same shard count, which divides N; returns the dimension sizes and
+    ``S``."""
+    metas, counts = {}, set()
+    for name, x in named.items():
+        want = specs[name]
+        if want == _shard.REP:
+            if isinstance(x, _shard.Sharded):
+                raise ValueError(f"{name} is split over the mesh; the kernel takes it replicated")
+            metas[name] = x
+            continue
+        if not isinstance(x, _shard.Sharded) or x.split != want:
+            raise ValueError(f"{name} must be split as {want} over the mesh")
+        counts.add(len(x.slabs))
+        metas[name] = _Meta(x)
+    if len(counts) != 1:
+        raise ValueError(f"split leaves over shard counts {sorted(counts)}")
+    d = _check_cuda(metas, shapes, device)
+    d["S"] = counts.pop()
+    if d["N"] % d["S"]:
+        raise ValueError(f"N {d['N']} does not split into {d['S']} equal shards")
+    if d["S"] > MESH_MAX_SHARDS:
+        raise KernelFault(f"the sharded kernels take at most {MESH_MAX_SHARDS} shards, not {d['S']}")
+    return d
+
+
+def _clone(x):
+    if isinstance(x, _shard.Sharded):
+        return _shard.Sharded(x.split, (t.clone() for t in x.slabs))
+    return x.clone()
+
+
+def _table(leaves) -> np.ndarray:
+    """The pointer table of a sharded launch: MESH_MAX_SHARDS entries for
+    each split leaf (its slabs in shard order), one for each other."""
+    entries = []
+    for x in leaves:
+        if isinstance(x, _shard.Sharded):
+            ptrs = [t.data_ptr() for t in x.slabs]
+            entries += ptrs + [0] * (MESH_MAX_SHARDS - len(ptrs))
+        else:
+            entries.append(x.data_ptr())
+    return np.array(entries, dtype=np.uint64)
+
+
+def _launch_mesh(name: str, fn, leaves, *ints, device) -> None:
+    table = _table(leaves)
+    _launch(name, fn, ctypes.c_void_p(table.ctypes.data), *ints, _stream(device))
+
+
+def _plan_batch_mesh_cuda(lib, args: BatchArgs, init: BatchState, device):
+    aspec, sspec = _shard.batch_specs()
+    d = _check_mesh({**args._asdict(), **init._asdict()}, {**aspec._asdict(), **sspec._asdict()},
+                    _EXACT_SHAPES, device)
+    N, C, G, V, E, A, S = (d[k] for k in "NCGVEAS")
+    for t in args.perm.slabs:
+        _check_index(t, N, "perm")
+    _check_index(args.groups, G, "groups")
+    _check_index(args.group_eval, E, "group_eval")
+    if not 2 <= C <= MESH_MAX_COLS:
+        raise KernelFault(f"the sharded exact scan takes 2 to {MESH_MAX_COLS} resource columns, "
+                          f"not {C}")
+    shape = mesh_shape("mesh_exact", S, N, G, V, E)
+    state = BatchState(*(_clone(x) for x in init))
+    placements = torch.empty(A, dtype=torch.int32, device=device)
+    scratch = torch.empty(max(shape["scratch"], 16), dtype=torch.uint8, device=device)
+    _launch_mesh("mesh_exact", lib.ntt_mesh_exact, [*args, *state, placements, scratch],
+                 S, shape["blocks_a_shard"], N, C, G, V, E, A, device=device)
+    return state, placements
+
+
+def _plan_batch_runs_mesh_cuda(lib, args: RunArgs, init, a_pad: int, even_mode: bool, device):
+    aspec, ispec = _shard.run_specs()
+    names = ("used", "collisions", "spread_counts", "spread_present")
+    d = _check_mesh({**args._asdict(), **dict(zip(names, init))},
+                    {**aspec._asdict(), **dict(zip(names, ispec))}, _RUN_SHAPES, device)
+    N, C, V, S = d["N"], d["C"], d["V"], d["S"]
+    if not 2 <= C <= MESH_MAX_COLS:
+        raise KernelFault(f"the sharded run planner takes 2 to {MESH_MAX_COLS} resource columns, "
+                          f"not {C}")
+    shape = mesh_shape("mesh_runs", S, N, V=V)
+    used, coll = _clone(init[0]), _clone(init[1])
+    placements = torch.empty(a_pad, dtype=torch.int32, device=device)
+    rounds = torch.zeros(1, dtype=torch.int32, device=device)
+    scratch = torch.empty(max(shape["scratch"], 16), dtype=torch.uint8, device=device)
+    _launch_mesh("mesh_runs", lib.ntt_mesh_runs,
+                 [*args, used, coll, init[2], init[3], placements, rounds, scratch],
+                 S, shape["blocks_a_shard"], N, C, V, a_pad, int(bool(even_mode)), device=device)
+    return placements, rounds[0]
+
+
+def _plan_batch_windowed_mesh_cuda(lib, args: WindowArgs, used0, collisions0, n_real: int,
+                                   a_pad: int, device):
+    aspec, (uspec, cspec) = _shard.window_specs()
+    d = _check_mesh({**args._asdict(), "used": used0, "collisions": collisions0},
+                    {**aspec._asdict(), "used": uspec, "collisions": cspec}, _WINDOW_SHAPES,
+                    device)
+    N, C, S = d["N"], d["C"], d["S"]
+    _check_perm(args.perm.full(), N)
+    if not 0 < n_real <= N:
+        raise ValueError(f"n_real {n_real} outside (0, {N}]")
+    if not 2 <= C <= MESH_MAX_COLS:
+        raise KernelFault(f"the sharded windowed planner takes 2 to {MESH_MAX_COLS} resource "
+                          f"columns, not {C}")
+    shape = mesh_shape("mesh_windowed", S, N)
+    used, coll = _clone(used0), _clone(collisions0)
+    placements = torch.empty(a_pad, dtype=torch.int32, device=device)
+    rounds = torch.zeros(1, dtype=torch.int32, device=device)
+    scratch = torch.empty(max(shape["scratch"], 16), dtype=torch.uint8, device=device)
+    _launch_mesh("mesh_windowed", lib.ntt_mesh_windowed,
+                 [*args, used, coll, placements, rounds, scratch],
+                 S, shape["blocks_a_shard"], N, C, n_real, a_pad, device=device)
     return placements, rounds[0]
 
 

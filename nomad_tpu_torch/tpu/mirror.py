@@ -18,7 +18,8 @@ whole freshness test.
   ``device_state`` / ``verify_handles`` / ``locked_cluster`` / ``stats``,
   with the paging budget gate and its counters.
 
-Left out (ROADMAP A12): the mesh's sharded planes.
+Left out (ROADMAP A12b): the mesh's row-sharded planes; under an active
+mesh ``DeviceState`` raises.
 """
 
 from __future__ import annotations
@@ -195,10 +196,14 @@ class DeviceState:
     _ROW_BUCKETS = (8, 64, 512, 4096)
 
     def __init__(self, epoch: int, n_pad: int, capacity, usable, used, device=None):
+        from . import shard
+
         dev = resolve_device(device)
+        n = capacity.shape[0]
+        # the row-sharded planes of the JAX package's mesh: ROADMAP A12b
+        shard.refuse_under_mesh("the mirror's device state under a mesh", n)
         self.epoch = epoch
         self.n_pad = n_pad
-        n = capacity.shape[0]
         cap = np.zeros((n_pad, R_COLS), dtype=np.int32)
         cap[:n] = np.clip(capacity, 0, 2**31 - 1)
         usa = np.ones((n_pad, 2), dtype=np.float32)

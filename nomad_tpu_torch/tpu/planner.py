@@ -33,9 +33,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import not_ported, resolve_device
 from ..debug import devprof as _devprof
-from . import kernel, paging, wavefront
+from . import kernel, paging, shard, wavefront
 from .problems import bucket
 
 # fill value of each node-axis plane's pad rows (the scheduler's: a pad
@@ -63,12 +63,14 @@ def _pad(x: np.ndarray, axis: int, size: int, fill) -> np.ndarray:
     return np.concatenate([x, np.full(shape, fill, dtype=x.dtype)], axis=axis)
 
 
-def pad_planes(planes: dict) -> dict:
+def pad_planes(planes: dict, mesh=None) -> dict:
     """Pad the node axis and the alloc axis up the scheduler's bucket
-    ladder; each eval's ring extends with the pad node ids."""
+    ladder (the node axis to a multiple of the mesh's shards, the last
+    shard taking the pad rows: ``shard.node_bucket``); each eval's ring
+    extends with the pad node ids."""
     out = dict(planes)
     n_rows = planes["capacity"].shape[0]
-    N = bucket(n_rows)
+    N = shard.node_bucket(n_rows, mesh)
     A = bucket(planes["demands"].shape[0])
     for name, fill in _NODE_PAD.items():
         axis = 0 if name in ("capacity", "usable", "used0") else 1
@@ -80,11 +82,19 @@ def pad_planes(planes: dict) -> dict:
     return out
 
 
-def choose_mode(planes: dict, exact_only: bool = False) -> str:
+def choose_mode(planes: dict, exact_only: bool = False, mesh=None) -> str:
     """``runs``, ``windowed``, ``paged``, ``exact-scan`` or ``wavefront``, by
     the scheduler's predicates (batch_sched.py:690, :768, :785 and :917)
     on padded planes; ``exact_only`` (the scheduler's ``EXACT_ONLY``)
-    leaves out the runs and windowed planners."""
+    leaves out the runs and windowed planners. Under ``mesh`` the
+    wavefront and paged routes raise: their sharded forms are not ported."""
+    mode = _mode(planes, exact_only)
+    if mesh is not None and mode in ("wavefront", "paged"):
+        raise not_ported(f"the {mode} route under a mesh", "A12b, the mesh's server path")
+    return mode
+
+
+def _mode(planes: dict, exact_only: bool) -> str:
     G = planes["feasible"].shape[0]
     E = planes["perm"].shape[0]
     exact = "wavefront" if wavefront.enabled() else "exact-scan"
@@ -100,8 +110,9 @@ def choose_mode(planes: dict, exact_only: bool = False) -> str:
     return exact
 
 
-def exact_inputs(p: dict, device) -> tuple:
-    """(BatchArgs, BatchState) of the exact scan over padded planes."""
+def exact_inputs(p: dict, device, mesh=None) -> tuple:
+    """(BatchArgs, BatchState) of the exact scan over padded planes; under
+    ``mesh`` placed as ``shard.batch_specs()`` splits them."""
     args = {f: p[f] for f in kernel.BatchArgs._fields}
     state = dict(
         used=p["used0"],
@@ -110,12 +121,17 @@ def exact_inputs(p: dict, device) -> tuple:
         spread_present=p["present0"],
         offset=np.zeros(p["perm"].shape[0], np.int32),
     )
+    if mesh is not None:
+        aspec, sspec = shard.batch_specs()
+        return (shard.put(kernel.BatchArgs(**args), aspec, mesh),
+                shard.put(kernel.BatchState(**state), sspec, mesh))
     _devprof.count_tree_h2d((args, state))
     return kernel.from_numpy(args, device), kernel.from_numpy(state, device)
 
 
-def runs_inputs(p: dict, device) -> tuple:
-    """(RunArgs, init) of the run planner: node planes in rotation order."""
+def runs_inputs(p: dict, device, mesh=None) -> tuple:
+    """(RunArgs, init) of the run planner: node planes in rotation order;
+    under ``mesh`` placed as ``shard.run_specs()`` splits them."""
     perm = p["perm"][0]
     args = dict(
         capacity=p["capacity"][perm],
@@ -135,12 +151,16 @@ def runs_inputs(p: dict, device) -> tuple:
         n_allocs=np.int32(p["a_real"]),
     )
     init = (p["used0"][perm], p["collisions0"][0][perm], p["counts0"][0], p["present0"][0])
+    if mesh is not None:
+        aspec, ispec = shard.run_specs()
+        return shard.put(kernel.RunArgs(**args), aspec, mesh), shard.put(init, ispec, mesh)
     _devprof.count_tree_h2d((args, init))
     return kernel.from_numpy(args, device), kernel.from_numpy(init, device)
 
 
-def window_inputs(p: dict, device) -> tuple:
-    """(WindowArgs, used0, collisions0) of the windowed planner."""
+def window_inputs(p: dict, device, mesh=None) -> tuple:
+    """(WindowArgs, used0, collisions0) of the windowed planner; under
+    ``mesh`` placed as ``shard.window_specs()`` splits them."""
     args = dict(
         capacity=p["capacity"],
         usable=p["usable"],
@@ -151,6 +171,10 @@ def window_inputs(p: dict, device) -> tuple:
         limit=p["limits"][0],
         n_allocs=np.int32(p["a_real"]),
     )
+    if mesh is not None:
+        aspec, (uspec, cspec) = shard.window_specs()
+        return (shard.put(kernel.WindowArgs(**args), aspec, mesh),
+                *shard.put((p["used0"], p["collisions0"][0]), (uspec, cspec), mesh))
     _devprof.count_tree_h2d((args, p["used0"], p["collisions0"][0]))
     used0, coll0 = kernel.from_numpy((p["used0"], p["collisions0"][0]), device)
     return kernel.from_numpy(args, device), used0, coll0
@@ -172,10 +196,11 @@ def _event(device: torch.device):
 
 @dataclass
 class PendingPlan:
-    """A launched plan: its mode, padded sizes, kernel launches and the
-    paged planner's ``extra`` stats are known at launch; ``wait()`` syncs
-    and returns what ``plan_eval`` returns. ``events`` are the CUDA events
-    recorded around the launch on the card (None on the CPU)."""
+    """A launched plan: its mode, padded sizes, kernel launches, mesh
+    shards (1 unsharded) and the paged planner's ``extra`` stats are known
+    at launch; ``wait()`` syncs and returns what ``plan_eval`` returns.
+    ``events`` are the CUDA events recorded around the launch on the card
+    (None on the CPU)."""
 
     mode: str
     n_pad: int
@@ -188,6 +213,7 @@ class PendingPlan:
     t0: float
     device: torch.device
     events: object = None
+    shards: int = 1
 
     def wait(self):
         _sync(self.device)
@@ -206,6 +232,7 @@ class PendingPlan:
             kernel_s=kernel_s,
             device_s=device_s,
             launches=self.launches,
+            shards=self.shards,
             **self.extra,
         )
         return self.placements[: self.a_real].cpu().numpy(), stats
@@ -217,8 +244,12 @@ def launch_eval(planes: dict, device=None, exact_only: bool = False) -> PendingP
     A kernel's refusal of its input raises ``kernel.KernelFault`` here,
     before any launch."""
     dev = resolve_device(device)
-    p = pad_planes(planes)
-    mode = choose_mode(p, exact_only)
+    # the mesh, when one is active and the cluster passes its size gate
+    mesh = shard.active_mesh(planes["n_real"])
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"the mesh lives on {mesh.device}, the eval asks for {dev}")
+    p = pad_planes(planes, mesh)
+    mode = choose_mode(p, exact_only, mesh)
     n_real, a_real = p["n_real"], p["a_real"]
     A = p["demands"].shape[0]
     N = p["capacity"].shape[0]
@@ -235,13 +266,13 @@ def launch_eval(planes: dict, device=None, exact_only: bool = False) -> PendingP
         extra = {k: v for k, v in pstats.items() if k != "rounds"}
         N = pstats["n_pad"]
     elif mode == "runs":
-        args, init = runs_inputs(p, dev)
+        args, init = runs_inputs(p, dev, mesh)
         _sync(dev)
         t0, start = time.perf_counter(), _event(dev)
         placements, rounds = kernel.plan_batch_runs(args, init, A, bool(p["spread_even"][0]),
                                                     n_valid=a_real)
     elif mode == "windowed":
-        args, used0, coll0 = window_inputs(p, dev)
+        args, used0, coll0 = window_inputs(p, dev, mesh)
         _sync(dev)
         t0, start = time.perf_counter(), _event(dev)
         placements, rounds = kernel.plan_batch_windowed(args, used0, coll0, n_real, A,
@@ -252,19 +283,21 @@ def launch_eval(planes: dict, device=None, exact_only: bool = False) -> PendingP
         t0, start = time.perf_counter(), _event(dev)
         _, placements, rounds = wavefront.plan_batch_wavefront(args, state, n_real, n_valid=a_real)
     else:
-        args, state = exact_inputs(p, dev)
+        args, state = exact_inputs(p, dev, mesh)
         _sync(dev)
         t0, start = time.perf_counter(), _event(dev)
         _, placements = kernel.plan_batch(args, state, n_real, n_valid=a_real)
         rounds = a_real  # one scan step per alloc
     launches = sum(kernel.LAUNCHES.values()) - before
     events = (start, _event(dev)) if start is not None else None
-    return PendingPlan(mode, N, A, launches, extra, placements, rounds, a_real, t0, dev, events)
+    return PendingPlan(mode, N, A, launches, extra, placements, rounds, a_real, t0, dev, events,
+                       shard.mesh_size(mesh))
 
 
 def plan_eval(planes: dict, device=None):
     """Plan one eval; returns (node id per real alloc, -1 = unplaced, as
-    numpy int32; stats ``{mode, rounds, kernel_s, device_s, launches}``,
+    numpy int32; stats ``{mode, rounds, kernel_s, device_s, launches,
+    shards}``,
     and for the paged planner its tile cache's stats with ``tiles``,
     ``tile_nodes`` and ``n_pad``). ``kernel_s`` is the planner call on the
     device, from launch to synchronized result (for the paged planner the

@@ -31,12 +31,14 @@ from .problems import bucket as _bucket
 logger = logging.getLogger("nomad_tpu.tpu.warmup")
 
 
-def bucket_shape(n_nodes: int, n_allocs: int) -> tuple[int, int]:
+def bucket_shape(n_nodes: int, n_allocs: int, mesh=None) -> tuple[int, int]:
     """The exact padded shape production hits for a real (nodes, allocs)
     pair — computed through the ONE bucketing policy (problems.bucket;
-    on one device the node axis takes the same policy, with no mesh to
-    round it to) so the prewarm ladder can never drift from the scheduler."""
-    return _bucket(n_nodes), _bucket(n_allocs)
+    shard.node_bucket for the node axis when a mesh is given) so the
+    prewarm ladder can never drift from the scheduler."""
+    from .shard import node_bucket
+
+    return node_bucket(n_nodes, mesh), _bucket(n_allocs)
 
 
 #: default ladder: dev/CI clusters and the 10K-node / 50K-alloc headline,
@@ -226,12 +228,14 @@ def prewarm_drain(n_nodes: int, batch: int, v_values: int = 8, device=None) -> i
 
     from .. import resolve_device
     from ..debug import devprof as _devprof
+    from . import shard as _shard
     from . import wavefront as _wavefront
     from .drain import used_bases
     from .kernel import plan_batch, verify_rows
     from .mirror import DeviceState
 
     dev = resolve_device(device)
+    _shard.refuse_under_mesh("the drain warm-up under a mesh", n_nodes)
     N = _bucket(n_nodes)
     E = _bucket(batch)
     G = _bucket(batch)

@@ -41,7 +41,8 @@ import torch
 
 from ..debug import devprof as _devprof
 from . import kernel
-from .kernel import MAX_SKIP, NEG_INF, BatchArgs, BatchState, _scores
+from .kernel import (MAX_SKIP, NEG_INF, BatchArgs, BatchState, _rot_incl_t, _scores,  # noqa: F401
+                     _tcumsum, _tmax, _tmin, _tsum)
 
 DEFAULT_MAX_ROUND = 32
 DEFAULT_TOP_M = 1
@@ -107,47 +108,6 @@ def shards_for(n_pad: int, n_shards: int) -> int:
     else 1 (flat reductions)."""
     s = max(1, int(n_shards))
     return s if n_pad % s == 0 else 1
-
-
-# ---------------------------------------------------------------------------
-# tournament reductions: a local stage per shard of the [S, N/S] view, then
-# an S-wide finish; the same integers and floats as the flat reduction
-# ---------------------------------------------------------------------------
-
-def _tsum(x: torch.Tensor, s: int) -> torch.Tensor:
-    if s <= 1:
-        return x.sum(dtype=x.dtype)
-    return x.reshape(s, -1).sum(dim=1, dtype=x.dtype).sum(dtype=x.dtype)
-
-
-def _tmax(x: torch.Tensor, s: int) -> torch.Tensor:
-    if s <= 1:
-        return x.max()
-    return x.reshape(s, -1).amax(dim=1).max()
-
-
-def _tmin(x: torch.Tensor, s: int) -> torch.Tensor:
-    if s <= 1:
-        return x.min()
-    return x.reshape(s, -1).amin(dim=1).min()
-
-
-def _tcumsum(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Inclusive prefix sum: local scans per shard, rebased by the exclusive
-    scan of the shard totals."""
-    if s <= 1:
-        return torch.cumsum(x, 0, dtype=x.dtype)
-    loc = torch.cumsum(x.reshape(s, -1), 1, dtype=x.dtype)
-    base = torch.cumsum(loc[:, -1], 0, dtype=x.dtype) - loc[:, -1]
-    return (loc + base[:, None]).reshape(x.shape)
-
-
-def _rot_incl_t(x: torch.Tensor, offset: int, total, positions: torch.Tensor, s: int):
-    """``kernel._rot_incl`` with its prefix sum staged as a tournament."""
-    xi = x.to(torch.int32)
-    xc = _tcumsum(xi, s)
-    x_off = (xc - xi)[offset]
-    return torch.where(positions >= offset, xc - x_off, total - x_off + xc)
 
 
 _BIG = 2**30

@@ -17,7 +17,7 @@ import pytest
 from torch_for_tests import multi_eval_problem, runcap_problem, torch
 
 from nomad_tpu_torch.tpu import kernel as tk
-from nomad_tpu_torch.tpu import paging, planner, problems, wavefront
+from nomad_tpu_torch.tpu import multichip, paging, planner, problems, shard, wavefront
 
 
 @pytest.fixture
@@ -1898,3 +1898,174 @@ def test_a_device_job_is_handed_the_card(cuda_device):
         time.sleep(0.05)
     assert not [t.name for t in set(threading.enumerate()) - before
                 if t.is_alive() and t.name != "eval-broker-timers"]
+
+
+# ---------------------------------------------------------------------------
+# the sharded kernels (csrc/mesh.cu): K5s, K6s and K7s over a node axis
+# split into S shards on the card, against their sharded plain versions on
+# the CPU and the unsharded kernels on the card
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = (2, 4, 8)
+
+
+def _extra_column(capacity, used, demand):
+    """The same planes with a 5th resource column (free device instances)."""
+    n = capacity.shape[0]
+    return (np.concatenate([capacity, np.full((n, 1), 3, np.int32)], 1),
+            np.concatenate([used, np.zeros((n, 1), np.int32)], 1),
+            np.concatenate([demand, np.ones(demand.shape[:-1] + (1,), np.int32)], -1))
+
+
+def _mesh_cluster(n, a, seed, s, n_values=4):
+    c = problems.build_cluster(n, a, n_values=n_values, seed=seed)
+    n_pad = shard.node_bucket(n, shard.Mesh(s, "cpu"))
+    return problems.pad_cluster(c, n_pad) if n_pad != n else c
+
+
+def _mesh_exact(case, s):
+    n, a, seed, cols = {"1k": (1024, 96, 0, 4), "uneven": (2059, 96, 13, 4),
+                        "devices": (1024, 200, 4, 5)}[case]
+    args, init = problems.exact_problem(_mesh_cluster(n, a, seed, s))
+    if cols == 5:
+        cap, used, dem = _extra_column(args["capacity"], init["used"], args["demands"])
+        args, init = dict(args, capacity=cap, demands=dem), dict(init, used=used)
+    return tk.BatchArgs(**args), tk.BatchState(**init), n
+
+
+def _mesh_runs(case, s):
+    n, a, seed, cols, values = {"1k": (1024, 512, 3, 4, 4), "uneven": (2059, 384, 11, 4, 4),
+                                "devices": (1024, 300, 6, 5, 4),
+                                "values_40": (1024, 512, 3, 4, 40),
+                                "values_300": (2059, 384, 11, 4, 300)}[case]
+    args, init = problems.runs_problem(_mesh_cluster(n, a, seed, s, values))
+    init = tuple(init)
+    if cols == 5:
+        cap, used, dem = _extra_column(args["capacity"], init[0], args["demand"])
+        args, init = dict(args, capacity=cap, demand=dem), (used, *init[1:])
+    return tk.RunArgs(**args), init, a
+
+
+def _mesh_windowed(case, s):
+    n, a, seed, cols = {"1k": (1024, 512, 5, 4), "uneven": (2059, 300, 7, 4),
+                        "devices": (1024, 300, 8, 5)}[case]
+    args, used0, coll0 = problems.window_problem(_mesh_cluster(n, a, seed, s), limit=10)
+    if cols == 5:
+        cap, used0, dem = _extra_column(args["capacity"], used0, args["demand"])
+        args = dict(args, capacity=cap, demand=dem)
+    return tk.WindowArgs(**args), used0, coll0, n, a
+
+
+MESH_CASES = ("1k", "uneven", "devices")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("case", MESH_CASES)
+def test_mesh_exact_kernel_matches_plain(case, s, cuda_device):
+    args, init, n_real = _mesh_exact(case, s)
+    aspec, sspec = shard.batch_specs()
+    card, cpu = shard.Mesh(s, cuda_device), shard.Mesh(s, "cpu")
+    before = tk.LAUNCHES["mesh_exact"]
+    state, got = tk.plan_batch(shard.put(args, aspec, card), shard.put(init, sspec, card), n_real)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mesh_exact"] == before + 1
+    want_state, want = tk.plan_batch(shard.put(args, aspec, cpu), shard.put(init, sspec, cpu),
+                                     n_real)
+    _same(got, want)
+    for g, w in zip(shard.gather(state), shard.gather(want_state)):
+        _same(g, w)
+    _, flat = tk.plan_batch(tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device),
+                            n_real)
+    _same(got, flat)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("case", MESH_CASES + ("values_40", "values_300"))
+def test_mesh_runs_kernel_matches_plain(case, s, cuda_device):
+    args, init, a_pad = _mesh_runs(case, s)
+    aspec, ispec = shard.run_specs()
+    card, cpu = shard.Mesh(s, cuda_device), shard.Mesh(s, "cpu")
+    before = tk.LAUNCHES["mesh_runs"]
+    got, rounds = tk.plan_batch_runs(shard.put(args, aspec, card), shard.put(init, ispec, card),
+                                     a_pad)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mesh_runs"] == before + 1
+    want, want_rounds = tk.plan_batch_runs(shard.put(args, aspec, cpu),
+                                           shard.put(init, ispec, cpu), a_pad)
+    _same(got, want)
+    assert int(rounds) == want_rounds
+    flat, flat_rounds = tk.plan_batch_runs(tk.from_numpy(args, cuda_device),
+                                           tk.from_numpy(init, cuda_device), a_pad)
+    _same(got, flat)
+    assert int(flat_rounds) == want_rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("case", MESH_CASES)
+def test_mesh_windowed_kernel_matches_plain(case, s, cuda_device):
+    args, used0, coll0, n_real, a_pad = _mesh_windowed(case, s)
+    aspec, (uspec, cspec) = shard.window_specs()
+    card, cpu = shard.Mesh(s, cuda_device), shard.Mesh(s, "cpu")
+    before = tk.LAUNCHES["mesh_windowed"]
+    got, rounds = tk.plan_batch_windowed(shard.put(args, aspec, card), shard.put(used0, uspec, card),
+                                         shard.put(coll0, cspec, card), n_real, a_pad)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mesh_windowed"] == before + 1
+    want, want_rounds = tk.plan_batch_windowed(shard.put(args, aspec, cpu),
+                                               shard.put(used0, uspec, cpu),
+                                               shard.put(coll0, cspec, cpu), n_real, a_pad)
+    _same(got, want)
+    assert int(rounds) == want_rounds
+    flat, flat_rounds = tk.plan_batch_windowed(tk.from_numpy(args, cuda_device),
+                                               *tk.from_numpy((used0, coll0), cuda_device),
+                                               n_real, a_pad)
+    _same(got, flat)
+    assert int(flat_rounds) == want_rounds
+
+
+@pytest.mark.gpu
+def test_mesh_refuses_what_its_kernels_do_not_take(cuda_device):
+    """More shards than the kernels' pointer tables hold (or than the card
+    co-schedules) are refused with KernelFault before any launch."""
+    before = dict(tk.LAUNCHES)
+    shape = tk.mesh_shape("mesh_exact", 8, 10_240)
+    assert shape["blocks"] <= shape["max_blocks"] and shape["blocks_a_shard"] >= 1
+    with pytest.raises(tk.KernelFault, match="shards"):
+        tk.mesh_shape("mesh_exact", tk.MESH_MAX_SHARDS * 2, 10_240)
+    args, init, n_real = _mesh_exact("1k", 32)
+    aspec, sspec = shard.batch_specs()
+    mesh = shard.Mesh(32, cuda_device)
+    with pytest.raises(tk.KernelFault):
+        tk.plan_batch(shard.put(args, aspec, mesh), shard.put(init, sspec, mesh), n_real)
+    assert tk.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+def test_mesh_dryrun_places_every_alloc(s, cuda_device):
+    before = tk.LAUNCHES["mesh_exact"]
+    report = multichip.dryrun_multichip(s, device=cuda_device)
+    assert report["placed"] == 512 and report["mismatches"] == 0
+    assert tk.LAUNCHES["mesh_exact"] == before + 1
+
+
+@pytest.mark.gpu
+def test_mesh_plan_eval_places_as_unsharded(cuda_device, monkeypatch):
+    """``planner.plan_eval`` under a mesh on the card: the run planner's
+    eval launches K6s once and places as the unsharded kernel."""
+    monkeypatch.setattr(shard, "MIN_NODES", 1024)
+    planes = problems.eval_planes(*problems.exact_problem(problems.build_cluster(1500, 300, seed=9)))
+    flat, flat_stats = planner.plan_eval(planes, device=cuda_device)
+    shard.configure(4, device="cuda")
+    try:
+        before = tk.LAUNCHES["mesh_runs"]
+        got, stats = planner.plan_eval(planes, device=cuda_device)
+    finally:
+        shard.configure(enabled=False)
+    assert stats["mode"] == flat_stats["mode"] == "runs"
+    assert stats["shards"] == 4 and flat_stats["shards"] == 1
+    assert tk.LAUNCHES["mesh_runs"] == before + 1
+    np.testing.assert_array_equal(got, flat)

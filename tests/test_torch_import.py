@@ -29,6 +29,8 @@ MODULES = [
     "nomad_tpu_torch.tpu.drain",
     "nomad_tpu_torch.tpu.wavefront",
     "nomad_tpu_torch.tpu.paging",
+    "nomad_tpu_torch.tpu.shard",
+    "nomad_tpu_torch.tpu.multichip",
     "nomad_tpu_torch.core",
     "nomad_tpu_torch.core.plan_apply",
     "nomad_tpu_torch.structs",
@@ -295,7 +297,7 @@ def test_server_and_its_device_tier_default_to_cuda():
     # the acl stanza is ported: the server enforces it
     acl_server = Server({"acl": {"enabled": True}}, device="cpu")
     assert acl_server.acl_enabled()
-    for stanza, item in (("shard_devices", "A12"),):
+    for stanza, item in (("shard_devices", "A12b"),):
         s = Server({stanza: 1}, device="cpu")
         with pytest.raises(NotImplementedError, match=item):
             s.start(num_workers=0)
