@@ -274,10 +274,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    6's headline eval through ``TPUBatchScheduler`` under the mesh: its
    placements equal phase 6's, its ``eval.plan_kernel`` span tagged with
    4 shards, its ``process()`` ms printed. The mesh is off again after;
-13. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
-   scheduler, server, agent, soak, federation, client and mesh
-   launches), the card's name and power limit, and last ``{"ok": true,
-   "device": {...}}``.
+   each sharded kernel's device time by the profiler at full width;
+13. the server over the mesh: with ``shard.configure(4, device="cuda")``
+   and every launch counter set to 0 before and read after, phase 7's
+   full-width server run (10,000 nodes, its jobs and config): every eval
+   completes, every job has its count, no node is over capacity, no
+   scheduler fallback; the fused drain's sharded scan (K5s) and usage
+   bases (K9s), the mirror's sharded dirty-row scatter (K10s), the
+   applier's sharded verify (K8s) and the solo eval's K7s each launch, no
+   unsharded server-path kernel launches, and every K8s, K9s and K10s
+   call, and the K5s calls from the fewest lanes up (``ServerProbe``),
+   equal their sharded plain versions. Then SERVER_SMALL's jobs over
+   4,096 nodes (the mesh's gate) with one drain worker, on the card under
+   the mesh and unsharded: the placements must be equal. K8s, K9s and
+   K10s (csrc/mesh_server.cu) are timed by CUDA events at phase 5's
+   shapes over 4 and 8 shards beside the unsharded kernels and a PyTorch
+   composition over each slab, each equal to its sharded plain version;
+   K5s over phase 5's two fused batches (E 32) beside the unsharded scan,
+   held against its sharded plain version on the first 512 lanes.
+   ``import chip_smoke; chip_smoke.mesh_server_phase(torch.device("cpu"),
+   size, gate)`` with small ``size`` and ``gate`` dicts and
+   ``shard.MIN_NODES`` lowered rehearses the server runs on the CPU;
+14. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
+   scheduler, server, agent, soak, federation, client, mesh and mesh
+   server launches), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
 """
@@ -914,7 +935,10 @@ def grant_rows(grants: np.ndarray) -> tuple:
 def server_path(dev) -> tuple:
     """Phase 5; returns (the server path's launches per kernel, the
     wavefront route's launches per kernel, JSON rows of the server kernels
-    without their launches)."""
+    without their launches, the scan's drain-bench numbers, the wavefront's
+    drain numbers, the inputs phase 13 times the sharded kernels on: each
+    server kernel's call by name and the two batches' host planes and
+    assembled tables)."""
     from nomad_tpu_torch.core import plan_apply
     from nomad_tpu_torch.tpu import drain, kernel, mirror, problems, wavefront
 
@@ -1078,6 +1102,7 @@ def server_path(dev) -> tuple:
     shape = drain.batch_shape(order, NODES, DRAIN_EVALS)
     args_np, state_np, _ = drain.assemble(order, NODES, shape)
     bargs, init = drain.batch_inputs(planes_b, args_np, state_np, dev)
+    mesh_inputs = {"drain-bench": (tuple(t.cpu().numpy() for t in planes_b), args_np, state_np)}
 
     def scan_kernel():
         return kernel.plan_batch(bargs, init, NODES)
@@ -1155,6 +1180,7 @@ def server_path(dev) -> tuple:
     E, _, A, _, _ = shape
     args_np, state_np, _ = drain.assemble(order, NODES, shape)
     bargs, init = drain.batch_inputs(planes_t, args_np, state_np, dev)
+    mesh_inputs["drain-tenant"] = (tuple(t.cpu().numpy() for t in planes_t), args_np, state_np)
     _, placements = kernel.plan_batch(bargs, init, NODES)
     fused = np.concatenate([out_t[p.eval_id][0] for p in order])
     if not np.array_equal(placements[: len(fused)].cpu().numpy(), fused):
@@ -1275,7 +1301,11 @@ def server_path(dev) -> tuple:
                 + ("not measured" if b["device_us"] is None else f"{b['device_us']:.2f} us")
                 + f", host {b['host_us']:.1f} us, {b['device_ops']} device operations a call, "
                 f"bound {b['bound_ms']:.5f} ms")
-    return launches, wf_launches, server_rows, scan_bench, wf_drain
+    mesh_inputs.update(
+        scatter_rows=(plane0, r, v), used_bases=(used_t, placements, bargs.demands, eval_of, E),
+        verify_rows=(cap_t, used_v, pr, pd, len(rows_t)),
+        flat={row["name"]: row for row in server_rows})
+    return launches, wf_launches, server_rows, scan_bench, wf_drain, mesh_inputs
 
 
 # ---------------------------------------------------------------------------
@@ -1714,10 +1744,14 @@ def server_jobs(size: dict, seed: int = 42) -> tuple:
 
 def _snapshot(x):
     """``x`` with every tensor in it cloned (namedtuples, tuples and lists
-    kept); on the caller's stream, so the clone is what the kernel just
-    read or wrote."""
+    kept, a mesh's slabs each cloned); on the caller's stream, so the
+    clone is what the kernel just read or wrote."""
+    from nomad_tpu_torch.tpu import shard
+
     if isinstance(x, torch.Tensor):
         return x.clone()
+    if isinstance(x, shard.Sharded):
+        return shard.Sharded(x.split, (t.clone() for t in x.slabs))
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(_snapshot(t) for t in x))
     if isinstance(x, (tuple, list)):
@@ -1726,7 +1760,12 @@ def _snapshot(x):
 
 
 def _flat(x) -> list:
-    """The tensors and numbers of a kernel's output, in order."""
+    """The tensors and numbers of a kernel's output, in order (a leaf split
+    over a mesh as its slabs concatenated)."""
+    from nomad_tpu_torch.tpu import shard
+
+    if isinstance(x, shard.Sharded):
+        return [x.full()]
     if isinstance(x, (tuple, list)):
         return [t for part in x for t in _flat(part)]
     return [x]
@@ -1839,8 +1878,15 @@ class ServerProbe:
 
     @staticmethod
     def _plain(name, args):
-        from nomad_tpu_torch.tpu import drain, kernel, mirror, wavefront
+        from nomad_tpu_torch.tpu import drain, kernel, mirror, shard, wavefront
 
+        if shard.is_sharded(args):  # a call over the mesh: its sharded plain version
+            return dict(exact_scan=kernel.plan_batch_sharded_ref,
+                        windowed=kernel.plan_batch_windowed_sharded_ref,
+                        runs=kernel.plan_batch_runs_sharded_ref,
+                        used_bases=drain.used_bases_sharded_ref,
+                        scatter_rows=mirror.scatter_rows_sharded_ref,
+                        verify_rows=kernel.verify_rows_sharded_ref)[name](*args)
         if name == "exact_scan":
             return kernel.plan_batch_ref(*args[:3])
         if name == "wavefront":
@@ -3772,6 +3818,11 @@ def mesh_phase(dev, evals: dict, flat: dict, flat_rows: dict) -> list:
                 fail(f"{name}: differs from the unsharded kernel at full width")
             flat_ms, moved, ops = flat_rows[flat_name]
             bound_ms, bound_by = bound(moved, ops)
+            # the profiler's device time of the full-width call (K5s at
+            # about 0.2 s a call: few calls)
+            dev_us = (device_us(_mesh_call(mode, evals[mode], mesh, dev)[0],
+                                calls=2 if mode == "exact-scan" else 5)
+                      if dev.type == "cuda" else None)
             shape = {}
             if dev.type == "cuda":
                 shape = kernel.mesh_shape(name, MESH_SHARDS, N, *(
@@ -3780,7 +3831,8 @@ def mesh_phase(dev, evals: dict, flat: dict, flat_rows: dict) -> list:
             rows.append(dict(
                 name=name, route="cuda", source="nomad_tpu_torch/tpu/csrc/mesh.cu",
                 replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, rounds=int(rounds), unsharded_ms=flat_ms,
+                bound_by=bound_by, library_ms=None, device_us=dev_us, rounds=int(rounds),
+                unsharded_ms=flat_ms,
                 mesh_comm_frac=devprof.mesh_comm_frac(flat_ms, ms), shards=MESH_SHARDS,
                 blocks_a_shard=shape.get("blocks_a_shard"), ms_8_shards=ms8[name],
                 mesh_comm_frac_8_shards=devprof.mesh_comm_frac(flat_ms, ms8[name]),
@@ -3788,7 +3840,9 @@ def mesh_phase(dev, evals: dict, flat: dict, flat_rows: dict) -> list:
                 paths={"mesh": launches[name], "mesh_8_shards": launches8[name]},
             ))
             log(f"{name}: {ms:.3f} ms per launch over {MESH_SHARDS} shards "
-                f"({shape.get('blocks_a_shard')} blocks a shard), {ms8[name]:.3f} ms over 8; "
+                f"({shape.get('blocks_a_shard')} blocks a shard; on the card by the profiler "
+                + ("not measured" if dev_us is None else f"{dev_us:.1f} us")
+                + f"), {ms8[name]:.3f} ms over 8; "
                 f"unsharded {flat_name} {flat_ms:.3f} ms, mesh_comm_frac "
                 f"{rows[-1]['mesh_comm_frac']} and {rows[-1]['mesh_comm_frac_8_shards']}; sharded "
                 f"plain version {plain_ms:.1f} ms, identical (max abs err {err}); bound "
@@ -3834,6 +3888,321 @@ def mesh_phase(dev, evals: dict, flat: dict, flat_rows: dict) -> list:
         row["launches"] = sum(row["paths"].values())
     log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; {card}")
     return rows
+
+
+#: phase 13: the server path over the mesh. The full-width run is phase 7's
+#: (SERVER, its config and jobs) over MESH_SHARDS shards; the equality run
+#: is SERVER_SMALL's jobs over the gate's node count (shard.MIN_NODES), one
+#: drain worker, under the mesh and unsharded
+MESH_SERVER_GATE = dict(SERVER_SMALL, nodes=4_096)
+#: the server path's sharded kernels that phase 13 times: the unsharded
+#: kernel beside each and the JAX program it replaces
+MESH_SERVER_OF = {
+    "mesh_verify": ("verify_rows", "nomad_tpu/tpu/kernel.py:1061"),
+    "mesh_bases": ("used_bases", "nomad_tpu/tpu/drain.py:181"),
+    "mesh_scatter": ("scatter_rows", "nomad_tpu/tpu/mirror.py:229"),
+}
+#: the kernels the full-width run must launch (the fused drain's scan and
+#: bases, the mirror's scatter, the applier's verify, the solo service
+#: eval's windowed planner), and the unsharded ones it must not
+MESH_SERVER_KERNELS = ("mesh_exact", "mesh_bases", "mesh_scatter", "mesh_verify", "mesh_windowed")
+UNSHARDED_SERVER_KERNELS = ("exact_scan", "wavefront", "used_bases", "scatter_rows",
+                            "verify_rows", "windowed", "runs")
+#: the exact scan's lanes its sharded plain version is held at, a batch
+MESH_DRAIN_CUT = 512
+
+
+def _server_run_checked(label: str, run: dict) -> None:
+    """Fail a server run with a job short of its count, a node over
+    capacity or a scheduler fallback (a follow-up eval of a few placements
+    rides the scalar oracle by design: the small-eval gate)."""
+    if run["short"]:
+        fail(f"{label}: jobs short of their count (placed, wanted): {run['short']}")
+    if run["over"]:
+        fail(f"{label}: {run['over']} nodes over capacity")
+    if set(run["fallbacks"]) - {"small_eval"}:
+        fail(f"{label}: scheduler fallbacks {run['fallbacks']}")
+
+
+def _counted_server_run(dev, size: dict, node_docs, jobs, sharded: bool, probe=None) -> tuple:
+    """(a server run over ``MESH_SHARDS`` shards or unsharded, its launches
+    by kernel), every launch counter set to 0 before and read after."""
+    from nomad_tpu_torch.tpu import kernel, shard
+
+    mesh = shard.configure(MESH_SHARDS, device=dev.type) if sharded else None
+    try:
+        if sharded and shard.active_mesh(size["nodes"]) is not mesh:
+            fail("mesh server: configure gave no active mesh")
+        kernel.reset_launches()
+        with probe.installed() if probe is not None else contextlib.nullcontext():
+            run = server_run(dev, size, node_docs, jobs)
+            launches = path_launches(MESH_SERVER_KERNELS + UNSHARDED_SERVER_KERNELS)
+    finally:
+        shard.configure(enabled=False)
+    return run, launches
+
+
+def _slab_rows(rows, s: int, per: int, *also):
+    """(rows local to shard ``s``'s slab, clamped; the lanes inside it)."""
+    local = rows - s * per
+    inside = (local >= 0) & (local < per)
+    for cond in also:
+        inside &= cond
+    return local.clamp(0, per - 1).long(), inside
+
+
+def _library_calls(name: str, args: tuple, n_real: int):
+    """One PyTorch composition over each slab of a sharded call: the
+    library yardstick of K8s (index_add + compare + all + gather), K9s
+    (index_add_ into zeros + cumsum) and K10s (index_copy)."""
+    if name == "mesh_verify":
+        capacity, used, rows, deltas = args
+        per = capacity.slabs[0].shape[0]
+
+        def call():
+            fits = torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
+            for k, (c, u) in enumerate(zip(capacity.slabs, used.slabs)):
+                idx, inside = _slab_rows(rows, k, per)
+                stacked = u.index_add(0, idx, torch.where(inside[:, None], deltas, 0))
+                fits = torch.where(inside, (stacked <= c).all(dim=1)[idx], fits)
+            return fits
+        return call
+    if name == "mesh_bases":
+        used0, placements, demands, eval_of, E = args
+        per, C = used0.slabs[0].shape
+
+        def call():
+            out = []
+            for k, u in enumerate(used0.slabs):
+                idx, inside = _slab_rows(placements, k, per, placements < n_real, eval_of >= 0,
+                                         eval_of < E)
+                at = eval_of.clamp(0, E - 1).long() * per + idx
+                delta = torch.zeros((E * per, C), dtype=torch.int32, device=u.device)
+                delta = delta.index_add_(0, at, torch.where(inside[:, None], demands, 0))
+                delta = delta.view(E, per, C)
+                out.append(u[None] + (delta.cumsum(0, dtype=torch.int32) - delta))
+            return torch.cat(out, dim=1)
+        return call
+    used, rows, vals = args
+    per = used.slabs[0].shape[0]
+
+    def call():  # a lane outside the slab writes a spare row past its end
+        out = []
+        for k, u in enumerate(used.slabs):
+            idx, inside = _slab_rows(rows, k, per)
+            spare = torch.cat([u, u[:1]]).index_copy(0, torch.where(inside, idx, per), vals)
+            out.append(spare[:per])
+        return torch.cat(out)
+    return call
+
+
+def mesh_server_phase(dev, size: dict = SERVER, gate: dict = MESH_SERVER_GATE,
+                      inputs: dict = None) -> tuple:
+    """Phase 13 (module docstring): the server path over the mesh. Returns
+    (the kernels-line rows of K8s, K9s and K10s, the fused-batch numbers of
+    K5s, the full-width run's launches by kernel). ``inputs`` are phase
+    5's (``server_path``): without them (a rehearsal) no kernel is timed."""
+    from nomad_tpu_torch.tpu import drain, kernel, mirror, shard
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    card = card_line() if cuda else "the CPU"
+
+    # ---- the full-width run: phase 7's server over the mesh ----------------
+    node_docs = [n.to_dict() for n in sched_nodes(size["nodes"], size["dcs"])]
+    probe = ServerProbe(dev)
+    run, launches = _counted_server_run(dev, size, node_docs, server_jobs(size), True, probe)
+    log(f"mesh server launches over {MESH_SHARDS} shards: {launches}")
+    flat = {k: n for k, n in launches.items() if k in UNSHARDED_SERVER_KERNELS and n}
+    if flat:
+        fail(f"mesh server: unsharded kernels launched on the mesh path: {flat}")
+    missing = [k for k in MESH_SERVER_KERNELS if launches[k] < 1]
+    if cuda and missing:
+        fail(f"mesh server: sharded kernels not launched: {missing}")
+    _server_run_checked("mesh server", run)
+    if run["drain"]["batches"] < 1:
+        fail(f"mesh server: no fused drain batch ran ({run['drain']})")
+    unsharded = sorted(name for name, calls in probe.calls.items()
+                       if not all(shard.is_sharded(args) for args, _ in calls))
+    if unsharded:
+        fail(f"mesh server: calls of {unsharded} were not over the mesh")
+    held = probe.check()
+    for name, h in sorted(held.items()):
+        log(f"mesh server: {name} held against its sharded plain version on {h['replayed']} of "
+            f"its {h['calls']} calls ({h['lanes_replayed']} lanes replayed, {h['lanes_left']} "
+            f"not) in {h['seconds']:.1f} s, max abs err {h['max_abs_err']}")
+        if h["max_abs_err"]:
+            fail(f"mesh server: {name} differs from its sharded plain version (max abs err "
+                 f"{h['max_abs_err']})")
+    event_ms = probe.event_ms()
+    lat = sorted(run["batch_latency_s"].values())
+    log(f"mesh server: {size['nodes']} nodes registered in {run['register_s']:.1f} s; "
+        f"{len(run['placed'])} allocs placed over {MESH_SHARDS} shards, every job at its count, "
+        f"no node over capacity, no fallback; drained evals, registration to complete (s): "
+        f"{', '.join(f'{x:.3f}' for x in lat)}; system eval {run['system_latency_s']:.3f} s, "
+        f"service eval (solo) {run['service_latency_s']:.3f} s; follow-up evals "
+        f"{run['follow_up_s']:.3f} s; evals {run['evals']}; fused batches and evals "
+        f"{run['drain']}; modes {run['modes']}; applier {run['applier']}; {card}")
+    for name in ("plan.verify_device", "plan.raft_apply", "drain.batch_build"):
+        st = run["stages"][name]
+        log(f"mesh server: stage {name}: {st['count']} samples, {st['sum_ms']:.1f} ms summed, "
+            f"{100 * st['wall_share']:.1f}% of the {run['jobs_wall_s']:.1f} s of jobs")
+    for name, ms in sorted(event_ms.items()):
+        log(f"mesh server: {name} by events, ms a call (least {min(ms):.4f}, median "
+            f"{float(np.median(ms)):.4f}): {', '.join(f'{x:.4f}' for x in ms)}")
+
+    # ---- the equality run at the gate: under the mesh and unsharded --------
+    gate_docs = [n.to_dict() for n in sched_nodes(gate["nodes"], gate["dcs"])]
+    gate_jobs = server_jobs(gate, seed=7)
+    got, got_launches = _counted_server_run(dev, gate, gate_docs, gate_jobs, True)
+    want, want_launches = _counted_server_run(dev, gate, gate_docs, gate_jobs, False)
+    _server_run_checked("mesh server at the gate", got)
+    _server_run_checked("unsharded server at the gate", want)
+    if cuda and (any(got_launches[k] for k in UNSHARDED_SERVER_KERNELS)
+                 or not got_launches["mesh_exact"]):
+        fail(f"mesh server at the gate: launches {got_launches}")
+    if cuda and any(want_launches[k] for k in MESH_SERVER_KERNELS):
+        fail(f"unsharded server at the gate: launches {want_launches}")
+    if got["placed"] != want["placed"]:
+        diff = len(set(got["placed"]) ^ set(want["placed"]))
+        fail(f"mesh server at the gate: {diff} placements differ from the unsharded run")
+    if got["drain"] != want["drain"]:
+        fail(f"mesh server at the gate: drain {got['drain']}, unsharded {want['drain']}")
+    log(f"mesh server at the gate ({gate['nodes']} nodes, one drain worker): "
+        f"{len(got['placed'])} allocs placed identically over {MESH_SHARDS} shards and "
+        f"unsharded; drain {got['drain']}; launches {got_launches} and {want_launches}")
+
+    rows, fused = [], {}
+    if inputs is not None:
+        rows = _mesh_server_rows(dev, inputs, launches, held, card)
+        fused = _mesh_fused_scans(dev, inputs, card)
+    log(f"mesh server phase: {time.perf_counter() - t_phase:.1f} s; {card}")
+    return rows, fused, launches, held
+
+
+def _mesh_server_rows(dev, inputs: dict, launches: dict, held: dict, card: str) -> list:
+    """The kernels-line rows of K8s, K9s and K10s: each timed by CUDA
+    events at phase 5's shapes over MESH_SHARDS and 8 shards, held against
+    its sharded plain version on the card and the unsharded kernel."""
+    from nomad_tpu_torch.tpu import drain, kernel, mirror, shard
+
+    rows = []
+    for name, (flat_name, replaces) in MESH_SERVER_OF.items():
+        flat_row = inputs["flat"][flat_name]
+        by_shards = {}
+        for s in (MESH_SHARDS, 8):
+            mesh = shard.Mesh(s, dev)
+            if name == "mesh_verify":
+                cap, used, r, d, k = inputs["verify_rows"]
+                args = (*shard.put((cap, used), (shard.ROWS, shard.ROWS), mesh), r, d)
+                call = lambda a=args: kernel.verify_rows(*a)  # noqa: E731
+                plain = lambda a=args: kernel.verify_rows_sharded_ref(*a)  # noqa: E731
+                unsharded = kernel.verify_rows(cap, used, r, d)
+                shape = f"N={cap.shape[0]} R={r.shape[0]} ({k} rows)"
+            elif name == "mesh_bases":
+                used0, placements, demands, eval_of, E = inputs["used_bases"]
+                args = (shard.put(used0, shard.ROWS, mesh), placements, demands, eval_of, E)
+                call = lambda a=args: drain.used_bases(*a, NODES)  # noqa: E731
+                plain = lambda a=args: drain.used_bases_sharded_ref(*a, NODES)  # noqa: E731
+                unsharded = drain.used_bases(used0, placements, demands, eval_of, E, NODES)
+                shape = f"E={E} N={used0.shape[0]} A={placements.shape[0]}"
+            else:
+                used, r, v = inputs["scatter_rows"]
+                args = (shard.put(used, shard.ROWS, mesh), r, v)
+                call = lambda a=args: mirror.scatter_rows(*a)  # noqa: E731
+                plain = lambda a=args: mirror.scatter_rows_sharded_ref(*a)  # noqa: E731
+                unsharded = mirror.scatter_rows(used, r, v)
+                shape = f"N={used.shape[0]} R={r.shape[0]} ({DIRTY_ROWS} dirty)"
+            library = _library_calls(name, args, NODES)
+            before = kernel.LAUNCHES[name]
+            ms, got = cuda_ms(call)
+            per_call = (kernel.LAUNCHES[name] - before) / 4
+            plain_ms, want = cuda_ms(plain)
+            lib_ms, lib = cuda_ms(library)
+            err = max_abs_err([(got, want), (got, lib), (got, unsharded)]
+                              if not isinstance(got, shard.Sharded) else
+                              [(got.full(), want.full()), (got.full(), lib),
+                               (got.full(), unsharded)])
+            if err or (dev.type == "cuda" and per_call != 1):
+                fail(f"{name} over {s} shards: max abs err {err} against its sharded plain "
+                     f"version, the library composition and the unsharded kernel; "
+                     f"{per_call} launches a call")
+            by_shards[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                                device_us=device_us(call), library_device_us=device_us(library),
+                                host_us=wrapper_host_us(call), shape=f"{shape} over {s} shards")
+        m = by_shards[MESH_SHARDS]
+        rows.append(dict(
+            name=name, route="cuda", source="nomad_tpu_torch/tpu/csrc/mesh_server.cu",
+            replaces=replaces, max_abs_err=max(held.get(flat_name, {}).get("max_abs_err", 0),
+                                               m["max_abs_err"]),
+            ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=flat_row["bound_ms"],
+            bound_by=flat_row["bound_by"], library_ms=m["library_ms"], device_us=m["device_us"],
+            library_device_us=m["library_device_us"], host_us=m["host_us"], shape=m["shape"],
+            shards=MESH_SHARDS, unsharded_ms=flat_row["ms"], ms_8_shards=by_shards[8]["ms"],
+            device_us_8_shards=by_shards[8]["device_us"],
+            library_ms_8_shards=by_shards[8]["library_ms"],
+            mesh_server_held=held.get(flat_name), paths={"mesh_server": launches[name]},
+        ))
+        us = ["not measured" if u is None else f"{u:.2f} us"
+              for u in (m["device_us"], by_shards[8]["device_us"])]
+        log(f"{name}: {m['ms']:.4f} ms per launch over {MESH_SHARDS} shards "
+            f"({by_shards[8]['ms']:.4f} over 8), on the card by the profiler {us[0]} ({us[1]}); "
+            f"unsharded {flat_name} {flat_row['ms']:.4f} ms; sharded plain version "
+            f"{m['plain_ms']:.4f} ms, library over each slab {m['library_ms']:.4f} ms "
+            f"({by_shards[8]['library_ms']:.4f} over 8); identical (max abs err 0); bound "
+            f"{flat_row['bound_ms']:.5f} ms by {flat_row['bound_by']}; host "
+            f"{m['host_us']:.1f} us; {m['shape']}; {card}")
+    return rows
+
+
+def _mesh_fused_scans(dev, inputs: dict, card: str) -> dict:
+    """K5s over phase 5's two fused batches (E 32) over MESH_SHARDS shards:
+    CUDA events beside the unsharded kernel, equal to it, and on the first
+    MESH_DRAIN_CUT lanes equal to the sharded plain version."""
+    from nomad_tpu_torch.debug import devprof
+    from nomad_tpu_torch.tpu import drain, kernel, shard
+
+    out = {}
+    mesh = shard.Mesh(MESH_SHARDS, dev)
+    for mix, key in (("drain-bench", "drain_bench"), ("drain-tenant", "drain_tenant")):
+        planes, args_np, state_np = inputs[mix]
+        sargs, sinit = drain.batch_inputs(planes, args_np, state_np, dev, mesh)
+        uargs, uinit = drain.batch_inputs(planes, args_np, state_np, dev)
+        ms, (state, got) = cuda_ms(lambda: kernel.plan_batch(sargs, sinit, NODES))
+        flat_ms, (flat_state, flat) = cuda_ms(lambda: kernel.plan_batch(uargs, uinit, NODES))
+        err = max_abs_err([(got, flat), *zip(shard.gather(state), flat_state)])
+        A = int(uargs.demands.shape[0])
+        lanes = slice(0, min(MESH_DRAIN_CUT, A))
+        cut = sargs._replace(demands=sargs.demands[lanes], groups=sargs.groups[lanes],
+                             limits=sargs.limits[lanes], valid=sargs.valid[lanes])
+        cut_state, cut_got = kernel.plan_batch(cut, sinit, NODES)
+        plain_ms, (want_state, want) = host_ms(lambda: kernel.plan_batch_sharded_ref(cut, sinit,
+                                                                                     NODES))
+        err = max(err, max_abs_err([(cut_got, want), (got[lanes], want),
+                                    *zip(shard.gather(cut_state), shard.gather(want_state))]))
+        if err:
+            fail(f"mesh_exact at {mix}: differs from the unsharded kernel or its sharded plain "
+                 f"version ({err})")
+        pos = scan_positions(uargs, uinit, NODES)
+        moved, ops = scan_bound(pos, uargs, uinit, 4)
+        bound_ms, bound_by = bound(moved, ops)
+        E, G = uargs.perm.shape[0], uargs.feasible.shape[0]
+        out[key] = dict(ms=ms, unsharded_ms=flat_ms, plain_ms=plain_ms, max_abs_err=err,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        device_us=device_us(lambda: kernel.plan_batch(sargs, sinit, NODES),
+                                            calls=3),
+                        mesh_comm_frac=devprof.mesh_comm_frac(flat_ms, ms),
+                        shape=f"E={E} G={G} A={A} N={uargs.capacity.shape[0]} "
+                              f"({int(uargs.valid.sum())} lanes) over {MESH_SHARDS} shards; "
+                              f"plain version at the first {lanes.stop} lanes")
+        o = out[key]
+        log(f"mesh_exact at {mix}: {ms:.4f} ms per launch over {MESH_SHARDS} shards, unsharded "
+            f"exact_scan {flat_ms:.4f} ms, on the card by the profiler "
+            + ("not measured" if o["device_us"] is None else f"{o['device_us']:.1f} us")
+            + f"; identical to the unsharded kernel and, on the first {lanes.stop} lanes, to its "
+            f"sharded plain version ({plain_ms:.1f} ms); bound {bound_ms:.5f} ms by {bound_by}; "
+            f"{o['shape']}; {card}")
+    return out
 
 
 def main() -> int:
@@ -4307,7 +4676,8 @@ def main() -> int:
 
     phase_done("main path at full width")
     # ---- 5. the server path -------------------------------------------------
-    server_launches, server_wf_launches, server_rows, scan_bench, wf_drain = server_path(dev)
+    (server_launches, server_wf_launches, server_rows, scan_bench, wf_drain,
+     server_inputs) = server_path(dev)
     next(row for row in kernels if row["name"] == "exact_scan")["drain_bench"] = scan_bench
     wf_json.update(wf_drain)
     for row in server_rows:
@@ -4391,6 +4761,24 @@ def main() -> int:
     flat_rows = {row[0]: (row[3], row[5], row[6]) for row in rows}
     mesh_rows = mesh_phase(dev, evals, flat, flat_rows)
     kernels.extend(mesh_rows)
+    phase_done("mesh")
+    # ---- 13. the server over the mesh ---------------------------------------------
+    mesh_server_rows, fused, mesh_server_launches, mesh_server_held = mesh_server_phase(
+        dev, inputs=server_inputs)
+    for row in mesh_rows:
+        name = row["name"]
+        if mesh_server_launches.get(name):
+            row["paths"]["mesh_server"] = mesh_server_launches[name]
+            row["launches"] = sum(row["paths"].values())
+        flat_name = MESH_OF[name][1]
+        if flat_name in mesh_server_held:
+            row["mesh_server_held"] = mesh_server_held[flat_name]
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     mesh_server_held[flat_name]["max_abs_err"])
+    next(row for row in mesh_rows if row["name"] == "mesh_exact").update(fused)
+    for row in mesh_server_rows:
+        row["launches"] = sum(row["paths"].values())
+    kernels.extend(mesh_server_rows)
     # (path_launches added the storms' standalone primitive launches)
     # K1-K4's own kernels are not launched on the paths: the primitives run
     # inside every launch of the kernels that inline them
@@ -4400,7 +4788,7 @@ def main() -> int:
         row["inlined_launches"] = sum(launched[k] for k in row["inlined_in"])
         row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
     kernels = primitives + kernels
-    phase_done("mesh")
+    phase_done("mesh server")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

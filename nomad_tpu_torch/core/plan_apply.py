@@ -35,7 +35,7 @@ from ..testing import faults as _faults
 from .overload import DeadlineExceeded
 from ..trace import tracer
 from ..structs.funcs import allocs_fit
-from ..tpu import kernel
+from ..tpu import kernel, shard
 from ..tpu.columnar import R_COLS
 from ..tpu.mirror import DeviceState
 from ..structs.model import (
@@ -611,17 +611,14 @@ class Planner:
         mirror = self.mirror_fn()
         if mirror is None:
             return None
-        from ..tpu import shard
-        from ..tpu.problems import bucket
-
-        # the node bucket the drain batches pad to: both consumers must
-        # agree per n_pad or the mirror's DeviceState cache rebuilds the
-        # full planes on every alternation. A CUDA error in the upload or
-        # the dirty-row scatter propagates; the verify under a mesh is
-        # ROADMAP A12b and raises
+        # the MIN_NODES-gated mesh and the node bucket, exactly as the
+        # drain batches resolve them: both consumers must agree per n_pad
+        # or the mirror's DeviceState cache rebuilds the full planes on
+        # every alternation. A CUDA error in the upload or the dirty-row
+        # scatter propagates
         n_real = len(base_snap.nodes())
-        shard.refuse_under_mesh("the applier's device verify under a mesh", n_real)
-        handles = mirror.verify_handles(base_snap, bucket(n_real))
+        mesh = shard.active_mesh(n_real)
+        handles = mirror.verify_handles(base_snap, shard.node_bucket(n_real, mesh), mesh=mesh)
         if handles is None:
             metrics.incr("plan.verify_device_degrade.stale")
             return None
@@ -1271,10 +1268,14 @@ def dense_verify(arrays, rows, row_deltas) -> np.ndarray:
     deltas (one lane per row, i64/i32[k,C]) on top of ``arrays``, the
     (capacity, usable, used) tensors of ``DeviceState.arrays()``; the
     verify runs on the planes' device. The lanes pad to the dirty-row
-    bucket with row 0 and a delta of 0, as the JAX applier pads them."""
+    bucket with row 0 and a delta of 0, as the JAX applier pads them.
+    Under a mesh the planes are row slabs (``shard.Sharded``), and the
+    lanes go to their device replicated."""
     capacity, _, used = arrays
-    if not isinstance(capacity, torch.Tensor) or not isinstance(used, torch.Tensor):
-        raise TypeError("dense_verify takes the planes of DeviceState.arrays() as tensors")
+    planes = (torch.Tensor, shard.Sharded)
+    if not isinstance(capacity, planes) or not isinstance(used, planes):
+        raise TypeError("dense_verify takes the planes of DeviceState.arrays() as tensors "
+                        "or row slabs")
     k = len(rows)
     if k == 0:
         return np.zeros(0, dtype=bool)

@@ -30,7 +30,7 @@ import threading
 import time
 from typing import Optional
 
-from .. import metrics, not_ported, resolve_device
+from .. import metrics, resolve_device
 from ..testing import faults as _faults
 from ..raft import InmemTransport, NotLeaderError, Raft, RaftConfig
 from ..raft.log import InmemLogStore, SnapshotStore, StableStore
@@ -970,10 +970,16 @@ class Server:
         if self._flight_enabled:
             self.flight_recorder.start()
         if self.config.get("shard_devices"):
-            # mesh-shard the planner node axis (the JAX package's
-            # tpu/shard.py): the port's mesh plans one eval
-            # (tpu/shard.py), the server path under it is not ported
-            raise not_ported("the shard_devices stanza", "A12b, the mesh's server path")
+            # mesh-shard the planner node axis across the configured
+            # device count (tpu/shard.py; env NOMAD_TPU_SHARD covers the
+            # no-config path) — built before prewarm so the warm-up
+            # launches the sharded kernels. It counts CUDA cards: fewer
+            # visible than asked stays unsharded with a warning, shards
+            # over several cards raise (ROADMAP A12c); the one-card
+            # stand-in is shard.configure(n, device=...) before start()
+            from ..tpu import shard as _shard
+
+            _shard.configure(int(self.config["shard_devices"]))
         if self.config.get("wavefront"):
             # wavefront placement plane (tpu/wavefront.py): route the
             # exact-scan dispatch through conflict-free batched commits.
@@ -1007,14 +1013,22 @@ class Server:
             # (tpu/warmup.py). With batch_drain + an expected cluster
             # size, the fused drain-batch shapes warm up too. The thread
             # launches on the default stream, like every server thread.
+            from ..tpu import shard as _shard
             from ..tpu.warmup import prewarm_async
+            from ..util import LogBuffer
 
+            # the warm-up logs a failed launch for /v1/agent/monitor: keep
+            # its records from now on, since on the CPU a launch can fail
+            # before the agent's HTTP server (which installs the buffer)
+            # has started
+            LogBuffer.install()
             drain_shape = None
             drain_cfg = int(self.config.get("batch_drain", 0))
             nodes_hint = int(self.config.get("prewarm_drain_nodes", 0))
             if drain_cfg > 1 and nodes_hint > 0:
                 drain_shape = (nodes_hint, drain_cfg)
-            self._prewarm_thread = prewarm_async(drain=drain_shape, device=self.device)
+            self._prewarm_thread = prewarm_async(drain=drain_shape, device=self.device,
+                                                 mesh=_shard.active_mesh())
         self.raft.start()
         if self.gossip is not None:
             self.gossip.start()

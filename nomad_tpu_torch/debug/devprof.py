@@ -161,6 +161,16 @@ def _leaves(tree):
 _LAUNCHED: set = set()
 
 
+def forget_launches():
+    """Forget what this process has launched, so the next launch of each
+    ``(planner, shape, flavor)`` is a compile event again: the port's
+    counterpart of clearing the JAX jit caches (``jax.clear_caches``).
+    ``reset()`` keeps the set, as the JAX reset keeps its caches; a test
+    whose ledger must not depend on what ran before it calls both."""
+    with _lock:
+        _LAUNCHED.clear()
+
+
 def record_compile(
     planner: str,
     shape_key: str,

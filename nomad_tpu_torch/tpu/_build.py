@@ -51,6 +51,9 @@ _ENTRY_POINTS = {
     "ntt_mesh_exact": (1, 8),
     "ntt_mesh_runs": (1, 7),
     "ntt_mesh_windowed": (1, 6),
+    "ntt_mesh_verify": (1, 4),
+    "ntt_mesh_bases": (1, 6),
+    "ntt_mesh_scatter": (1, 4),
 }
 
 _LIB = None

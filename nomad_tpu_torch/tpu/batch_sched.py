@@ -120,7 +120,13 @@ def _tag_device_span(span, planner: str, mode: str):
 
 def _to_host(x) -> np.ndarray:
     """Placements or a usage plane as numpy: the sync point of a device
-    tensor handed back by the drain collector (an error there propagates)."""
+    tensor handed back by the drain collector (an error there propagates).
+    A usage base split over a mesh comes back as one array, its slabs in
+    shard order, as the JAX consumer's ``np.asarray`` gathers it."""
+    from .shard import Sharded
+
+    if isinstance(x, Sharded):
+        return np.concatenate([_to_host(t) for t in x.slabs], axis=x.axis)
     if hasattr(x, "detach"):
         return x.detach().cpu().numpy()
     return np.asarray(x)

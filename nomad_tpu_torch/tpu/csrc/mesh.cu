@@ -60,21 +60,6 @@ constexpr int MAXC = 8;         // resource columns kept in registers
 constexpr int RUNCAP = 512;     // max placements resolved by one fill run
 constexpr int WHICH_EXACT = 0, WHICH_RUNS = 1, WHICH_WINDOWED = 2;
 
-// the pointer table a launch gets: each sharded leaf MAX_SHARDS entries
-// (shard s's slab at entry s), each replicated leaf one
-struct Table {
-  const unsigned long long* t;
-  int k;
-  template <class T>
-  void slabs(Slabs<T>& s) {
-    for (int i = 0; i < MAX_SHARDS; ++i) s.p[i] = reinterpret_cast<T*>(t[k++]);
-  }
-  template <class T>
-  void one(T*& p) {
-    p = reinterpret_cast<T*>(t[k++]);
-  }
-};
-
 __host__ __device__ inline size_t align_up(size_t x) { return (x + 255) & ~(size_t)255; }
 
 // a bump allocator over the scratch buffer (host: sizes; device: pointers)

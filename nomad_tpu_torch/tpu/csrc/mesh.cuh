@@ -41,6 +41,22 @@ struct Slabs {
   T* p[MAX_SHARDS];
 };
 
+// The pointer table a launch gets: each sharded leaf MAX_SHARDS entries
+// (shard s's slab at entry s), each replicated leaf one; read on the host
+// into a launch's parameters
+struct Table {
+  const unsigned long long* t;
+  int k;
+  template <class T>
+  void slabs(Slabs<T>& s) {
+    for (int i = 0; i < MAX_SHARDS; ++i) s.p[i] = reinterpret_cast<T*>(t[k++]);
+  }
+  template <class T>
+  void one(T*& p) {
+    p = reinterpret_cast<T*>(t[k++]);
+  }
+};
+
 // This block's place in the mesh: S shards of R rows, Q blocks a shard;
 // this block is rank q of shard s and owns the global rows [b0, b1)
 struct MeshGeo {

@@ -30,8 +30,14 @@ its window) and metrics, and counts a batch over the paging budget that
 uploads its host planes (``tpu.drain_paged_fallback``). The device
 ledger counts the batch's host upload and, when its first eval takes its
 slices back, the batch's placements and bases device to host (the JAX
-collector counts them at its first consumer's sync). Left out: the mesh
-(ROADMAP A12b); under an active mesh the collector raises.
+collector counts them at its first consumer's sync).
+
+Under an active mesh (``shard.active_mesh(n_real)``, the JAX collector's
+gate) the batch pads the node axis to a mesh multiple, reads the mirror's
+row-sharded planes (or places its host planes with ``shard.batch_specs``),
+runs the sharded exact scan over the fused batch and the sharded usage
+bases on the same stream; each eval's base comes back as row slabs. The
+wavefront drive under a mesh is not ported (ROADMAP A12b-2) and raises.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ from .. import metrics, resolve_device
 from ..core.overload import DeadlineExceeded
 from ..debug import devprof as _devprof
 from ..trace import tracer
-from . import kernel, wavefront
+from . import kernel, shard, wavefront
 from .columnar import R_COLS, ColumnarCluster, GroupPlanes
 from .problems import bucket
 
@@ -202,6 +208,19 @@ def used_bases_ref(used0, placements, demands, eval_of, E: int, n_real: int):
 
 
 _BASES_SHAPES = dict(used0="NC", placements="A", demands="AC", eval_of="A")
+#: how the sharded usage bases take their inputs: the mirror's row slabs,
+#: the scan's lanes replicated; the output splits along N (shard.COLS)
+_BASES_SPECS = dict(used0=shard.ROWS, placements=shard.REP, demands=shard.REP,
+                    eval_of=shard.REP)
+
+
+def used_bases_sharded_ref(used0, placements, demands, eval_of, E: int, n_real: int):
+    """Sharded plain version of the usage bases (JAX ``bases`` on the
+    row-sharded ``used``): the unsharded one on the gathered plane, split
+    along N into ``[E, N/S, C]`` slabs (a split is a layout: the same
+    bits)."""
+    full = used_bases_ref(used0.full(), placements, demands, eval_of, E, n_real)
+    return shard.split(full, shard.COLS, len(used0.slabs))
 
 
 def _bases_dims(used0, placements, demands, eval_of) -> tuple:
@@ -229,7 +248,12 @@ def used_bases(used0, placements, demands, eval_of, E: int, n_real: int):
     demands; i32[E,N,C]. Checks what the kernel takes on either device; on
     the CPU the plain version, on the card one launch (``csrc/bases.cu``)
     that reads ``placements`` where the scan left them, on the same stream,
-    and does not wait for the card."""
+    and does not wait for the card. A row-sharded ``used0`` gives the bases
+    split along N (``shard.COLS``): on the card one launch over every shard
+    (``csrc/mesh_server.cu``), which enters the device ledger as
+    sharded."""
+    if isinstance(used0, shard.Sharded):
+        return _used_bases_mesh(used0, placements, demands, eval_of, E, n_real)
     N, C, A = _bases_dims(used0, placements, demands, eval_of)
     device = used0.device
     if not 0 < n_real <= N:
@@ -250,14 +274,43 @@ def used_bases(used0, placements, demands, eval_of, E: int, n_real: int):
     return out
 
 
+def _used_bases_mesh(used0, placements, demands, eval_of, E: int, n_real: int):
+    device = used0.device
+    d = kernel._check_mesh_int32(
+        dict(used0=used0, placements=placements, demands=demands, eval_of=eval_of),
+        _BASES_SPECS, _BASES_SHAPES, device)
+    N, C, A, S = d["N"], d["C"], d["A"], d["S"]
+    if not 0 < n_real <= N:
+        raise ValueError(f"n_real {n_real} outside (0, {N}]")
+    key = f"E{E}N{N}A{A}"
+    if device.type == "cpu":
+        t0 = time.perf_counter()
+        out = used_bases_sharded_ref(used0, placements, demands, eval_of, E, n_real)
+    else:
+        lib = kernel._library()
+        t0 = time.perf_counter()
+        out = shard.Sharded(shard.COLS, (t.new_empty((E, N // S, C)) for t in used0.slabs))
+        kernel._launch_mesh("mesh_bases", lib.ntt_mesh_bases,
+                            [used0, placements, demands, eval_of, out],
+                            S, N, C, A, E, n_real, device=device)
+    kernel._ledger("used_bases", key, device, t0, sharded=True)
+    return out
+
+
+def _nbytes(x) -> int:
+    slabs = x.slabs if isinstance(x, shard.Sharded) else (x,)
+    return sum(t.numel() * t.element_size() for t in slabs)
+
+
 # ---------------------------------------------------------------------------
 # batch assembly
 # ---------------------------------------------------------------------------
 
-def batch_shape(preps: list, n_real: int, pad_evals: int) -> tuple:
+def batch_shape(preps: list, n_real: int, pad_evals: int, mesh=None) -> tuple:
     """Padded (E, G, A, N, V) of a fused batch: the JAX collector's buckets
-    with its ``pad_evals`` floors, so partial batches share one shape."""
-    N = bucket(n_real)
+    with its ``pad_evals`` floors, so partial batches share one shape; the
+    node axis a multiple of ``mesh``'s shards (``shard.node_bucket``)."""
+    N = shard.node_bucket(n_real, mesh)
     E = bucket(max(len(preps), pad_evals))
     G = bucket(max(sum(len(p.planes_list) for p in preps), pad_evals))
     A = bucket(max(sum(len(p.gid_real) for p in preps), pad_evals * 4))
@@ -367,10 +420,16 @@ def host_planes(shared: SharedCluster, N: int) -> tuple:
     return capacity, usable, used0
 
 
-def batch_inputs(planes: tuple, args: dict, state: dict, device) -> tuple:
+def batch_inputs(planes: tuple, args: dict, state: dict, device, mesh=None) -> tuple:
     """(BatchArgs, BatchState) of the exact scan from the node planes
     (capacity, usable, used: tensors on ``device``, or numpy) and
-    ``assemble``'s numpy dicts."""
+    ``assemble``'s numpy dicts. With ``mesh``, every leaf placed by
+    ``shard.batch_specs`` (the mirror's row slabs as they are)."""
+    if mesh is not None:
+        aspec, sspec = shard.batch_specs()
+        capacity, usable, used = planes
+        return (shard.put(kernel.BatchArgs(capacity=capacity, usable=usable, **args), aspec, mesh),
+                shard.put(kernel.BatchState(used=used, **state), sspec, mesh))
     dev = resolve_device(device)
     capacity, usable, used = (
         p if isinstance(p, torch.Tensor) else kernel.from_numpy(p, dev) for p in planes
@@ -421,10 +480,7 @@ class KernelBatchCollector:
 
     def __init__(self, shared: SharedCluster, expected: int, timeout: float = 60.0,
                  pad_evals: int = 0, device=None):
-        from . import shard
-
-        # the fused batch over a sharded node axis: ROADMAP A12b
-        shard.refuse_under_mesh("the fused drain batch under a mesh", shared.n_real)
+        _refuse_wavefront_under_mesh(shared.n_real)
         self.shared = shared
         self.device = resolve_device(device)
         ds = shared.device_state
@@ -529,7 +585,13 @@ class KernelBatchCollector:
         shared, dev = self.shared, self.device
         preps = [p.prep for p in parked]
         n_real = shared.n_real
-        shape = batch_shape(preps, n_real, self.pad_evals)
+        # the node axis split over the mesh, gated by the cluster's size as
+        # the JAX collector gates it; N rounds to a mesh multiple
+        _refuse_wavefront_under_mesh(n_real)
+        mesh = shard.active_mesh(n_real)
+        if mesh is not None and mesh.device.type != dev.type:
+            raise ValueError(f"the mesh is on {mesh.device}, the collector on {dev}")
+        shape = batch_shape(preps, n_real, self.pad_evals, mesh)
         E, G, A, N, V = shape
         ds = shared.device_state
         planes = None
@@ -538,12 +600,14 @@ class KernelBatchCollector:
             # dirty-row scatters
             if ds.n_pad != N:
                 raise ValueError(f"device state has {ds.n_pad} rows, the batch pads to {N}")
+            if ds.mesh is not mesh:
+                raise ValueError(f"device state over {ds.mesh}, the batch over {mesh}")
             planes = ds.arrays()
         elif shared.mirror is not None:
             # the server path: the mirror's device planes at the batch's
             # generation (None once a write has landed since, or past the
-            # paging budget)
-            planes = shared.mirror.device_state(N, shared.gen)
+            # paging budget), row-sharded under the mesh
+            planes = shared.mirror.device_state(N, shared.gen, mesh=mesh)
         on_device = planes is not None
         if planes is None:
             planes = host_planes(shared, N)
@@ -554,11 +618,18 @@ class KernelBatchCollector:
             if paging.should_page(N, R_COLS):
                 metrics.incr("tpu.drain_paged_fallback")
         args_np, state_np, slices = assemble(preps, n_real, shape)
-        # the batch's upload: host planes and the assembled tables (the
-        # mirror's device planes count zero)
-        _devprof.count_tree_h2d((planes, args_np, state_np))
-        args, init = batch_inputs(planes, args_np, state_np, dev)
-        eval_of = kernel.from_numpy(args_np["group_eval"][args_np["groups"]], dev)
+        eval_of = args_np["group_eval"][args_np["groups"]]
+        if mesh is None:
+            # the batch's upload: host planes and the assembled tables (the
+            # mirror's device planes count zero)
+            _devprof.count_tree_h2d((planes, args_np, state_np))
+            args, init = batch_inputs(planes, args_np, state_np, dev)
+            eval_of = kernel.from_numpy(eval_of, dev)
+        else:
+            # every leaf placed with its spec through the counted upload;
+            # the eval of each lane replicated explicitly, as JAX places it
+            args, init = batch_inputs(planes, args_np, state_np, dev, mesh)
+            eval_of = shard.put(eval_of, shard.REP, mesh)
         t_build = time.perf_counter()
 
         events = None
@@ -584,11 +655,12 @@ class KernelBatchCollector:
         t_disp = time.perf_counter()
         cache_after = _devprof.compile_cache_size(_PLANNERS)
 
-        d2h = _BatchD2H(placements.numel() * placements.element_size()
-                        + bases.numel() * bases.element_size())
+        d2h = _BatchD2H(_nbytes(placements) + _nbytes(bases))
         for e, (park, (a_start, a_len)) in enumerate(zip(parked, slices)):
             park.placements = placements[a_start : a_start + a_len]
-            park.used0 = bases[e]
+            # under a mesh an eval's base is its plane of every shard's slab
+            park.used0 = (shard.Sharded(shard.ROWS, (t[e] for t in bases.slabs))
+                          if isinstance(bases, shard.Sharded) else bases[e])
             park.d2h = d2h
 
         # the batch's shared stages, recorded into every eval's tree
@@ -605,6 +677,10 @@ class KernelBatchCollector:
             # scalar, read by the ledger once the card is done)
             dispatch_tags["collective_rounds"] = A
             dispatch_tags["placements"] = n_allocs
+        if mesh is not None:
+            # the shard topology, so a trace tells a sharded dispatch (and
+            # its width) from an unsharded one
+            dispatch_tags.update(shard.shard_tags(mesh))
         # the launch's ledger entry (no cost figures exist for a
         # hand-written kernel, so this adds none)
         dispatch_tags.update(_devprof.dispatch_tags(planner))
@@ -635,5 +711,13 @@ class KernelBatchCollector:
             device_state=on_device,
             mirror=shared.mirror is not None,
             padded=shape,
+            shards=shard.mesh_size(mesh),
         )
         metrics.sample("drain.batch_build", t_build - t0)
+
+
+def _refuse_wavefront_under_mesh(n_real: int) -> None:
+    """The wavefront drive of a fused batch under a mesh is not ported
+    (ROADMAP A12b-2): it raises, never runs unsharded in silence."""
+    if wavefront.enabled():
+        shard.refuse_under_mesh("the wavefront drain batch under a mesh", n_real)

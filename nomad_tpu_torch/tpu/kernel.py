@@ -955,6 +955,7 @@ LAUNCHES = {
     "wavefront": 0, "tile_count": 0, "tile_window": 0,
     "binpack": 0, "class_boosts": 0, "scores": 0, "rot_incl": 0,
     "mesh_exact": 0, "mesh_runs": 0, "mesh_windowed": 0,
+    "mesh_verify": 0, "mesh_bases": 0, "mesh_scatter": 0,
 }
 
 
@@ -1349,6 +1350,16 @@ def _check_mesh(named: dict, specs: dict, shapes: dict, device: torch.device) ->
     return d
 
 
+def _check_mesh_int32(named: dict, specs: dict, shapes: dict, device: torch.device) -> dict:
+    """``_check_mesh`` for the sharded kernels whose every plane is int32
+    (the server path's verify, usage bases and dirty-row scatter)."""
+    for name, x in named.items():
+        dtype = x.slabs[0].dtype if isinstance(x, _shard.Sharded) else x.dtype
+        if dtype != torch.int32:
+            raise TypeError(f"{name} has dtype {dtype}, expected int32")
+    return _check_mesh(named, specs, shapes, device)
+
+
 def _clone(x):
     if isinstance(x, _shard.Sharded):
         return _shard.Sharded(x.split, (t.clone() for t in x.slabs))
@@ -1551,6 +1562,17 @@ def verify_rows_ref(capacity, used, rows, deltas):
 
 
 _VERIFY_SHAPES = dict(capacity="NC", used="NC", rows="R", deltas="RC")
+#: how the sharded verify takes its planes: the mirror's row slabs, the
+#: lanes replicated
+_VERIFY_SPECS = dict(capacity=_shard.ROWS, used=_shard.ROWS, rows=_shard.REP, deltas=_shard.REP)
+
+
+def verify_rows_sharded_ref(capacity, used, rows, deltas):
+    """Sharded plain version of the dense verify (JAX ``_verify_rows_jit``
+    on ``mirror.verify_handles(..., mesh)``'s row-sharded planes): the
+    unsharded one on the gathered planes, since a split is a layout and
+    the verdicts are the same bits; bool[R], replicated."""
+    return verify_rows_ref(capacity.full(), used.full(), rows, deltas)
 
 
 def _verify_dims(capacity, used, rows, deltas) -> tuple:
@@ -1578,6 +1600,8 @@ def verify_rows(capacity, used, rows, deltas):
     (``csrc/verify.cu``) that does not wait for the card. It enters the
     device ledger like the planners but records no rounds."""
     _fault_point()
+    if _shard.is_sharded((capacity, used)):
+        return _verify_rows_mesh(capacity, used, rows, deltas)
     N, C, R = _verify_dims(capacity, used, rows, deltas)
     device = capacity.device
     key = f"N{N}R{R}"
@@ -1597,6 +1621,32 @@ def verify_rows(capacity, used, rows, deltas):
         _launch_status("verify_rows", rc)
     LAUNCHES["verify_rows"] += 1
     _ledger("verify_rows", key, device, t0)
+    return fits
+
+
+def _verify_rows_mesh(capacity, used, rows, deltas):
+    """``verify_rows`` on row-sharded planes: on the CPU the sharded plain
+    version, on the card one launch over every shard (K8s,
+    ``csrc/mesh_server.cu``), each lane's verdict written by the shard
+    that owns its row."""
+    device = capacity.device
+    d = _check_mesh_int32(dict(capacity=capacity, used=used, rows=rows, deltas=deltas),
+                          _VERIFY_SPECS, _VERIFY_SHAPES, device)
+    N, C, R, S = d["N"], d["C"], d["R"], d["S"]
+    key = f"N{N}R{R}"
+    if device.type == "cpu":
+        t0 = time.perf_counter()
+        fits = verify_rows_sharded_ref(capacity, used, rows, deltas)
+        _ledger("verify_rows", key, device, t0, sharded=True)
+        return fits
+    lib = _library()
+    t0 = time.perf_counter()
+    fits = rows.new_empty(R, dtype=torch.bool)
+    if R == 0:
+        return fits
+    _launch_mesh("mesh_verify", lib.ntt_mesh_verify, [capacity, used, rows, deltas, fits],
+                 S, N, C, R, device=device)
+    _ledger("verify_rows", key, device, t0, sharded=True)
     return fits
 
 

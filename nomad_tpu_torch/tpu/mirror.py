@@ -18,13 +18,17 @@ whole freshness test.
   ``device_state`` / ``verify_handles`` / ``locked_cluster`` / ``stats``,
   with the paging budget gate and its counters.
 
-Left out (ROADMAP A12b): the mesh's row-sharded planes; under an active
-mesh ``DeviceState`` raises.
+Under a mesh (``tpu/shard.py``) the planes are split by node rows into
+the mesh's slabs, uploaded once through ``shard.put``, and the dirty-row
+scatter writes new slabs, each row on the shard that owns it
+(``csrc/mesh_server.cu`` on the card); a cached state for another mesh is
+rebuilt, never reshared.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from typing import Optional
 
 import numpy as np
@@ -35,7 +39,7 @@ from ..debug import devprof as _devprof
 from ..state.planes import exotic_flag, usage_vec  # noqa: F401 — canonical
 # definitions live in the state layer with the planes; re-exported here
 # as in the JAX package
-from . import kernel
+from . import kernel, shard
 from .columnar import R_COLS, ColumnarCluster
 
 logger = logging.getLogger("nomad_tpu_torch.tpu.mirror")
@@ -128,6 +132,13 @@ class MirrorCluster(ColumnarCluster):
 
 
 
+def scatter_rows_sharded_ref(used, rows, vals):
+    """Sharded plain version of the dirty-row scatter (JAX
+    ``_scatter_fn(mesh)``): the unsharded one on the gathered plane, split
+    by rows as ``used`` is (a split is a layout: the same bits)."""
+    return shard.split_like(scatter_rows_ref(used.full(), rows, vals), used)
+
+
 def scatter_rows_ref(used, rows, vals):
     """Plain version of the dirty-row scatter (JAX ``_scatter_fn(None)``):
     a NEW plane equal to ``used`` with ``out[rows[i]] = vals[i]``. Among
@@ -148,12 +159,18 @@ def scatter_rows_ref(used, rows, vals):
 
 
 _SCATTER_SHAPES = dict(used="NC", rows="R", vals="RC")
+_SCATTER_SPECS = dict(used=shard.ROWS, rows=shard.REP, vals=shard.REP)
 
 
 def scatter_rows(used, rows, vals):
     """``used`` with ``rows`` set to ``vals``, in a new tensor: ``used``,
     which an earlier kernel may still be reading, is never written. On the
-    card it is one launch (``csrc/scatter.cu``) and one allocation."""
+    card it is one launch (``csrc/scatter.cu``) and one allocation. A
+    row-sharded ``used`` gives new row slabs: on the card one launch over
+    every shard (``csrc/mesh_server.cu``), which enters the device ledger
+    as sharded."""
+    if isinstance(used, shard.Sharded):
+        return _scatter_rows_mesh(used, rows, vals)
     device = used.device
     if device.type == "cpu":
         return scatter_rows_ref(used, rows, vals)
@@ -168,6 +185,25 @@ def scatter_rows(used, rows, vals):
         d["N"], d["C"], d["R"],
         kernel._stream(device),
     )
+    return out
+
+
+def _scatter_rows_mesh(used, rows, vals):
+    device = used.device
+    d = kernel._check_mesh_int32(dict(used=used, rows=rows, vals=vals), _SCATTER_SPECS,
+                                 _SCATTER_SHAPES, device)
+    N, C, R, S = d["N"], d["C"], d["R"], d["S"]
+    key = f"N{N}R{R}"
+    if device.type == "cpu":
+        t0 = time.perf_counter()
+        out = scatter_rows_sharded_ref(used, rows, vals)
+    else:
+        lib = kernel._library()
+        t0 = time.perf_counter()
+        out = shard.Sharded(shard.ROWS, (torch.empty_like(t) for t in used.slabs))
+        kernel._launch_mesh("mesh_scatter", lib.ntt_mesh_scatter, [used, rows, vals, out],
+                            S, N, C, R, device=device)
+    kernel._ledger("scatter_rows", key, device, t0, sharded=True)
     return out
 
 
@@ -189,19 +225,23 @@ class DeviceState:
     just the dirty rows. A refresh COPIES rather than updates in place:
     a drain batch hands ``used`` to kernels that may still be reading it
     when the next refresh comes, so a plane once handed out is never
-    written."""
+    written. With ``mesh`` the three planes are split by node rows over
+    it (``shard.Sharded`` slabs on the mesh's device), and a refresh
+    scatters into new slabs."""
 
     #: dirty-row counts are bucketed, as the JAX package buckets them to
     #: bound its compiled scatter shapes
     _ROW_BUCKETS = (8, 64, 512, 4096)
 
-    def __init__(self, epoch: int, n_pad: int, capacity, usable, used, device=None):
-        from . import shard
-
+    def __init__(self, epoch: int, n_pad: int, capacity, usable, used, device=None,
+                 mesh=None):
         dev = resolve_device(device)
+        if mesh is not None and mesh.device.type != dev.type:
+            raise ValueError(f"a mesh on {mesh.device} for planes on {dev}")
         n = capacity.shape[0]
-        # the row-sharded planes of the JAX package's mesh: ROADMAP A12b
-        shard.refuse_under_mesh("the mirror's device state under a mesh", n)
+        #: the mesh the planes are row-sharded over (None: one plane each);
+        #: a batch reads only a state whose mesh is its own
+        self.mesh = mesh
         self.epoch = epoch
         self.n_pad = n_pad
         cap = np.zeros((n_pad, R_COLS), dtype=np.int32)
@@ -210,9 +250,13 @@ class DeviceState:
         usa[:n] = usable
         use = np.full((n_pad, R_COLS), 2**30, dtype=np.int32)
         use[:n] = np.clip(used, 0, 2**30)
-        self.capacity, self.usable, self.used = (
-            _devprof.device_put(a, dev) for a in (cap, usa, use)
-        )
+        if mesh is not None:
+            self.capacity, self.usable, self.used = shard.put(
+                (cap, usa, use), (shard.ROWS,) * 3, mesh)
+        else:
+            self.capacity, self.usable, self.used = (
+                _devprof.device_put(a, dev) for a in (cap, usa, use)
+            )
         #: bytes of the upload, and of the refreshes since, as the device
         #: ledger counts them
         self.upload_bytes = cap.nbytes + usa.nbytes + use.nbytes
@@ -239,11 +283,15 @@ class DeviceState:
         rows = np.fromiter(self.pending, dtype=np.int32, count=len(self.pending))
         padded, vals = dirty_lanes(rows, used_host)
         self.pending.clear()
-        dev = self.device
         self.refresh_bytes += padded.nbytes + vals.nbytes
-        self.used = scatter_rows(
-            self.used, _devprof.device_put(padded, dev), _devprof.device_put(vals, dev)
-        )
+        if self.mesh is not None:
+            # the dirty rows and values replicate explicitly, as the JAX
+            # refresh places them
+            lanes = shard.put((padded, vals), (shard.REP, shard.REP), self.mesh)
+        else:
+            lanes = (_devprof.device_put(padded, self.device),
+                     _devprof.device_put(vals, self.device))
+        self.used = scatter_rows(self.used, *lanes)
 
     def arrays(self):
         """(capacity, usable, used) on the device. A later refresh makes a
@@ -327,14 +375,16 @@ class ColumnarMirror:
     # ------------------------------------------------------------------
     # device-resident kernel state
     # ------------------------------------------------------------------
-    def device_state(self, n_pad: int, gen) -> Optional[tuple]:
+    def device_state(self, n_pad: int, gen, mesh=None) -> Optional[tuple]:
         """Device tensors (capacity, usable, used) for the node plane
         padded to ``n_pad``, valid for state generation ``gen``; None when
         the committed planes are at a different generation (caller falls
         back to a host transfer of its own snapshot arrays). The dirty
         rows are read and cleared under the plane lock, which the store's
         in-commit marking also holds, so no row marked between the read
-        and the clear is lost."""
+        and the clear is lost. With ``mesh`` the planes are split by rows
+        over it; a cached state for another mesh is rebuilt, never
+        reshared."""
         # Budget gate: when the paging stanza says a full n_pad-row
         # resident mirror would blow the device budget, refuse to build
         # one — the caller degrades to its host-plane path (counted) and
@@ -354,13 +404,13 @@ class ColumnarMirror:
                 return None
             cluster = self._ensure_cluster()
             ds = self._device.get(n_pad)
-            if ds is not None and ds.epoch != planes.epoch:
+            if ds is not None and (ds.epoch != planes.epoch or ds.mesh is not mesh):
                 planes.unregister_sink(ds.pending)
                 ds = None
             if ds is None:
                 ds = DeviceState(
                     planes.epoch, n_pad, cluster.capacity,
-                    cluster.usable, planes.used, device=self.device,
+                    cluster.usable, planes.used, device=self.device, mesh=mesh,
                 )
                 self.counters["uploads"] += 1
                 self.counters["upload_bytes"] += ds.upload_bytes
@@ -381,19 +431,21 @@ class ColumnarMirror:
     # ------------------------------------------------------------------
     # plan-applier dense device verify (core/plan_apply.py)
     # ------------------------------------------------------------------
-    def verify_handles(self, snapshot, n_pad: int):
+    def verify_handles(self, snapshot, n_pad: int, mesh=None):
         """The plan applier's device-verify view of ``snapshot``: the
         committed-plane cluster and ``(capacity, usable, used)`` device
         refs at exactly that generation, or None when the planes have
         already committed PAST the snapshot (the applier then degrades to
         the host oracle, counted in tpu.mirror_stale /
-        plan.verify_device_degrade). ``n_pad`` must be what the drain
-        batches pad to: the DeviceState cache is keyed by n_pad."""
+        plan.verify_device_degrade). ``n_pad`` and ``mesh`` must be what
+        the drain batches pass (the MIN_NODES-gated active mesh): the
+        DeviceState cache is keyed by n_pad, so a mismatch between the two
+        consumers would rebuild the full planes on every alternation."""
         cluster = self.sync(snapshot)
         if cluster is None:
             return None
         gen = getattr(snapshot, "_gen", snapshot)
-        arrays = self.device_state(n_pad, gen)
+        arrays = self.device_state(n_pad, gen, mesh=mesh)
         if arrays is None:
             return None
         return cluster, arrays, gen

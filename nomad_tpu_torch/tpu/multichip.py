@@ -7,7 +7,7 @@ full batch of 512 placements over 1,024 nodes through the sharded kernel
 (``csrc/mesh.cu``; its sharded plain version on the CPU), checked
 placement for placement against the unsharded scan on the same inputs.
 The JAX module's scored multichip bench, artifact writer and XLA stderr
-filter are ROADMAP A12b.
+filter are ROADMAP A12b-2.
 """
 
 from __future__ import annotations

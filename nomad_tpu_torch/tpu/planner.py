@@ -90,7 +90,7 @@ def choose_mode(planes: dict, exact_only: bool = False, mesh=None) -> str:
     wavefront and paged routes raise: their sharded forms are not ported."""
     mode = _mode(planes, exact_only)
     if mesh is not None and mode in ("wavefront", "paged"):
-        raise not_ported(f"the {mode} route under a mesh", "A12b, the mesh's server path")
+        raise not_ported(f"the {mode} route under a mesh", shard.UNPORTED)
     return mode
 
 

@@ -23,13 +23,23 @@ What differs from the JAX module, at the device seams only:
   visible CUDA cards as the JAX package counts devices, and a mesh whose
   shards would fall on more than one card raises (ROADMAP A12c);
 - the spec trees' leaves are the port's markers :data:`ROWS` (JAX
-  ``P(AXIS, None)``), :data:`COLS` (``P(None, AXIS)``), :data:`LANE`
-  (``P(AXIS)``) and :data:`REP` (``P()``);
+  ``P(AXIS, None)``), :data:`COLS` (``P(None, AXIS)``, and the usage
+  bases' ``P(None, AXIS, None)``), :data:`LANE` (``P(AXIS)``) and
+  :data:`REP` (``P()``);
 - :func:`put` splits each row-, column- or lane-split leaf into S
   contiguous slabs, each a tensor of its own uploaded through the counted
   ``devprof.device_put``, and uploads a replicated leaf once; the result
   is a tree with :class:`Sharded` leaves that the kernel wrappers
-  recognise (:func:`is_sharded`).
+  recognise (:func:`is_sharded`). A leaf already split over the mesh (the
+  mirror's row-sharded planes) passes through as it is, as a JAX
+  ``device_put`` of an array already carrying its sharding does.
+
+The server path runs under the mesh too: the mirror keeps its planes as
+ROWS slabs (``mirror.DeviceState(mesh=...)``), and the fused drain batch,
+the usage bases, the dirty-row scatter and the applier's dense verify
+launch the sharded kernels on them (``csrc/mesh.cu``,
+``csrc/mesh_server.cu``). What stays unported under a mesh, the wavefront
+and paged routes, raises (:func:`refuse_under_mesh`).
 
 Everything degrades to the unsharded path when no mesh is active: the
 helpers return their inputs untouched and the planners run exactly the
@@ -66,8 +76,9 @@ AXIS = "nodes"
 MIN_NODES = int(os.environ.get("NOMAD_TPU_SHARD_MIN_NODES", "4096"))
 
 #: spec markers: node rows split (axis 0 of an [N, k] plane), node
-#: columns split (axis 1 of a [k, N] plane), a node lane split (a 1-D
-#: [N] plane) and replicated
+#: columns split (axis 1: of a [k, N] plane, and the node rows of the
+#: usage bases' [E, N, C], each slab then [E, N/S, C]), a node lane split
+#: (a 1-D [N] plane) and replicated
 ROWS, COLS, LANE, REP = "rows", "cols", "lane", "rep"
 _AXIS_OF = {ROWS: 0, COLS: 1, LANE: 0}
 
@@ -204,14 +215,17 @@ def active_mesh(n_nodes: Optional[int] = None):
     return mesh
 
 
+#: the ROADMAP item of what a mesh cannot run yet
+UNPORTED = "A12b-2, the wavefront and paged routes under a mesh"
+
+
 def refuse_under_mesh(what: str, n_nodes: int) -> None:
-    """Raise for a server-path seam whose sharded form is not ported
-    (the fused drain, the mirror's device state, the applier's device
-    verify, the drain warm-up: ROADMAP A12b) while a mesh is active and
+    """Raise for a route whose sharded form is not ported (the
+    wavefront and paged routes: ROADMAP A12b-2) while a mesh is active and
     a cluster of ``n_nodes`` passes its size gate; never runs it unsharded
     in silence."""
     if active_mesh(n_nodes) is not None:
-        raise not_ported(what, "A12b, the mesh's server path")
+        raise not_ported(what, UNPORTED)
 
 
 def mesh_size(mesh) -> int:
@@ -272,7 +286,7 @@ def wavefront_specs():
     """(BatchArgs, BatchState) spec trees for the wavefront planner: the
     wavefront is an alternative DRIVE over the exact-scan batch — same
     planes, same carry — so its layout IS ``batch_specs()``. The port's
-    wavefront does not run under a mesh yet (ROADMAP A12b)."""
+    wavefront does not run under a mesh yet (ROADMAP A12b-2)."""
     return batch_specs()
 
 
@@ -310,7 +324,7 @@ def paged_specs():
     """(static-tile, dynamic-tile) spec trees for the paged planner's
     tile stream: a tile is a contiguous node-row slab, so the layout is
     the windowed planner's restricted to one tile. The port's paged
-    planner does not run under a mesh yet (ROADMAP A12b)."""
+    planner does not run under a mesh yet (ROADMAP A12b-2)."""
     rows, node = ROWS, LANE
     return (rows, rows, node, node), (rows, node)
 
@@ -335,7 +349,9 @@ def put(tree, spec_tree, mesh):
     LANE leaf as ``mesh.size`` contiguous slabs (a :class:`Sharded`), each
     REP leaf once. Leaves are numpy arrays or scalars (or tensors, moved
     through host memory); integer planes are pinned to int32 and floats
-    to float32 as ``kernel.from_numpy`` pins them.
+    to float32 as ``kernel.from_numpy`` pins them. A :class:`Sharded` leaf
+    is already placed: it must be split as its spec says, over the mesh's
+    shard count, and passes through uncopied and uncounted.
 
     Placement routes through ``devprof.device_put`` — THE counted
     wrapper — so every host→device byte the mesh path moves lands in
@@ -344,6 +360,11 @@ def put(tree, spec_tree, mesh):
     from .kernel import pin_host
 
     def _put(x, spec):
+        if isinstance(x, Sharded):
+            if x.split != spec or len(x.slabs) != mesh.size:
+                raise ValueError(f"a leaf split {x.split} over {len(x.slabs)} shards, "
+                                 f"placed as {spec} over {mesh.size}")
+            return x
         a = pin_host(x.cpu().numpy() if hasattr(x, "data_ptr") else x)
         if spec == REP:
             return _devprof.device_put(a, mesh.device)
@@ -389,6 +410,12 @@ def gather(tree):
     return tree.full() if isinstance(tree, Sharded) else tree
 
 
+def split(t, spec: str, n_shards: int) -> Sharded:
+    """The full tensor ``t`` split as ``spec`` says into ``n_shards``
+    contiguous slabs, on its own device."""
+    return Sharded(spec, (x.contiguous() for x in t.chunk(n_shards, _AXIS_OF[spec])))
+
+
 def split_like(tree, like):
     """Full tensors of ``tree`` split as the leaves of ``like`` are (a
     sharded leaf's split and shard count; a replicated leaf as it is)."""
@@ -398,4 +425,4 @@ def split_like(tree, like):
         return tuple(split_like(x, y) for x, y in zip(tree, like))
     if not isinstance(like, Sharded):
         return tree
-    return Sharded(like.split, (t.contiguous() for t in tree.chunk(len(like.slabs), like.axis)))
+    return split(tree, like.split, len(like.slabs))

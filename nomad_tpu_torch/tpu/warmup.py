@@ -18,7 +18,12 @@ without dispatching.
 Shapes must match production exactly to hit: the batch scheduler and the
 drain collector bucket the node and alloc axes (``problems.bucket``, the
 port's copy of the JAX scheduler's ``_bucket``), so warming the bucket
-ladder covers every cluster size that rounds into it.
+ladder covers every cluster size that rounds into it. Under a mesh
+(``tpu/shard.py``) the example inputs are placed through the runtime's
+spec trees (``shard.put``), so the sharded kernels warm at the shapes and
+splits the runtime launches; the routes not ported under a mesh (the
+wavefront and the paged sweeps, ROADMAP A12b-2) refuse, which is logged
+and shortens the count.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import logging
 import threading
 
+from .. import not_ported
 from .problems import bucket as _bucket
 
 logger = logging.getLogger("nomad_tpu.tpu.warmup")
@@ -102,18 +108,48 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def prewarm(shapes=DEFAULT_SHAPES, v_values: int = DEFAULT_V, device=None) -> int:
+def _expand(shapes, mesh) -> list:
+    """(n_pad, a_pad, mesh or None) for each shape, as the JAX prewarm
+    expands them: the runtime's gate tests the REAL node count, and the
+    real counts that bucket into ``n_pad`` may lie on both sides of
+    ``MIN_NODES``, so such a bucket warms both flavors; a sharded shape
+    re-rounds to a mesh multiple (``shard.node_bucket``)."""
+    from . import shard as _shard
+
+    expanded = []
+    for n_pad, a_pad in shapes:
+        if mesh is None or n_pad < _shard.MIN_NODES:
+            expanded.append((n_pad, a_pad, None))
+            continue
+        expanded.append((_shard.node_bucket(n_pad, mesh), a_pad, mesh))
+        prev_bucket = n_pad - 1024 if n_pad > 1024 else n_pad // 2
+        if prev_bucket < _shard.MIN_NODES:
+            expanded.append((n_pad, a_pad, None))
+    return expanded
+
+
+def _placed(tree, specs, mesh):
+    """``tree`` placed over ``mesh`` by ``specs`` (as it is without one)."""
+    from . import shard as _shard
+
+    return tree if mesh is None else _shard.put(tree, specs, mesh)
+
+
+def prewarm(shapes=DEFAULT_SHAPES, v_values: int = DEFAULT_V, device=None, mesh=None) -> int:
     """Launch the planners once for each (node_bucket, alloc_bucket) shape
     on ``device`` (CUDA unless the caller asks for the CPU); returns the
     number of programs warmed, one per program the JAX function compiles
     for the same shapes and stanzas. A failure must never take the agent
     down: it is logged at warning level with its exception and the count
-    falls short."""
+    falls short. With ``mesh``, shapes at or past ``shard.MIN_NODES`` warm
+    the sharded kernels over it (node buckets already rounded through
+    ``bucket_shape(..., mesh=mesh)``)."""
     import torch
 
     from .. import resolve_device
     from ..debug import devprof as _devprof
     from . import paging as _paging
+    from . import shard as _shard
     from . import wavefront as _wavefront
     from .kernel import (
         RunArgs,
@@ -124,12 +160,14 @@ def prewarm(shapes=DEFAULT_SHAPES, v_values: int = DEFAULT_V, device=None) -> in
     )
 
     dev = resolve_device(device)
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"a mesh on {mesh.device} for a warm-up on {dev}")
     i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     b8 = dict(dtype=torch.bool, device=dev)
     compiled = 0
     with _devprof.warming():
-        for n_pad, a_pad in shapes:
+        for n_pad, a_pad, shape_mesh in _expand(shapes, mesh):
             V = v_values
             try:
                 capacity = torch.ones((n_pad, 4), **i32)
@@ -158,7 +196,9 @@ def prewarm(shapes=DEFAULT_SHAPES, v_values: int = DEFAULT_V, device=None) -> in
                     n_allocs=torch.tensor(1, **i32),
                 )
                 rinit = (used0, coll0, torch.zeros(V, **i32), torch.zeros(V, **b8))
-                plan_batch_runs(rargs, rinit, a_pad, False, n_valid=1)
+                raspec, rispec = _shard.run_specs()
+                plan_batch_runs(_placed(rargs, raspec, shape_mesh),
+                                _placed(rinit, rispec, shape_mesh), a_pad, False, n_valid=1)
                 _sync(torch, dev)
                 compiled += 1
 
@@ -172,18 +212,27 @@ def prewarm(shapes=DEFAULT_SHAPES, v_values: int = DEFAULT_V, device=None) -> in
                     limit=torch.tensor(2, **i32),
                     n_allocs=torch.tensor(1, **i32),
                 )
-                plan_batch_windowed(wargs, used0, coll0, n_pad, a_pad, n_valid=1)
+                waspec, wispec = _shard.window_specs()
+                wused0, wcoll0 = _placed((used0, coll0), wispec, shape_mesh)
+                plan_batch_windowed(_placed(wargs, waspec, shape_mesh), wused0, wcoll0, n_pad,
+                                    a_pad, n_valid=1)
                 _sync(torch, dev)
                 compiled += 1
 
                 bargs, binit = _batch_inputs(torch, n_pad, 1, 1, a_pad, V, n_pad, n_pad, dev)
+                baspec, bsspec = _shard.batch_specs()
+                bargs, binit = _placed(bargs, baspec, shape_mesh), _placed(binit, bsspec,
+                                                                           shape_mesh)
                 plan_batch(bargs, binit, n_pad)
                 _sync(torch, dev)
                 compiled += 1
 
                 # the wavefront drive shares the exact scan's planes, so
                 # its ladder entry reuses the example trees just built
+                # (under a mesh it refuses: ROADMAP A12b-2)
                 if _wavefront.enabled():
+                    if shape_mesh is not None:
+                        raise not_ported("the wavefront warm-up under a mesh", _shard.UNPORTED)
                     _wavefront.plan_batch_wavefront(bargs, binit, n_pad)
                     _sync(torch, dev)
                     compiled += 1
@@ -195,6 +244,8 @@ def prewarm(shapes=DEFAULT_SHAPES, v_values: int = DEFAULT_V, device=None) -> in
         # the pager streams
         if _paging.enabled():
             try:
+                if mesh is not None:
+                    raise not_ported("the paged warm-up under a mesh", _shard.UNPORTED)
                 tn = _paging.tile_rows()
                 cap_t = torch.ones((tn, 4), **i32)
                 usable_t = torch.ones((tn, 2), **f32)
@@ -217,13 +268,19 @@ def prewarm(shapes=DEFAULT_SHAPES, v_values: int = DEFAULT_V, device=None) -> in
     return compiled
 
 
-def prewarm_drain(n_nodes: int, batch: int, v_values: int = 8, device=None) -> int:
+def prewarm_drain(n_nodes: int, batch: int, v_values: int = 8, device=None,
+                  mesh=None) -> int:
     """Launch the FUSED drain-batch shapes for a (cluster size, drain
     size) pair: the multi-eval scan plus the per-eval usage bases the
     collector launches alongside it (drain.batch_shape's paddings), then
-    the applier's dense verify at its two smallest row buckets. Returns
-    programs warmed; failures are logged and short the count like
-    ``prewarm``."""
+    the applier's dense verify at its two smallest row buckets and the
+    mirror's dirty-row scatter at its smallest (which the JAX ladder
+    leaves to the first refresh, so it is not counted). Returns programs
+    warmed; failures are logged and short the count like ``prewarm``.
+    With ``mesh`` the launches are the sharded kernels, on planes split as
+    the collector and the mirror split them, unless ``n_nodes`` is below
+    ``shard.MIN_NODES``: the runtime's gate, under which it warms
+    unsharded."""
     import torch
 
     from .. import resolve_device
@@ -232,60 +289,78 @@ def prewarm_drain(n_nodes: int, batch: int, v_values: int = 8, device=None) -> i
     from . import wavefront as _wavefront
     from .drain import used_bases
     from .kernel import plan_batch, verify_rows
-    from .mirror import DeviceState
+    from .mirror import DeviceState, scatter_rows
 
     dev = resolve_device(device)
-    _shard.refuse_under_mesh("the drain warm-up under a mesh", n_nodes)
-    N = _bucket(n_nodes)
+    if mesh is not None and n_nodes < _shard.MIN_NODES:
+        mesh = None  # the runtime gate: small clusters launch unsharded
+    if mesh is not None and mesh.device.type != dev.type:
+        raise ValueError(f"a mesh on {mesh.device} for a warm-up on {dev}")
+    N = _shard.node_bucket(n_nodes, mesh)
     E = _bucket(batch)
     G = _bucket(batch)
     A = _bucket(batch * 4)
     V = _bucket(max(v_values, 8))
     compiled = 0
     with _devprof.warming():
+        args = init = None
         try:
             args, init = _batch_inputs(torch, N, G, E, A, V, n_nodes, 2, dev)
+            aspec, sspec = _shard.batch_specs()
+            args, init = _placed(args, aspec, mesh), _placed(init, sspec, mesh)
             _, placements = plan_batch(args, init, n_nodes)
             _sync(torch, dev)
             compiled += 1
-            if _wavefront.enabled():
-                _, placements, _ = _wavefront.plan_batch_wavefront(args, init, n_nodes)
-                _sync(torch, dev)
-                compiled += 1
             eval_of = torch.zeros(A, dtype=torch.int32, device=dev)
             used_bases(init.used, placements, args.demands, eval_of, E, n_nodes)
             _sync(torch, dev)
             compiled += 1
         except Exception:
             _failed("the drain batch", (N, batch))
+        if _wavefront.enabled() and args is not None:
+            try:
+                if mesh is not None:
+                    raise not_ported("the wavefront warm-up under a mesh", _shard.UNPORTED)
+                _wavefront.plan_batch_wavefront(args, init, n_nodes)
+                _sync(torch, dev)
+                compiled += 1
+            except Exception:
+                _failed("the wavefront drain batch", (N, batch))
         # the plan applier's dense device verify rides the same (N-padded)
         # committed planes: warm its small row-bucket shapes so the first
         # big plan after startup doesn't pay a first launch inside the
         # apply loop
         try:
-            cap_w = torch.ones((N, 4), dtype=torch.int32, device=dev)
-            used_w = torch.zeros((N, 4), dtype=torch.int32, device=dev)
+            cap_w, used_w = _placed((torch.ones((N, 4), dtype=torch.int32, device=dev),
+                                     torch.zeros((N, 4), dtype=torch.int32, device=dev)),
+                                    (_shard.ROWS, _shard.ROWS), mesh)
             for b in DeviceState._ROW_BUCKETS[:2]:
                 verify_rows(cap_w, used_w, torch.zeros(b, dtype=torch.int32, device=dev),
                             torch.zeros((b, 4), dtype=torch.int32, device=dev))
                 _sync(torch, dev)
                 compiled += 1
+            b = DeviceState._ROW_BUCKETS[0]
+            scatter_rows(used_w, torch.zeros(b, dtype=torch.int32, device=dev),
+                         torch.zeros((b, 4), dtype=torch.int32, device=dev))
+            _sync(torch, dev)
         except Exception:
-            _failed("the dense verify", N)
+            _failed("the dense verify and the dirty-row scatter", N)
     return compiled
 
 
-def prewarm_async(shapes=DEFAULT_SHAPES, drain: tuple = None, device=None) -> threading.Thread:
+def prewarm_async(shapes=DEFAULT_SHAPES, drain: tuple = None, device=None,
+                  mesh=None) -> threading.Thread:
     """Fire-and-forget prewarm on ``device``; returns the daemon thread.
-    ``drain`` optionally adds the fused (n_nodes, batch) drain shapes. The
-    thread's ``warmed`` is None until the ladder ends, then the programs
-    warmed (``prewarm`` plus ``prewarm_drain``), so a failed launch shows
-    as a short count to whoever reads it (``GET /v1/metrics``)."""
+    ``drain`` optionally adds the fused (n_nodes, batch) drain shapes;
+    ``mesh`` warms the shapes past the mesh's gate sharded. The thread's
+    ``warmed`` is None until the ladder ends, then the programs warmed
+    (``prewarm`` plus ``prewarm_drain``), so a failed launch shows as a
+    short count to whoever reads it (``GET /v1/metrics``)."""
 
     def run():
-        warmed = prewarm(shapes, device=device)
+        warmed = prewarm(shapes, device=device, mesh=mesh)
         if drain is not None:
-            warmed += prewarm_drain(*drain, device=device)
+            warmed += prewarm_drain(*drain, device=device, mesh=mesh)
         t.warmed = warmed
 
     t = threading.Thread(target=run, name="tpu-prewarm", daemon=True)

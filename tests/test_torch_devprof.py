@@ -35,6 +35,9 @@ def _ledgers_reset():
     tile_rows = state_planes.TILE_ROWS
     for m in (jwf, twf, jpaging, tpaging, jdevprof, tdevprof):
         m.reset()
+    # what an earlier test launched must not take a compile entry from
+    # this one: a first launch enters the ledger once a process
+    tdevprof.forget_launches()
     prior = (jdevprof.enable(True), tdevprof.enable(True))
     yield
     jdevprof.enable(prior[0])

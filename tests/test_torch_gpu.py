@@ -2069,3 +2069,206 @@ def test_mesh_plan_eval_places_as_unsharded(cuda_device, monkeypatch):
     assert stats["shards"] == 4 and flat_stats["shards"] == 1
     assert tk.LAUNCHES["mesh_runs"] == before + 1
     np.testing.assert_array_equal(got, flat)
+
+
+# ---------------------------------------------------------------------------
+# the server path's sharded kernels (csrc/mesh_server.cu): K8s, K9s and
+# K10s over a node axis split into S shards on the card, and K5s over a
+# fused multi-eval batch, against their sharded plain versions and the
+# unsharded kernels
+# ---------------------------------------------------------------------------
+
+#: lanes of the server kernels: ``mid`` random with duplicates and rows on
+#: both sides of every shard boundary, ``dups`` every lane on three rows,
+#: ``invalid`` every row outside [0, N)
+MESH_SERVER_CASES = ("mid", "dups", "invalid")
+
+
+def _mesh_lanes(kind, rng, N, s, R, C=4):
+    rows, vals = _lanes(kind, rng, N, R, C)
+    if kind == "mid":
+        per = N // s
+        edges = [r for k in range(1, s) for r in (k * per - 1, k * per)]
+        rows[: len(edges)] = edges
+    return rows, vals
+
+
+def _mesh_planes(s, n_real=10_000, seed=3):
+    """capacity, used of n_real nodes padded to the mesh's bucket, as the
+    mirror pads them."""
+    rng = np.random.default_rng(seed)
+    N = shard.node_bucket(n_real, shard.Mesh(s, "cpu"))
+    capacity = np.zeros((N, 4), np.int32)
+    capacity[:n_real] = rng.integers(1000, 9000, (n_real, 4))
+    used = np.full((N, 4), 2**30, np.int32)
+    used[:n_real] = capacity[:n_real] - rng.integers(0, 600, (n_real, 4))
+    return rng, N, capacity, used
+
+
+def _rows_on(mesh, *planes):
+    return shard.put(tuple(planes), (shard.ROWS,) * len(planes), mesh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("kind", MESH_SERVER_CASES)
+def test_mesh_verify_kernel_matches_plain(kind, s, cuda_device):
+    rng, N, capacity, used = _mesh_planes(s)
+    rows, deltas = _mesh_lanes(kind, rng, N, s, 4096)
+    card = _rows_on(shard.Mesh(s, cuda_device), capacity, used)
+    kept = [t.clone() for t in card[1].slabs]
+    r, d = (torch.from_numpy(a).to(cuda_device) for a in (rows, deltas))
+    before = tk.LAUNCHES["mesh_verify"]
+    got = tk.verify_rows(*card, r, d)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mesh_verify"] == before + 1
+    _same(got, tk.verify_rows_sharded_ref(*card, r, d))
+    flat = [torch.from_numpy(a).to(cuda_device) for a in (capacity, used)]
+    _same(got, tk.verify_rows(*flat, r, d))
+    assert all(torch.equal(a, b) for a, b in zip(kept, card[1].slabs))
+    if kind == "invalid":
+        assert not bool(got.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("kind", MESH_SERVER_CASES)
+def test_mesh_bases_kernel_matches_plain(kind, s, cuda_device):
+    from nomad_tpu_torch.tpu import drain
+
+    rng, N, _, used0 = _mesh_planes(s, n_real=4000)
+    E, n_real = 32, 4000
+    lanes, demands = _mesh_lanes(kind, rng, N, s, 4096)
+    placements = lanes if kind != "invalid" else np.full(len(lanes), -1, np.int32)
+    if kind == "mid":
+        placements[::9] = -1
+    eval_of = rng.integers(-1, E + 1, len(placements)).astype(np.int32)
+    (card,) = _rows_on(shard.Mesh(s, cuda_device), used0)
+    t = [torch.from_numpy(a).to(cuda_device) for a in (placements, np.abs(demands), eval_of)]
+    before = tk.LAUNCHES["mesh_bases"]
+    got = drain.used_bases(card, *t, E, n_real)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mesh_bases"] == before + 1
+    assert got.split == shard.COLS and all(x.shape == (E, N // s, 4) for x in got.slabs)
+    want = drain.used_bases_sharded_ref(card, *t, E, n_real)
+    for g, w in zip(got.slabs, want.slabs):
+        _same(g, w)
+    _same(got.full(), drain.used_bases(torch.from_numpy(used0).to(cuda_device), *t, E, n_real))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("kind", MESH_SERVER_CASES)
+def test_mesh_scatter_kernel_matches_plain(kind, s, cuda_device):
+    from nomad_tpu_torch.tpu import mirror
+
+    rng, N, _, used = _mesh_planes(s)
+    rows, vals = _mesh_lanes(kind, rng, N, s, 3000)
+    (card,) = _rows_on(shard.Mesh(s, cuda_device), used)
+    kept = [x.clone() for x in card.slabs]
+    r, v = (torch.from_numpy(a).to(cuda_device) for a in (rows, vals))
+    before = tk.LAUNCHES["mesh_scatter"]
+    got = mirror.scatter_rows(card, r, v)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mesh_scatter"] == before + 1
+    assert got.split == shard.ROWS and len(got.slabs) == s
+    for g, w in zip(got.slabs, mirror.scatter_rows_sharded_ref(card, r, v).slabs):
+        _same(g, w)
+    _same(got.full(), mirror.scatter_rows(torch.from_numpy(used).to(cuda_device), r, v))
+    assert all(torch.equal(a, b) for a, b in zip(kept, card.slabs))
+
+
+def _fused_batch(mix, n_evals, s, n_real=3000, seed=9):
+    """(BatchArgs, BatchState) of numpy planes of a fused drain batch
+    (E = 32) over ``n_real`` nodes padded to the mesh's bucket."""
+    from nomad_tpu_torch.tpu import drain
+
+    shared, preps = problems.drain_problem(problems.build_cluster(n_real, 1, seed=seed), n_evals,
+                                           mix, seed=seed)
+    order = [drain.DrainPrep.from_dict(d) for d in preps]
+    shape = drain.batch_shape(order, n_real, 32, shard.Mesh(s, "cpu"))
+    args, state, _ = drain.assemble(order, n_real, shape)
+    capacity, usable, used = drain.host_planes(
+        drain.SharedCluster(shared["capacity"], shared["usable"], shared["used0"]), shape[3])
+    return (tk.BatchArgs(capacity=capacity, usable=usable, **args),
+            tk.BatchState(used=used, **state), n_real)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("mix,n_evals", [("drain-bench", 32), ("drain-tenant", 12)])
+def test_mesh_exact_kernel_over_a_fused_batch(mix, n_evals, s, cuda_device):
+    """K5s at E = 32: per-eval rings and cursors, ``perm`` [E, N] split by
+    columns, groups over many evals, padded lanes."""
+    args, init, n_real = _fused_batch(mix, n_evals, s)
+    aspec, sspec = shard.batch_specs()
+    card, cpu = shard.Mesh(s, cuda_device), shard.Mesh(s, "cpu")
+    before = tk.LAUNCHES["mesh_exact"]
+    state, got = tk.plan_batch(shard.put(args, aspec, card), shard.put(init, sspec, card), n_real)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mesh_exact"] == before + 1
+    cut = slice(0, 256)  # the plain version walks its lanes one by one
+    cargs = args._replace(demands=args.demands[cut], groups=args.groups[cut],
+                          limits=args.limits[cut], valid=args.valid[cut])
+    want_state, want = tk.plan_batch(shard.put(cargs, aspec, cpu), shard.put(init, sspec, cpu),
+                                     n_real)
+    cut_state, cut_got = tk.plan_batch(shard.put(cargs, aspec, card),
+                                       shard.put(init, sspec, card), n_real)
+    _same(cut_got, want)
+    for g, w in zip(shard.gather(cut_state), shard.gather(want_state)):
+        _same(g, w)
+    _same(got[cut], want)
+    flat_state, flat = tk.plan_batch(tk.from_numpy(args, cuda_device),
+                                     tk.from_numpy(init, cuda_device), n_real)
+    _same(got, flat)
+    for g, w in zip(shard.gather(state), flat_state):
+        _same(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", (4, 8))
+def test_mesh_drain_batch_on_card_matches_cpu(s, cuda_device, monkeypatch):
+    """The collector under a mesh on a row-sharded DeviceState: the card
+    (K5s, K9s, K10s for the refresh) against the CPU's sharded plain
+    versions and the card's unsharded run."""
+    from nomad_tpu_torch.tpu import batch_sched, drain, mirror
+
+    monkeypatch.setattr(shard, "MIN_NODES", 1024)
+    c = problems.build_cluster(3000, 1, seed=9)
+    shared, preps = problems.drain_problem(c, 12, "drain-tenant", seed=9)
+    out = {}
+    for dev, sharded in (("cpu", True), (cuda_device, True), (cuda_device, False)):
+        mesh = shard.configure(s, device=str(torch.device(dev).type)) if sharded else None
+        try:
+            n_pad = shard.node_bucket(3000, mesh)
+            stale = np.zeros_like(shared["used0"])
+            ds = mirror.DeviceState(0, n_pad, shared["capacity"], shared["usable"], stale,
+                                    device=dev, mesh=mesh)
+            ds.pending.update(int(r) for r in np.flatnonzero((shared["used0"] != stale).any(1)))
+            ds.refresh(shared["used0"])
+            collector = drain.KernelBatchCollector(
+                drain.SharedCluster(shared["capacity"], shared["usable"], shared["used0"], ds),
+                expected=len(preps), pad_evals=16, device=dev)
+            got = {}
+
+            def one(d):
+                placements, base = collector.submit(drain.DrainPrep.from_dict(d))
+                got[d["eval_id"]] = (batch_sched._to_host(placements),
+                                     batch_sched._to_host(base))
+
+            threads = [threading.Thread(target=one, args=(d,)) for d in preps]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert not any(t.is_alive() for t in threads)
+            assert drain.LAST_DRAIN_STATS["shards"] == (s if sharded else 1)
+            out[(str(dev), sharded)] = got
+        finally:
+            shard.configure(enabled=False)
+    want = out[("cpu", True)]
+    for key in ((str(cuda_device), True), (str(cuda_device), False)):
+        assert sorted(out[key]) == sorted(want)
+        for eval_id, (placements, base) in want.items():
+            np.testing.assert_array_equal(out[key][eval_id][0], placements)
+            np.testing.assert_array_equal(out[key][eval_id][1], base)

@@ -253,7 +253,7 @@ def test_chip_smoke_refuses_without_a_card():
     assert '"ok": true' not in out.stdout
 
 
-def test_server_and_its_device_tier_default_to_cuda():
+def test_server_and_its_device_tier_default_to_cuda(caplog):
     """``Server()``, ``new_scheduler(...)`` and the mirror want the card
     unless given ``device="cpu"``; the stanza that reaches the mesh, not yet
     ported, raises an error that names its ROADMAP item (the warm-up
@@ -297,11 +297,28 @@ def test_server_and_its_device_tier_default_to_cuda():
     # the acl stanza is ported: the server enforces it
     acl_server = Server({"acl": {"enabled": True}}, device="cpu")
     assert acl_server.acl_enabled()
-    for stanza, item in (("shard_devices", "A12b"),):
-        s = Server({stanza: 1}, device="cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            s.start(num_workers=0)
-        s.stop()
+    # the shard_devices stanza counts CUDA cards as the JAX one counts
+    # devices: fewer visible than asked stays unsharded with the warning,
+    # shards over several cards raise naming their ROADMAP item (A12c)
+    from unittest import mock
+
+    from nomad_tpu_torch.tpu import shard
+
+    for visible, item in ((0, None), (8, "A12c")):
+        with mock.patch.object(shard, "_visible_cards", lambda: visible):
+            s = Server({"shard_devices": 2}, device="cpu")
+            try:
+                if item is None:
+                    with caplog.at_level("WARNING", logger="nomad_tpu.tpu.shard"):
+                        s.start(num_workers=0)
+                    assert "staying unsharded" in caplog.text
+                else:
+                    with pytest.raises(NotImplementedError, match=item):
+                        s.start(num_workers=0)
+                assert shard.active_mesh() is None
+            finally:
+                s.stop()
+                shard.configure(enabled=False)
 
 
 def test_agents_and_the_cli_agent_default_to_cuda():

@@ -18,10 +18,11 @@ tolerance:
   its mesh and the port's unsharded run, with ``shards`` 8 in its stats,
   and under the ``tpu.kernel`` fault point degrades to the same exact-np
   placements;
-- the routes and seams whose sharded forms are not ported (wavefront,
-  paged, the fused drain, the mirror's device state, the drain warm-up)
-  and a mesh over several cards raise ``NotImplementedError`` naming
-  their ROADMAP items.
+- the routes whose sharded forms are not ported (wavefront, paged) and a
+  mesh over several cards raise ``NotImplementedError`` naming their
+  ROADMAP items; the server path's seams (the fused drain, the mirror's
+  device state, the drain warm-up) run under the mesh
+  (tests/test_torch_mesh_server.py holds them against the JAX package).
 
 tests/test_torch_gpu.py holds the sharded kernels against these plain
 versions on the card.
@@ -466,7 +467,7 @@ def test_unported_routes_raise_under_a_mesh(monkeypatch):
     tshard.configure(N_DEV, device="cpu")
     try:
         twf.configure(enabled=True)
-        with pytest.raises(NotImplementedError, match="wavefront.*A12b"):
+        with pytest.raises(NotImplementedError, match="wavefront.*A12b-2"):
             tplanner.plan_eval(_planes(a=40), device="cpu")
         twf.reset()
         tpaging.configure(enabled=True, tile_nodes=64)
@@ -474,7 +475,7 @@ def test_unported_routes_raise_under_a_mesh(monkeypatch):
         planes = _planes(spread=False)
         planes["affinity_present"][:] = False
         planes["limits"][:] = 8
-        with pytest.raises(NotImplementedError, match="paged.*A12b"):
+        with pytest.raises(NotImplementedError, match="paged.*A12b-2"):
             tplanner.plan_eval(planes, device="cpu")
     finally:
         twf.reset()
@@ -482,20 +483,31 @@ def test_unported_routes_raise_under_a_mesh(monkeypatch):
 
 
 def test_server_path_seams_raise_under_a_mesh(monkeypatch):
+    """The server path's seams run under the mesh (its sharded forms are
+    ported); of them, only the wavefront drive of the fused batch still
+    raises, naming A12b-2."""
     from nomad_tpu_torch.tpu import drain, mirror
 
     monkeypatch.setattr(tshard, "MIN_NODES", 256)
-    tshard.configure(N_DEV, device="cpu")
+    mesh = tshard.configure(N_DEV, device="cpu")
     n = 300
     cap = np.full((n, 4), 1000, dtype=np.int32)
     usable = np.full((n, 2), 1000.0, dtype=np.float32)
     used = np.zeros((n, 4), dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="drain batch.*A12b"):
-        drain.KernelBatchCollector(drain.SharedCluster(cap, usable, used), 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="device state.*A12b"):
-        mirror.DeviceState(0, 512, cap, usable, used, device="cpu")
-    with pytest.raises(NotImplementedError, match="drain warm-up.*A12b"):
-        twarmup.prewarm_drain(n, 8, device="cpu")
+    shared = drain.SharedCluster(cap, usable, used)
+    assert drain.KernelBatchCollector(shared, 1, device="cpu").shared is shared
+    ds = mirror.DeviceState(0, 512, cap, usable, used, device="cpu", mesh=mesh)
+    assert ds.mesh is mesh and len(ds.used.slabs) == N_DEV
+    devprof.reset()
+    devprof.forget_launches()
+    assert twarmup.prewarm_drain(n, 8, device="cpu", mesh=mesh) == 4
+    assert all(e["sharded"] for e in devprof.snapshot()["compile_ledger"])
+    twf.configure(enabled=True)
+    try:
+        with pytest.raises(NotImplementedError, match="wavefront drain batch.*A12b-2"):
+            drain.KernelBatchCollector(shared, 1, device="cpu")
+    finally:
+        twf.reset()
     # below the gate the unsharded seams run
     assert mirror.DeviceState(0, 256, cap[:200], usable[:200], used[:200], device="cpu").n_pad == 256
 
