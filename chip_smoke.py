@@ -209,11 +209,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    rebuilt from its data dir); every server runs the soak's device
    settings (``server_settings``: ``tpu-batch``, ``batch_drain`` 8,
    ``plan_apply_batch`` 8) with 2 workers; up to 90 s to quiesce (cut from
-   180). Checks: the storm grades pass by its own SLOs (no invariant
+   180); after the final sweep, the quiet tail (``federation_tail``): each
+   region's leader takes batch jobs of 256 allocs (the applier's dense
+   verify gate) one at a time until its servers have scattered dirty rows
+   into their mirrors' device planes (at most 4). Checks: the storm
+   grades pass by its own SLOs (no invariant
    violation, nothing lost or double committed, heal under 15 s,
    forwarding errors under 2%, replication lag p99 under 10 s, op failures
    under 5%, no shed) and it quiesced; the fused drain's scan, the usage
-   bases and the dirty-row scatter each launched, and each region's
+   bases and the dirty-row scatter each launched (the tail's launches
+   count with the storm's), the tail raised no error, and each region's
    servers called the drain's scan and bases (counted by ``ServerProbe``
    on the servers' worker threads: the counters are process-wide); no
    eval sent to the scalar scheduler for a reason outside ``SOAK_ROUTED``
@@ -295,9 +300,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``import chip_smoke; chip_smoke.mesh_server_phase(torch.device("cpu"),
    size, gate)`` with small ``size`` and ``gate`` dicts and
    ``shard.MIN_NODES`` lowered rehearses the server runs on the CPU;
-14. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
-   scheduler, server, agent, soak, federation, client, mesh and mesh
-   server launches), the card's name and power limit, and last
+14. the wavefront and paged routes over the mesh: with
+   ``shard.configure(4, device="cuda")`` and every launch counter set to 0
+   before and read after, phase 4's multi-tenant eval through
+   ``plan_eval`` with the wavefront stanza on (W 32, M 1): the sharded
+   wavefront (K11s, csrc/mesh.cu) launches once and no unsharded
+   wavefront or scan, and the placements and rounds equal phase 4's; K11s
+   is held against its sharded plain version on the first 1,024 lanes and
+   timed by CUDA events at 4 and 8 shards. Then phase 4's paged 1M eval
+   over 4 shards: only the sharded tile sweeps (K12s, K13s in
+   csrc/paging.cu) launch, the placements, rounds and tile bytes equal
+   phase 4's, and every recorded sweep call equals its sharded plain
+   version; both sweeps timed on a 65,536-row tile at 4 and 8 shards
+   beside a PyTorch composition over each slab. Then phase 5's two fused
+   batches through K11s over 4 shards, each equal to the unsharded
+   wavefront and scan; phase 13's 4,096-node gate run with the wavefront
+   stanza on, under the mesh and unsharded, placing identically (the
+   drain launching K11s and K9s, no scan); and
+   ``multichip.bench_multichip(4, device="cuda")`` (its summary line
+   printed, no artifact written). ``import chip_smoke;
+   chip_smoke.mesh_paths_phase(torch.device("cpu"), ...)`` with small
+   inputs and ``shard.MIN_NODES`` lowered rehearses it on the CPU;
+15. one JSON line of per-kernel numbers (a kernel's ``paths`` gain its
+   scheduler, server, agent, soak, federation, client, mesh, mesh server
+   and mesh paths launches), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA card it exits with status 2 and prints no result.
@@ -357,13 +383,15 @@ PAGED_KERNELS = ("tile_count", "tile_window")
 PRIMITIVES = {
     "binpack": ("nomad_tpu/tpu/kernel.py:151",
                 ("exact_scan", "runs", "windowed", "wavefront", "tile_window", "mesh_exact",
-                 "mesh_runs", "mesh_windowed")),
+                 "mesh_runs", "mesh_windowed", "mesh_wavefront", "mesh_tile_window")),
     "class_boosts": ("nomad_tpu/tpu/kernel.py:161",
-                     ("exact_scan", "runs", "wavefront", "mesh_exact", "mesh_runs")),
+                     ("exact_scan", "runs", "wavefront", "mesh_exact", "mesh_runs",
+                      "mesh_wavefront")),
     "scores": ("nomad_tpu/tpu/kernel.py:203",
-               ("exact_scan", "runs", "wavefront", "mesh_exact", "mesh_runs")),
+               ("exact_scan", "runs", "wavefront", "mesh_exact", "mesh_runs", "mesh_wavefront")),
     "rot_incl": ("nomad_tpu/tpu/kernel.py:255",
-                 ("exact_scan", "windowed", "wavefront", "mesh_exact", "mesh_windowed")),
+                 ("exact_scan", "windowed", "wavefront", "mesh_exact", "mesh_windowed",
+                  "mesh_wavefront")),
 }
 
 
@@ -723,8 +751,8 @@ def recorded_sweeps():
     def counter(cap, feas, used, demand, counts):
         count = wrapped["_tile_counter"](cap, feas, used, demand, counts)
 
-        def call(t, cap, feas, used, t0, offset, n_real):
-            count(t, cap, feas, used, t0, offset, n_real)
+        def call(t, cap, feas, used, t0, offset, n_real, table=None):
+            count(t, cap, feas, used, t0, offset, n_real, table=table)
             # the drive reuses ``counts`` every round: keep this tile's row
             calls.append(("tile_count", (cap, feas, used, demand, t0, offset, n_real),
                           (counts[t].clone(),)))
@@ -740,13 +768,16 @@ def recorded_sweeps():
 
 
 def sweeps_err(calls) -> int:
-    """Each recorded tile sweep against its plain version on its inputs."""
-    from nomad_tpu_torch.tpu import paging
+    """Each recorded tile sweep against its plain version on its inputs
+    (the sharded plain version for a tile split over a mesh)."""
+    from nomad_tpu_torch.tpu import paging, shard
 
     plain = {"tile_count": paging.tile_count_ref, "tile_window": paging.tile_window_ref}
+    sharded = {"tile_count": paging.tile_count_sharded_ref,
+               "tile_window": paging.tile_window_sharded_ref}
     err = 0
     for name, args, out in calls:
-        want = plain[name](*args)
+        want = (sharded if shard.is_sharded(args) else plain)[name](*args)
         err = max(err, max_abs_err(zip(out, want if isinstance(want, tuple) else (want,))))
     return err
 
@@ -2903,6 +2934,22 @@ FED_REPLAY_S = 15.0
 #: windowed planner (K7) and the applier's dense verify (K8) are reported
 #: where the storm's evals reach them
 FED_KERNELS = ("exact_scan", "used_bases", "scatter_rows")
+#: the storm's quiet tail (``federation_tail``): after the final sweep and
+#: before the servers stop, each region's leader takes batch jobs of
+#: FED_TAIL_COUNT allocs one at a time, each run to its end, until its
+#: servers have scattered dirty rows into their mirrors' device planes or
+#: FED_TAIL_JOBS jobs have run. A plan of that many placements takes the
+#: applier's dense device verify (DEVICE_VERIFY_MIN_PLACEMENTS,
+#: core/plan_apply.py), which refreshes the mirror's planes at the plan's
+#: generation: with no driver, chaos or replication write under way, that
+#: refresh scatters the rows the job before it committed. Under the churn
+#: a refresh seldom finds its generation unchanged (one whole storm of 39
+#: fused batches scattered none, another of 57 once)
+FED_TAIL_JOBS = 4
+FED_TAIL_COUNT = 256
+#: seconds a tail job's eval may take to reach a terminal status, and to
+#: wait for a region's leader
+FED_TAIL_WAIT_S = 60.0
 #: the kernels each region's servers must call: the fused drain's, which
 #: every batch launches. The scatter runs only when a batch's generation
 #: still matches the mirror's at dispatch (no write landed since its
@@ -2941,6 +2988,47 @@ def planes_vs_cold_build(server) -> dict:
                 max_abs_err=max_abs_err(zip(got, want)))
 
 
+def federation_tail(cluster, scattered) -> dict:
+    """The storm's quiet tail (FED_TAIL_JOBS): by region, its leader's name,
+    the jobs it took, the scatters their batches made (``scattered()``
+    counts them: the launches on the card, the wrapper's calls on the CPU)
+    and the first error, if any. Raises nothing: the storm's ``stop`` runs
+    it, also when the storm itself failed, and the phase's checks read it."""
+    from nomad_tpu_torch.loadgen.grammar import build_job
+
+    tail = {}
+    for region in sorted({fs.region for fs in cluster.servers}):
+        deadline = time.perf_counter() + FED_TAIL_WAIT_S
+        while (fs := cluster.leader_of(region)) is None and time.perf_counter() < deadline:
+            time.sleep(0.1)
+        row = tail[region] = dict(leader=getattr(fs, "name", None), jobs=0, scattered=0,
+                                  error=None)
+        if fs is None:
+            row["error"] = "no leader"
+            continue
+        server, before = fs.agent.server, scattered()
+        try:
+            while row["jobs"] < FED_TAIL_JOBS and scattered() == before:
+                job = build_job(dict(slot=row["jobs"], category="tail", type="batch",
+                                     count=FED_TAIL_COUNT), prefix=f"smoke-{region}")
+                eid = server.job_register(job)
+                row["jobs"] += 1
+                deadline = time.perf_counter() + FED_TAIL_WAIT_S
+                while True:
+                    ev = server.state.eval_by_id(eid)
+                    if ev is not None and ev.terminal_status():
+                        break
+                    if time.perf_counter() > deadline:
+                        raise TimeoutError(f"eval {eid} not terminal in {FED_TAIL_WAIT_S:.0f} s")
+                    time.sleep(0.01)
+                if ev.status != "complete":
+                    raise RuntimeError(f"eval {eid} ended {ev.status}: {ev.status_description}")
+        except Exception as e:  # noqa: BLE001 - reported, and failed on, by the phase
+            row["error"] = f"{type(e).__name__}: {e}"
+        row["scattered"] = scattered() - before
+    return tail
+
+
 def federation_phase(dev, size: dict = FED_SIZE) -> dict:
     """The federated storm (module docstring, phase 10). Returns the storm's
     launches per kernel, the replays against the plain versions and its
@@ -2975,10 +3063,11 @@ def federation_phase(dev, size: dict = FED_SIZE) -> dict:
         out["memory_after_restart"].append((fs.name, allocated()))
 
     def stop(self):
-        # quiesced and swept: before the servers stop, each live server
-        # that was restarted holds device planes equal to a cold build (the
-        # refresh this takes is not the storm's: its launches are taken
-        # off the phase's counts)
+        # quiesced and swept: the storm's quiet tail runs, then, before the
+        # servers stop, each live server that was restarted holds device
+        # planes equal to a cold build (the refresh this takes is not the
+        # storm's: its launches are taken off the phase's counts)
+        out["tail"] = federation_tail(self, scattered)
         out["servers"] = {fs.name: fs.alive for fs in self.servers}
         out["mirrors"] = {
             fs.name: {k: v for k, v in fs.agent.server.columnar_mirror.stats().items()
@@ -2998,6 +3087,11 @@ def federation_phase(dev, size: dict = FED_SIZE) -> dict:
     clock = StageClock()
     names = ("exact_scan", "wavefront", "runs", "windowed", "verify_rows", "used_bases",
              "scatter_rows")
+
+    def scattered() -> int:
+        # the plain versions on the CPU count no launch
+        return (kernel.LAUNCHES["scatter_rows"] if on_card
+                else len(probe.calls.get("scatter_rows", ())))
     with clock.installed(), probe.installed(), server_threads(), \
             mock.patch.object(federation.FederatedCluster, "restart", restart), \
             mock.patch.object(federation.FederatedCluster, "stop", stop):
@@ -3085,6 +3179,7 @@ def federation_phase(dev, size: dict = FED_SIZE) -> dict:
         f"p99 {report['fed_replication_lag_p99_s']} s; in chaos max "
         f"{report['fed_replication_lag_chaos_max_s']} s")
     log(f"federation: invariants {out['invariants']}; quiesced {report['quiesced']}")
+    log(f"federation: the quiet tail by region {json.dumps(out.get('tail'))}")
     log(f"federation: fused batches and evals {drained}; modes {modes}; routed to the scalar "
         f"scheduler by design {routed}; kernel faults {out['kernel_faults']}; verify degrades "
         f"{out['verify_degrades']}")
@@ -3124,7 +3219,13 @@ def federation_phase(dev, size: dict = FED_SIZE) -> dict:
     missing = [k for k in FED_KERNELS if seen[k] < 1]
     if missing:
         fail(f"federation: kernels not launched by the storm: {missing} (launches {launches}, "
-             f"wrapper calls {calls})")
+             f"wrapper calls {calls}; the quiet tail {out.get('tail')})")
+    # a region left with no leader is the storm's to grade; a tail job that
+    # raised, timed out or ended other than complete fails the phase
+    errors = {r: t["error"] for r, t in out.get("tail", {}).items()
+              if t["error"] and t["error"] != "no leader"}
+    if errors or "tail" not in out:
+        fail(f"federation: the quiet tail failed {errors or 'to run'}")
     for region in report["region_names"]:
         short = [k for k in FED_REGION_KERNELS if by_region.get(region, {}).get(k, 0) < 1]
         if short:
@@ -3924,9 +4025,11 @@ def _server_run_checked(label: str, run: dict) -> None:
         fail(f"{label}: scheduler fallbacks {run['fallbacks']}")
 
 
-def _counted_server_run(dev, size: dict, node_docs, jobs, sharded: bool, probe=None) -> tuple:
+def _counted_server_run(dev, size: dict, node_docs, jobs, sharded: bool, probe=None,
+                        kernels=MESH_SERVER_KERNELS + UNSHARDED_SERVER_KERNELS) -> tuple:
     """(a server run over ``MESH_SHARDS`` shards or unsharded, its launches
-    by kernel), every launch counter set to 0 before and read after."""
+    by kernel of ``kernels``), every launch counter set to 0 before and
+    read after."""
     from nomad_tpu_torch.tpu import kernel, shard
 
     mesh = shard.configure(MESH_SHARDS, device=dev.type) if sharded else None
@@ -3936,7 +4039,7 @@ def _counted_server_run(dev, size: dict, node_docs, jobs, sharded: bool, probe=N
         kernel.reset_launches()
         with probe.installed() if probe is not None else contextlib.nullcontext():
             run = server_run(dev, size, node_docs, jobs)
-            launches = path_launches(MESH_SERVER_KERNELS + UNSHARDED_SERVER_KERNELS)
+            launches = path_launches(kernels)
     finally:
         shard.configure(enabled=False)
     return run, launches
@@ -4202,6 +4305,377 @@ def _mesh_fused_scans(dev, inputs: dict, card: str) -> dict:
             + f"; identical to the unsharded kernel and, on the first {lanes.stop} lanes, to its "
             f"sharded plain version ({plain_ms:.1f} ms); bound {bound_ms:.5f} ms by {bound_by}; "
             f"{o['shape']}; {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+#: phase 14: the wavefront and paged routes over the mesh. The wavefront's
+#: lanes its sharded plain version is held at (a cut of the 8,192), the
+#: sharded kernels of the two routes (the unsharded kernel beside each, its
+#: source and the JAX program it replaces), and the kernels neither route
+#: may launch under the mesh
+MESH_WAVE_CUT = 1024
+MESH_PATHS_OF = {
+    "mesh_wavefront": ("wavefront", "nomad_tpu_torch/tpu/csrc/mesh.cu",
+                       "nomad_tpu/tpu/wavefront.py:300"),
+    "mesh_tile_count": ("tile_count", "nomad_tpu_torch/tpu/csrc/paging.cu",
+                        "nomad_tpu/tpu/paging.py:344"),
+    "mesh_tile_window": ("tile_window", "nomad_tpu_torch/tpu/csrc/paging.cu",
+                         "nomad_tpu/tpu/paging.py:358"),
+}
+UNSHARDED_PATH_KERNELS = ("wavefront", "exact_scan", "mesh_exact", "tile_count", "tile_window",
+                          "windowed", "mesh_windowed")
+
+
+def _resplit(tree, s: int):
+    """A sharded tree's split leaves re-split into ``s`` slabs."""
+    from nomad_tpu_torch.tpu import shard
+
+    return tuple(shard.split(x.full(), x.split, s) if isinstance(x, shard.Sharded) else x
+                 for x in tree)
+
+
+def _tile_library(name: str, args: tuple):
+    """The PyTorch composition of an unsharded sweep's row, over each slab
+    of a split tile: K12s a mask and two sums a slab, K13s the segmented
+    max / min / max (``scatter_reduce`` with their gathers) a slab, on the
+    rows' scores and segments (computed before, as phase 4 computes them
+    for K13's)."""
+    from nomad_tpu_torch.tpu import paging, shard
+
+    if name == "mesh_tile_count":
+        cap, feas, used, demand, t0, off, n_real = args
+        R = cap.slabs[0].shape[0]
+        pos = [t0 + k * R + torch.arange(R, dtype=torch.int32, device=demand.device)
+               for k in range(len(cap.slabs))]
+
+        def count():
+            cnt = before = torch.zeros((), dtype=torch.int32, device=demand.device)
+            for c, f, u, p in zip(cap.slabs, feas.slabs, used.slabs, pos):
+                fit = f & (u + demand[None, :] <= c).all(dim=1) & (p < n_real)
+                cnt = cnt + fit.sum(dtype=torch.int32)
+                before = before + (fit & (p < off)).sum(dtype=torch.int32)
+            return torch.stack([cnt, before])
+        return count
+    planes = shard.gather(tuple(args[:6]))
+    score, rank, active, seg = paging._tile_segments(*planes[:5], args[6], *args[7:])[:4]
+    nodes = planes[5]
+    S, T = len(args[0].slabs), score.shape[0]
+    R = T // S
+    cuts = [slice(k * R, (k + 1) * R) for k in range(S)]
+    dev = score.device
+
+    def window():
+        n = 2 * T + 1
+        seg_score = torch.full((n,), float("-inf"), device=dev)
+        for sl in cuts:
+            seg_score.scatter_reduce_(0, seg[sl], torch.where(active[sl], score[sl],
+                                                              paging.NEG_INF), "amax")
+        seg_rank = torch.full((n,), paging._I32_MAX, dtype=torch.int32, device=dev)
+        for sl in cuts:
+            best = active[sl] & (score[sl] == seg_score[seg[sl]])
+            seg_rank.scatter_reduce_(0, seg[sl], torch.where(best, rank[sl], paging._BIG), "amin")
+        seg_node = torch.full((n,), paging._I32_MIN, dtype=torch.int32, device=dev)
+        for sl in cuts:
+            best = active[sl] & (score[sl] == seg_score[seg[sl]])
+            won = best & (rank[sl] == seg_rank[seg[sl]])
+            seg_node.scatter_reduce_(0, seg[sl], torch.where(won, nodes[sl], -1), "amax")
+        return seg_score, seg_rank, seg_node
+    return window
+
+
+def _mesh_sweep_row(dev, name: str, args: tuple, flat: dict, cuda: bool) -> dict:
+    """A tile sweep's sharded kernel on a recorded call's tile at
+    MESH_SHARDS and 8 shards: CUDA events, device us, host us, its sharded
+    plain version, the composition over each slab and the unsharded
+    kernel on the same tile, all equal."""
+    from nomad_tpu_torch.tpu import paging, shard
+
+    out = {}
+    for s in (MESH_SHARDS, 8):
+        a = args if s == MESH_SHARDS else _resplit(args, s)
+        full = shard.gather(a)
+        if name == "mesh_tile_count":
+            cap, feas, used, demand, t0, off, n_real = a
+            counts = torch.full((1, 2), -1, dtype=torch.int32, device=dev)
+            counter = paging._tile_counter(cap, feas, used, demand, counts)
+            table = paging._tile_table(cap, None, feas, None, used, None) if cuda else None
+
+            def call(counter=counter, a=a, table=table, counts=counts):
+                counter(0, *a[:3], *a[4:], table=table)  # the paged drive's call
+                return counts[0]
+
+            def plain(a=a):
+                return paging.tile_count_sharded_ref(*a)
+
+            public = (lambda a=a: paging.tile_count(*a)) if cuda else None
+            unsharded = paging.tile_count(*full)
+        else:
+            call = lambda a=a: paging.tile_window(*a)  # noqa: E731
+            plain = lambda a=a: paging.tile_window_sharded_ref(*a)  # noqa: E731
+            public = None
+            unsharded = paging.tile_window(*full)
+        library = _tile_library(name, a)
+        ms, got = _timed_ms(call, dev)
+        plain_ms, want = _timed_ms(plain, dev)
+        lib_ms, lib = _timed_ms(library, dev)
+        got_t = got if isinstance(got, tuple) else (got,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        err = max_abs_err([*zip(got_t, want_t), *zip(got_t, unsharded if isinstance(
+            unsharded, tuple) else (unsharded,))])
+        err = max(err, max_abs_err(zip(got_t[1:4], lib)) if name == "mesh_tile_window"
+                  else max_abs_err([(got, lib)]))
+        if err:
+            fail(f"{name} over {s} shards: max abs err {err} against its sharded plain version, "
+                 f"the composition over each slab and the unsharded kernel")
+        out[s] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                      device_us=device_us(call) if cuda else None,
+                      library_device_us=device_us(library) if cuda else None,
+                      host_us=wrapper_host_us(call) if cuda else None,
+                      public_host_us=wrapper_host_us(public) if public else None)
+    m = out[MESH_SHARDS]
+    T, C = args[0].shape
+    return dict(ms=m["ms"], plain_ms=m["plain_ms"], library_ms=m["library_ms"],
+                max_abs_err=max(o["max_abs_err"] for o in out.values()),
+                device_us=m["device_us"], library_device_us=m["library_device_us"],
+                host_us=m["host_us"], public_host_us=m["public_host_us"],
+                ms_8_shards=out[8]["ms"], device_us_8_shards=out[8]["device_us"],
+                library_ms_8_shards=out[8]["library_ms"], unsharded_ms=flat.get("ms"),
+                unsharded_device_us=flat.get("device_us"), bound_ms=flat.get("bound_ms"),
+                bound_by=flat.get("bound_by"),
+                shape=f"T={T} C={C} over {MESH_SHARDS} shards, a tile of the paged eval")
+
+
+def mesh_paths_phase(dev, tenants: dict, wf_flat: tuple, paged: dict, pg_flat: tuple,
+                     inputs: dict = None, flat_rows: dict = None,
+                     gate: dict = MESH_SERVER_GATE) -> list:
+    """Phase 14 (module docstring): the wavefront and paged routes over the
+    mesh. ``tenants`` and ``paged`` are phase 4's multi-tenant and paged
+    evals, ``wf_flat`` (placements, rounds) of the first through the
+    unsharded wavefront and ``pg_flat`` (placements, stats) of the second
+    through the unsharded paged route; ``inputs`` phase 5's fused batches
+    and ``flat_rows`` the kernels line's unsharded rows by name (without
+    them, a rehearsal, no kernel is timed). Returns the kernels-line rows
+    of K11s, K12s and K13s."""
+    from nomad_tpu_torch.tpu import drain, kernel, multichip, paging, planner, shard, wavefront
+
+    t_phase = time.perf_counter()
+    cuda = dev.type == "cuda"
+    card = card_line() if cuda else "the CPU"
+    plain_timed = host_ms if cuda else (lambda fn: _timed_ms(fn, dev))
+    watched = (*MESH_PATHS_OF, *UNSHARDED_PATH_KERNELS)
+    paths = {name: {} for name in MESH_PATHS_OF}
+    rows = {name: {} for name in MESH_PATHS_OF}
+    flat_rows = flat_rows or {}
+    try:
+        mesh = shard.configure(MESH_SHARDS, device=dev.type)
+        # ---- the wavefront eval: phase 4's multi-tenant eval ------------------
+        wavefront.configure(enabled=True, max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
+        kernel.reset_launches()
+        placements, stats = planner.plan_eval(tenants, dev)
+        launches = path_launches(watched)
+        log(f"mesh paths, wavefront route launches over {MESH_SHARDS} shards: {launches}")
+        if stats["mode"] != "wavefront" or stats["shards"] != MESH_SHARDS:
+            fail(f"mesh wavefront eval: mode {stats['mode']}, shards {stats['shards']}")
+        if cuda and (launches["mesh_wavefront"] != 1
+                     or any(launches[k] for k in UNSHARDED_PATH_KERNELS)):
+            fail(f"mesh wavefront eval: launches {launches}")
+        diff = int((placements != wf_flat[0]).sum())
+        if diff or stats["rounds"] != wf_flat[1]:
+            fail(f"mesh wavefront eval: {diff} placements differ from phase 4's, rounds "
+                 f"{stats['rounds']} against {wf_flat[1]}")
+        paths["mesh_wavefront"]["mesh_paths"] = launches["mesh_wavefront"]
+        placed = check_capacity(tenants, placements, "mesh wavefront")
+        log(f"mesh wavefront: {tenants['a_real']} allocs x {tenants['n_real']} nodes over "
+            f"{MESH_SHARDS} shards, placed {placed}, identical to phase 4's unsharded wavefront "
+            f"and exact scan; rounds {stats['rounds']}; kernel {stats['kernel_s'] * 1e3:.2f} ms, "
+            f"by events {stats['device_s']}; {card}")
+
+        p = planner.pad_planes(tenants, mesh)
+        n_real, A = p["n_real"], p["demands"].shape[0]
+        args, state = planner.exact_inputs(p, dev, mesh)
+
+        def wave(a=args, s=state):
+            return wavefront.plan_batch_wavefront(a, s, n_real)
+
+        ms, (_, got, rounds) = _timed_ms(wave, dev)
+        if max_abs_err([(got[: p["a_real"]], torch.from_numpy(wf_flat[0]))]) or int(
+                rounds) != wf_flat[1]:
+            fail("mesh_wavefront: the kernel alone differs from phase 4's wavefront")
+        lanes = slice(0, min(MESH_WAVE_CUT, A))
+        cut = args._replace(demands=args.demands[lanes], groups=args.groups[lanes],
+                            limits=args.limits[lanes], valid=args.valid[lanes])
+        cut_state, cut_got, cut_rounds = wavefront.plan_batch_wavefront(cut, state, n_real)
+        plain_ms, (want_state, want, want_rounds) = plain_timed(
+            lambda: wavefront.plan_batch_wavefront_sharded_ref(
+                cut, state, n_real, wavefront.window_for(lanes.stop),
+                wavefront.contention_top_m()))
+        err = max_abs_err([(cut_got, want), (got[lanes], want),
+                           *zip(shard.gather(cut_state), shard.gather(want_state))])
+        err += abs(int(cut_rounds) - want_rounds)
+        if err:
+            fail(f"mesh_wavefront: differs from its sharded plain version on the first "
+                 f"{lanes.stop} lanes ({err})")
+        mesh8 = shard.Mesh(8, dev)
+        p8 = planner.pad_planes(tenants, mesh8)
+        args8, state8 = planner.exact_inputs(p8, dev, mesh8)
+        ms8, (_, got8, rounds8) = _timed_ms(lambda: wavefront.plan_batch_wavefront(
+            args8, state8, n_real), dev)
+        if max_abs_err([(got8, got)]) or int(rounds8) != int(rounds):
+            fail("mesh_wavefront over 8 shards differs from 4")
+        N, C = p["capacity"].shape
+        G, V, E = p["feasible"].shape[0], p["spread_desired"].shape[1], p["perm"].shape[0]
+        geo = kernel.mesh_shape("mesh_wavefront", MESH_SHARDS, N, G, V, E, WAVEFRONT_W,
+                                WAVEFRONT_M) if cuda else {}
+        flat = flat_rows.get("wavefront", {})
+        rows["mesh_wavefront"] = dict(
+            ms=ms, plain_ms=plain_ms, max_abs_err=err, rounds=int(rounds),
+            device_us=device_us(wave, calls=2) if cuda else None,
+            ms_8_shards=ms8,
+            device_us_8_shards=device_us(lambda: wavefront.plan_batch_wavefront(
+                args8, state8, n_real), calls=2) if cuda else None,
+            unsharded_ms=flat.get("ms"), unsharded_device_us=flat.get("device_us"),
+            bound_ms=flat.get("bound_ms"), bound_by=flat.get("bound_by"), library_ms=None,
+            blocks_a_shard=geo.get("blocks_a_shard"), shards=MESH_SHARDS,
+            shape=f"N={N} A={A} G={G} W={WAVEFRONT_W} M={WAVEFRONT_M} over {MESH_SHARDS} "
+                  f"shards; plain version at the first {lanes.stop} lanes")
+        wavefront.reset()
+
+        # ---- the paged eval: phase 4's 1M-node eval over 4 shards ---------------
+        paging.configure(enabled=True, device_node_budget_mb=PAGED_BUDGET_MB, tile_nodes=PAGED_TILE)
+        with recorded_sweeps() as sweeps:
+            kernel.reset_launches()
+            t = time.perf_counter()
+            pg, pst = planner.plan_eval(paged, dev)
+            pg_e2e = (time.perf_counter() - t) * 1e3
+            launches = path_launches(watched)
+        log(f"mesh paths, paged route launches over {MESH_SHARDS} shards: {launches}")
+        want_pg, want_pst = pg_flat
+        if pst["mode"] != "paged" or pst["shards"] != MESH_SHARDS:
+            fail(f"mesh paged eval: mode {pst['mode']}, shards {pst['shards']}")
+        if cuda and (not launches["mesh_tile_count"] or not launches["mesh_tile_window"]
+                     or any(launches[k] for k in UNSHARDED_PATH_KERNELS)):
+            fail(f"mesh paged eval: launches {launches}")
+        same = {k: (pst[k], want_pst[k]) for k in ("rounds", "tiles", "upload_bytes",
+                                                   "uploads", "evictions")}
+        if not np.array_equal(pg, want_pg) or any(a != b for a, b in same.values()):
+            fail(f"mesh paged eval: differs from phase 4's (placements equal: "
+                 f"{np.array_equal(pg, want_pg)}; sharded, unsharded: {same})")
+        for name in ("tile_count", "tile_window"):
+            calls = [c for c in sweeps if c[0] == name]
+            e = sweeps_err(calls)
+            if e or not all(shard.is_sharded(c[1]) for c in calls):
+                fail(f"mesh paged eval: a {name} call differs from its sharded plain version "
+                     f"({e}) or was not over the mesh")
+            rows[f"mesh_{name}"]["calls_held"] = len(calls)
+        for name in ("mesh_tile_count", "mesh_tile_window"):
+            paths[name]["mesh_paths_paged"] = launches[name]
+        log(f"mesh paged: {PAGED_ALLOCS} allocs x {PAGED_NODES} nodes over {MESH_SHARDS} shards "
+            f"a tile, placed identically to phase 4's, {same}; every recorded sweep call "
+            f"({len(sweeps)}) equal to its sharded plain version; e2e {pg_e2e:.1f} ms, planner "
+            f"{pst['kernel_s'] * 1e3:.1f} ms; {card}")
+        paging.reset()
+        if inputs is not None:
+            for name, sweep in (("mesh_tile_count", "tile_count"), ("mesh_tile_window",
+                                                                    "tile_window")):
+                _, targs, _ = next(c for c in sweeps if c[0] == sweep)
+                rows[name].update(_mesh_sweep_row(dev, name, targs, flat_rows.get(sweep, {}),
+                                                  cuda))
+                r = rows[name]
+                us = ["not measured" if u is None else f"{u:.2f} us"
+                      for u in (r["device_us"], r["device_us_8_shards"])]
+                log(f"{name}: {r['ms']:.4f} ms per launch over {MESH_SHARDS} shards "
+                    f"({r['ms_8_shards']:.4f} over 8), on the card by the profiler {us[0]} "
+                    f"({us[1]}); unsharded {sweep} {r['unsharded_ms']} ms; sharded plain "
+                    f"version {r['plain_ms']:.4f} ms, composition over each slab "
+                    f"{r['library_ms']:.4f} ms; host {r['host_us']} us (public wrapper "
+                    f"{r['public_host_us']} us); identical; {r['shape']}; {card}")
+
+        # ---- the drain: phase 5's fused batches through K11s ---------------------
+        wavefront.configure(max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
+        drains = {}
+        for mix in (("drain-bench", "drain-tenant") if inputs is not None else ()):
+            planes_np, args_np, state_np = inputs[mix]
+            sargs, sinit = drain.batch_inputs(planes_np, args_np, state_np, dev, mesh)
+            uargs, uinit = drain.batch_inputs(planes_np, args_np, state_np, dev)
+            dms, (dstate, dgot, drounds) = _timed_ms(
+                lambda: wavefront.plan_batch_wavefront(sargs, sinit, NODES), dev)
+            fms, (fstate, fgot, frounds) = _timed_ms(
+                lambda: wavefront.plan_batch_wavefront(uargs, uinit, NODES), dev)
+            _, seq = kernel.plan_batch(uargs, uinit, NODES)
+            derr = max_abs_err([(dgot, fgot), (dgot, seq),
+                                *zip(shard.gather(dstate), fstate)])
+            derr += abs(int(drounds) - int(frounds))
+            if derr:
+                fail(f"mesh_wavefront at {mix}: differs from the unsharded wavefront or scan "
+                     f"({derr})")
+            drains[mix] = dict(ms=dms, unsharded_ms=fms, rounds=int(drounds),
+                               shape=f"E={uargs.perm.shape[0]} A={uargs.demands.shape[0]} "
+                                     f"N={uargs.capacity.shape[0]} over {MESH_SHARDS} shards")
+            log(f"mesh_wavefront at {mix}: {dms:.4f} ms over {MESH_SHARDS} shards, unsharded "
+                f"wavefront {fms:.4f} ms, rounds {int(drounds)}, identical to the unsharded "
+                f"wavefront and scan; {drains[mix]['shape']}; {card}")
+        rows["mesh_wavefront"]["drain"] = drains
+        wavefront.reset()
+    finally:
+        shard.configure(enabled=False)
+        wavefront.reset()
+        paging.reset()
+
+    # ---- the gate run with the wavefront stanza on, under the mesh and not ---------
+    gate_docs = [n.to_dict() for n in sched_nodes(gate["nodes"], gate["dcs"])]
+    gate_jobs = server_jobs(gate, seed=7)
+    kernels = (*MESH_SERVER_KERNELS, *UNSHARDED_SERVER_KERNELS, "mesh_wavefront")
+    wavefront.configure(enabled=True, max_round=WAVEFRONT_W, contention_top_m=WAVEFRONT_M)
+    try:
+        got, got_launches = _counted_server_run(dev, gate, gate_docs, gate_jobs, True,
+                                                kernels=kernels)
+        want, want_launches = _counted_server_run(dev, gate, gate_docs, gate_jobs, False,
+                                                  kernels=kernels)
+    finally:
+        wavefront.reset()
+    _server_run_checked("mesh wavefront server at the gate", got)
+    _server_run_checked("unsharded wavefront server at the gate", want)
+    if cuda and (not got_launches["mesh_wavefront"] or not got_launches["mesh_bases"]
+                 or any(got_launches[k] for k in (*UNSHARDED_SERVER_KERNELS, "mesh_exact"))):
+        fail(f"mesh wavefront server at the gate: launches {got_launches}")
+    if cuda and (not want_launches["wavefront"] or want_launches["exact_scan"]
+                 or any(want_launches[k] for k in (*MESH_SERVER_KERNELS, "mesh_wavefront"))):
+        fail(f"unsharded wavefront server at the gate: launches {want_launches}")
+    if got["placed"] != want["placed"] or got["drain"] != want["drain"]:
+        diff = len(set(got["placed"]) ^ set(want["placed"]))
+        fail(f"mesh wavefront server at the gate: {diff} placements differ from the unsharded "
+             f"run; drain {got['drain']}, unsharded {want['drain']}")
+    paths["mesh_wavefront"]["mesh_paths_server"] = got_launches["mesh_wavefront"]
+    log(f"mesh wavefront server at the gate ({gate['nodes']} nodes, one drain worker): "
+        f"{len(got['placed'])} allocs placed identically over {MESH_SHARDS} shards and "
+        f"unsharded; drain {got['drain']}; launches {got_launches} and {want_launches}")
+
+    # ---- the harness: the four planners over 4 shards ----------------------------
+    if cuda:
+        report = multichip.bench_multichip(MESH_SHARDS, device=dev.type)
+        log(multichip.summary_line(report))
+        if not report["ok"] or any(p["parity"] != 1.0 for p in report["planners"].values()):
+            fail(f"multichip bench over {MESH_SHARDS} shards: {json.dumps(report, default=str)}")
+        rows["mesh_wavefront"]["multichip"] = report["planners"]["wavefront"]
+    if shard.active_mesh() is not None:
+        fail("the mesh is still active after phase 14")
+
+    out = []
+    for name, (flat_name, source, replaces) in MESH_PATHS_OF.items():
+        row = dict(name=name, route="cuda", source=source, replaces=replaces, library_ms=None)
+        row.update(rows[name], paths=paths[name], launches=sum(paths[name].values()))
+        out.append(row)
+    r = rows["mesh_wavefront"]
+    if "ms" in r:
+        us = ["not measured" if u is None else f"{u:.1f} us"
+              for u in (r["device_us"], r["device_us_8_shards"])]
+        log(f"mesh_wavefront: {r['ms']:.3f} ms per launch over {MESH_SHARDS} shards "
+            f"({r['blocks_a_shard']} blocks a shard; on the card by the profiler {us[0]}), "
+            f"{r['ms_8_shards']:.3f} ms over 8 ({us[1]}); unsharded wavefront "
+            f"{r['unsharded_ms']} ms; sharded plain version {r['plain_ms']:.1f} ms on the cut, "
+            f"identical; rounds {r['rounds']}; {r['shape']}; {card}")
+    log(f"mesh paths phase: {time.perf_counter() - t_phase:.1f} s; {card}")
     return out
 
 
@@ -4779,6 +5253,11 @@ def main() -> int:
     for row in mesh_server_rows:
         row["launches"] = sum(row["paths"].values())
     kernels.extend(mesh_server_rows)
+    phase_done("mesh server")
+    # ---- 14. the wavefront and paged routes over the mesh ---------------------------
+    kernels.extend(mesh_paths_phase(
+        dev, tenants, (wf_placements, wf_stats["rounds"]), paged, (pg_placements, pg_stats),
+        inputs=server_inputs, flat_rows={row["name"]: row for row in kernels}))
     # (path_launches added the storms' standalone primitive launches)
     # K1-K4's own kernels are not launched on the paths: the primitives run
     # inside every launch of the kernels that inline them
@@ -4788,7 +5267,7 @@ def main() -> int:
         row["inlined_launches"] = sum(launched[k] for k in row["inlined_in"])
         row["paths"] = {"inlined": {k: launched[k] for k in row["inlined_in"]}}
     kernels = primitives + kernels
-    phase_done("mesh server")
+    phase_done("mesh paths")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

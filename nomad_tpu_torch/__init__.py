@@ -28,11 +28,3 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"nomad_tpu_torch runs on cuda or cpu, not {dev}")
     return dev
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error of a stanza, route or call that reaches a part the port
-    does not have yet; ``item`` names its entry in ROADMAP.md's queue A."""
-    return NotImplementedError(
-        f"{what} is not ported to nomad_tpu_torch yet (ROADMAP queue A: {item})"
-    )

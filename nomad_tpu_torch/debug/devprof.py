@@ -332,17 +332,19 @@ def paged_totals() -> dict:
         return dict(_PAGED)
 
 
-def device_put(x, device):
+def device_put(x, device, non_blocking: bool = False):
     """THE counted upload: ``x`` (a numpy array or scalar) as a tensor on
     ``device``, its bytes counted h2d. On the CPU the tensor shares the
-    array's memory, as the port's plain versions read it."""
+    array's memory, as the port's plain versions read it. ``non_blocking``
+    copies from pinned host memory on the current stream without waiting
+    for it."""
     import torch
 
     count_h2d(_host_nbytes(x))
     a = np.asarray(x)
     if not a.flags.c_contiguous:
         a = np.ascontiguousarray(a)
-    return torch.from_numpy(a).to(device)
+    return torch.from_numpy(a).to(device, non_blocking=non_blocking)
 
 
 # ---------------------------------------------------------------------------

@@ -47,13 +47,16 @@ _ENTRY_POINTS = {
     "ntt_class_boosts": (8, 1),
     "ntt_scores": (16, 3),
     "ntt_rot_incl": (2, 2),
-    "ntt_mesh_shape": (2, 6),
+    "ntt_mesh_shape": (2, 7),
     "ntt_mesh_exact": (1, 8),
     "ntt_mesh_runs": (1, 7),
     "ntt_mesh_windowed": (1, 6),
     "ntt_mesh_verify": (1, 4),
     "ntt_mesh_bases": (1, 6),
     "ntt_mesh_scatter": (1, 4),
+    "ntt_mesh_wavefront": (1, 10),
+    "ntt_mesh_tile_count": (4, 6),
+    "ntt_mesh_tile_window": (11, 12),
 }
 
 _LIB = None

@@ -38,7 +38,25 @@
 // - the windowed planner (K7s), four barriers a round: rows scored, the
 //   fit counts, the window keys by global atomicMax on (score, first feasible
 //   rank) and the last consumed rank, then each window's winner scatters its
-//   usage into the row's slab.
+//   usage into the row's slab;
+// - the wavefront drive (K11s, nomad_tpu/tpu/wavefront.py:300 under
+//   shard.wavefront_specs()) is K5s's step with the wavefront's round rule
+//   on top (mesh_exact_kernel<true>). A lane that no earlier lane of its
+//   round blocks selects against the round-start state exactly what it
+//   selects against the state the earlier lanes of the round leave (their
+//   candidates are infeasible for its group and they leave its cursor
+//   alone), so the kernel commits each lane as it selects it, in lane
+//   order, and counts the rounds by the conflict rule: before its step a
+//   lane is tested against the round's records (each earlier lane's eval,
+//   whether it moved that eval's cursor, and its M candidate nodes, read
+//   through feasible[g, node] on the shard that owns the node's column); a
+//   blocked lane, or a lane past a full window of W, opens the next round.
+//   The M - 1 extra candidates of a placed lane are M - 1 more folds of
+//   (score, smallest ring position) over the lane's candidate positions,
+//   each below the one before, as lax.top_k takes them. Every block keeps
+//   its own copy of the round's records. The placements, the final state
+//   and the rounds are the plain version's; the lanes of a round are not
+//   scored side by side, so a round costs its lanes' steps.
 //
 // Every block keeps its own copy of the replicated state (spread counts,
 // presence, ring cursors) and applies each update itself; block 0's copy is
@@ -58,7 +76,7 @@ using namespace ntt;
 
 constexpr int MAXC = 8;         // resource columns kept in registers
 constexpr int RUNCAP = 512;     // max placements resolved by one fill run
-constexpr int WHICH_EXACT = 0, WHICH_RUNS = 1, WHICH_WINDOWED = 2;
+constexpr int WHICH_EXACT = 0, WHICH_RUNS = 1, WHICH_WINDOWED = 2, WHICH_WAVEFRONT = 3;
 
 __host__ __device__ inline size_t align_up(size_t x) { return (x + 255) & ~(size_t)255; }
 
@@ -108,8 +126,10 @@ struct ExactP {
   unsigned char* spread_present;                // [G, V] in and out
   int* offset;                                  // [E] in and out
   int* placements;                              // [A]
+  int* rounds;                                  // [1] the wavefront's rounds (K11s)
   char* scratch;
   int S, Q, N, C, G, V, E, A;
+  int W, M;                                     // the wavefront's window and top M (K11s)
 };
 
 // the fit counts and first nonpositive options of a block's positions
@@ -131,10 +151,14 @@ struct ExactScratch {
   int* offset;         // [blocks][E] each block's ring cursors
   ExactP1* p1;         // [blocks]
   Best* p2;            // [blocks]
+  // K11s only (``record`` ints a lane of the round, 0 for K5s)
+  unsigned char* cand;  // [N] this step's candidates per ring position
+  Best* p3;             // [blocks] the extra candidates' folds, beside p2
+  int* rec;             // [blocks][W * record] each block's records of the round
 };
 
 __host__ __device__ inline ExactScratch exact_scratch(char* base, int N, int G, int V, int E,
-                                                      int blocks, size_t* bytes) {
+                                                      int blocks, int round_ints, size_t* bytes) {
   Carve c{base, 0};
   ExactScratch s;
   s.fit = c.take<unsigned char>(N);
@@ -144,17 +168,35 @@ __host__ __device__ inline ExactScratch exact_scratch(char* base, int N, int G, 
   s.offset = c.take<int>((size_t)blocks * E);
   s.p1 = c.take<ExactP1>(blocks);
   s.p2 = c.take<Best>(blocks);
+  s.cand = c.take<unsigned char>(round_ints ? N : 0);
+  s.p3 = c.take<Best>(round_ints ? blocks : 0);
+  s.rec = c.take<int>((size_t)blocks * round_ints);
   if (bytes) *bytes = c.at;
   return s;
 }
 
+// K5s (WAVE false) and K11s (WAVE true): one lane a step, in lane order
+template <bool WAVE>
 __global__ void __launch_bounds__(THREADS, 1) mesh_exact_kernel(const ExactP P) {
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int N = P.N, C = P.C, V = P.V, GV = P.G * P.V;
   const MeshGeo m = mesh_geo(P.S, P.Q, N);
   const int R = m.R;
-  const ExactScratch X = exact_scratch(P.scratch, N, P.G, V, P.E, gridDim.x, nullptr);
+  // a record of the round: the lane's eval, whether it moved the eval's
+  // cursor, its M candidate nodes (-1: none)
+  const int REC = WAVE ? 2 + P.M : 0;
+  const ExactScratch X = exact_scratch(P.scratch, N, P.G, V, P.E, gridDim.x, P.W * REC, nullptr);
+  int* my_rec = X.rec + (size_t)blockIdx.x * P.W * REC;
+  // the wavefront stops at the last valid lane; n_round lanes of the
+  // current round are recorded
+  int stop = P.A, n_round = 0, rounds = 0;
+  if (WAVE) {
+    int last = 0;
+    for (int k = tid; k < P.A; k += THREADS)
+      if (__ldg(P.valid + k)) last = k + 1;
+    stop = block_fold<5>(last, MaxI());
+  }
   int* my_counts = X.counts + (size_t)blockIdx.x * GV;
   unsigned char* my_present = X.present + (size_t)blockIdx.x * GV;
   int* my_offset = X.offset + (size_t)blockIdx.x * P.E;
@@ -166,6 +208,40 @@ __global__ void __launch_bounds__(THREADS, 1) mesh_exact_kernel(const ExactP P) 
   grid.sync();  // every block has read the replicated inputs before block 0 writes them
 
   for (int i = 0; i < P.A; ++i) {
+    if (WAVE && i >= stop) {
+      if (blockIdx.x == 0 && tid == 0) P.placements[i] = -1;
+      continue;  // past the last valid lane: no round reaches it
+    }
+    if (WAVE) {
+      // the round rule: a full window, or an earlier lane of the round
+      // whose candidates are feasible for this lane's group or that moved
+      // this lane's eval's cursor, opens the next round
+      const int g = __ldg(P.groups + i);
+      const int e = __ldg(P.group_eval + g);
+      bool blocked = n_round == P.W;
+      for (int k = tid; k < n_round * P.M && !blocked; k += THREADS) {
+        const int* r = my_rec + (k / P.M) * REC;
+        const int node = r[2 + k % P.M];
+        blocked = (k % P.M == 0 && r[1] && r[0] == e) ||
+                  (node >= 0 && *col_at(P.feasible, g, node, R));
+      }
+      if (__syncthreads_or(blocked) || i == 0) {
+        ++rounds;
+        n_round = 0;
+      }
+      if (!__ldg(P.valid + i)) {
+        if (blockIdx.x == 0 && tid == 0) P.placements[i] = -1;
+        if (tid == 0) {
+          int* r = my_rec + n_round * REC;
+          r[0] = e;
+          r[1] = 0;
+          for (int k = 0; k < P.M; ++k) r[2 + k] = -1;
+        }
+        ++n_round;
+        __syncthreads();
+        continue;
+      }
+    }
     if (!__ldg(P.valid + i)) {
       if (blockIdx.x == 0 && tid == 0) P.placements[i] = -1;
       continue;  // places nothing, cursor unchanged
@@ -252,18 +328,21 @@ __global__ void __launch_bounds__(THREADS, 1) mesh_exact_kernel(const ExactP P) 
         fit = __ldcg(X.fit + node);
       }
       const int incl = fit_before + chunk_incl<3>(fit, carry);
+      bool is_cand = false;
       if (fit) {
         const int rr = rot_rank(p, off, ring);
         const int rot_incl = p >= off ? incl - below : total_fit - below + incl;
         const int idx = min3_index(skip, rr);
         const bool returned = idx == 0 && rot_incl - min3_le(skip, rr) <= limit;
         const bool replay = idx > 0 && idx <= need;
-        if (returned || replay) {
+        is_cand = returned || replay;
+        if (is_cand) {
           const Best cand = {__ldcg(X.score + node), rr + (replay ? N : 0), node,
                              returned ? rr : -1};
           best = BestOp()(best, cand);
         }
       }
+      if (WAVE && p < m.b1) X.cand[p] = is_cand;
       __syncthreads();
     }
     best = block_fold<4>(best, BestOp());
@@ -284,6 +363,39 @@ __global__ void __launch_bounds__(THREADS, 1) mesh_exact_kernel(const ExactP P) 
     }
     if (tid == 0) my_offset[e] = (off + consumed) % max(ring, 1);
     if (blockIdx.x == 0 && tid == 0) P.placements[i] = placed ? win.pos : -1;
+    if (WAVE) {
+      // this lane's record: slot 0 the winner, then the first M - 1 of the
+      // top M candidates by score, the smaller ring position first
+      int* r = my_rec + n_round * REC;
+      if (tid == 0) {
+        r[0] = e;
+        r[1] = consumed % max(ring, 1) != 0;
+        r[2] = placed ? win.pos : -1;
+        for (int k = 1; k < P.M; ++k) r[2 + k] = -1;
+      }
+      float prev_s = __int_as_float(0x7f800000);
+      int prev_p = -1;
+      for (int k = 1; k < P.M && placed; ++k) {
+        Best b = best_identity();
+        for (int p = m.b0 + tid; p < m.b1; p += THREADS) {
+          if (!X.cand[p]) continue;
+          const int node = __ldg(col_at(P.perm, e, p, R));
+          const float sc = __ldcg(X.score + node);
+          if (sc < prev_s || (sc == prev_s && p > prev_p)) b = BestOp()(b, Best{sc, p, node, -1});
+        }
+        b = block_fold<6>(b, BestOp());
+        // two slot arrays in turn: a grid barrier lies between a fold's
+        // reads of one and the next write to it
+        Best* slots = (k & 1) ? X.p3 : X.p2;
+        publish(grid, slots, b);
+        const Best t = fold_slots(slots, best_identity(), BestOp());
+        if (t.visit == INT_MAX) break;  // no candidate left: the rest stay -1
+        if (tid == 0) r[2 + k] = t.pos;
+        prev_s = t.s;
+        prev_p = t.visit;
+      }
+      ++n_round;
+    }
     __syncthreads();
   }
   if (blockIdx.x == 0) {
@@ -292,6 +404,7 @@ __global__ void __launch_bounds__(THREADS, 1) mesh_exact_kernel(const ExactP P) 
       P.spread_present[k] = my_present[k];
     }
     for (int k = tid; k < P.E; k += THREADS) P.offset[k] = my_offset[k];
+    if (WAVE && tid == 0) *P.rounds = rounds;
   }
 }
 
@@ -928,7 +1041,8 @@ cudaError_t max_blocks(K kernel, int* n) {
 }
 
 cudaError_t max_blocks_of(int which, int* n) {
-  if (which == WHICH_EXACT) return max_blocks(mesh_exact_kernel, n);
+  if (which == WHICH_EXACT) return max_blocks(mesh_exact_kernel<false>, n);
+  if (which == WHICH_WAVEFRONT) return max_blocks(mesh_exact_kernel<true>, n);
   if (which == WHICH_RUNS) return max_blocks(mesh_runs_kernel, n);
   return max_blocks(mesh_windowed_kernel, n);
 }
@@ -944,12 +1058,13 @@ int launch(K kernel, const Params& P, cudaStream_t stream) {
 
 }  // namespace
 
-// The launch of planner ``which`` (0 exact, 1 runs, 2 windowed) over S
-// shards of an N-row axis: out[0] the blocks a shard (Q), out[1] the
-// blocks the card co-schedules; *scratch the global scratch bytes. S
+// The launch of planner ``which`` (0 exact, 1 runs, 2 windowed, 3 wavefront)
+// over S shards of an N-row axis: out[0] the blocks a shard (Q), out[1] the
+// blocks the card co-schedules; *scratch the global scratch bytes, the
+// wavefront's for a round of ``round_ints`` record ints (W * (2 + M)). S
 // shards that cannot all be co-resident return MESH_REFUSED.
 extern "C" int ntt_mesh_shape(int* out, long long* scratch, int which, int S, int N, int G,
-                              int V, int E, cudaStream_t) {
+                              int V, int E, int round_ints, cudaStream_t) {
   int most = 0;
   cudaError_t err = max_blocks_of(which, &most);
   if (err != cudaSuccess) return (int)err;
@@ -960,8 +1075,8 @@ extern "C" int ntt_mesh_shape(int* out, long long* scratch, int which, int S, in
   const int Q = max(1, min((R + THREADS - 1) / THREADS, most / S));
   out[0] = Q;
   size_t bytes = 0;
-  if (which == WHICH_EXACT)
-    exact_scratch(nullptr, N, G, V, E, S * Q, &bytes);
+  if (which == WHICH_EXACT || which == WHICH_WAVEFRONT)
+    exact_scratch(nullptr, N, G, V, E, S * Q, which == WHICH_WAVEFRONT ? round_ints : 0, &bytes);
   else if (which == WHICH_RUNS)
     runs_scratch(nullptr, N, V, S * Q, &bytes);
   else
@@ -970,10 +1085,11 @@ extern "C" int ntt_mesh_shape(int* out, long long* scratch, int which, int S, in
   return 0;
 }
 
-extern "C" int ntt_mesh_exact(const unsigned long long* table, int S, int Q, int N, int C, int G,
-                              int V, int E, int A, cudaStream_t stream) {
-  ExactP P;
-  Table t{table, 0};
+namespace {
+
+// the table's leaves of the exact scan and the wavefront: BatchArgs, then
+// BatchState, then the placements
+void exact_table(Table& t, ExactP& P) {
   t.slabs(P.capacity);
   t.slabs(P.usable);
   t.slabs(P.feasible);
@@ -999,10 +1115,32 @@ extern "C" int ntt_mesh_exact(const unsigned long long* table, int S, int Q, int
   t.one(P.spread_present);
   t.one(P.offset);
   t.one(P.placements);
+}
+
+}  // namespace
+
+extern "C" int ntt_mesh_exact(const unsigned long long* table, int S, int Q, int N, int C, int G,
+                              int V, int E, int A, cudaStream_t stream) {
+  ExactP P{};
+  Table t{table, 0};
+  exact_table(t, P);
   t.one(P.scratch);
   P.S = S, P.Q = Q, P.N = N, P.C = C, P.G = G, P.V = V, P.E = E, P.A = A;
   if (C < 2 || C > MAXC) return (int)cudaErrorInvalidValue;
-  return launch(mesh_exact_kernel, P, stream);
+  return launch(mesh_exact_kernel<false>, P, stream);
+}
+
+// K11s: the table of ntt_mesh_exact with the rounds before the scratch
+extern "C" int ntt_mesh_wavefront(const unsigned long long* table, int S, int Q, int N, int C,
+                                  int G, int V, int E, int A, int W, int M, cudaStream_t stream) {
+  ExactP P{};
+  Table t{table, 0};
+  exact_table(t, P);
+  t.one(P.rounds);
+  t.one(P.scratch);
+  P.S = S, P.Q = Q, P.N = N, P.C = C, P.G = G, P.V = V, P.E = E, P.A = A, P.W = W, P.M = M;
+  if (C < 2 || C > MAXC || W < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  return launch(mesh_exact_kernel<true>, P, stream);
 }
 
 extern "C" int ntt_mesh_runs(const unsigned long long* table, int S, int Q, int N, int C, int V,

@@ -44,9 +44,19 @@
 //      its segment's score, rank and node.
 // Segment 2T, where JAX gathers the inactive rows, gets (-1e30, 2^30, -1)
 // when one exists.
+//
+// Under a mesh (K12s, K13s: the same programs on tiles placed by
+// shard.paged_specs()) a tile's T rows are S slabs of R = T / S rows, each
+// a tensor of its own, passed through a pointer table (mesh.cuh). The
+// kernels are the ones above, instantiated on a tile whose row q reads
+// slab q / R: the grids still run over the tile's global rows in order, so
+// the block counts, the exclusive scan of the fit rows across blocks, the
+// bases, the segment bids and the watermark cross the slabs as they cross
+// blocks, and the outputs are the unsharded sweep's bit for bit.
 #include <cuda_runtime.h>
 
 #include "block.cuh"
+#include "mesh.cuh"
 #include "score.cuh"
 
 namespace {
@@ -55,20 +65,52 @@ using namespace ntt;
 
 constexpr int BIG = 1 << 30;
 
-__device__ __forceinline__ bool tile_fit(const int* cap, const unsigned char* feas,
-                                         const int* used, const int* dem, int q, int C, int pos,
+// A tile's planes, one tensor each (the unsharded tile)
+struct FlatTile {
+  const int* cap;             // [T,C]
+  const float* usable;        // [T,2]
+  const unsigned char* feas;  // [T]
+  const int* nodes;           // [T] node id per row
+  const int* used;            // [T,C]
+  const int* coll;            // [T]
+  __device__ __forceinline__ const int* cap_row(int q, int C) const { return cap + (size_t)q * C; }
+  __device__ __forceinline__ const int* used_row(int q, int C) const { return used + (size_t)q * C; }
+  __device__ __forceinline__ const float* usable_row(int q) const { return usable + 2 * (size_t)q; }
+  __device__ __forceinline__ bool feas_at(int q) const { return __ldg(feas + q); }
+  __device__ __forceinline__ int coll_at(int q) const { return coll[q]; }
+  __device__ __forceinline__ int node_at(int q) const { return nodes[q]; }
+};
+
+// A tile split over a mesh: S slabs of R rows of each plane
+struct SlabTile {
+  Slabs<const int> cap;
+  Slabs<const float> usable;
+  Slabs<const unsigned char> feas;
+  Slabs<const int> nodes;
+  Slabs<const int> used;
+  Slabs<const int> coll;
+  int R;
+  __device__ __forceinline__ const int* cap_row(int q, int C) const { return row_at(cap, q, C, 0, R); }
+  __device__ __forceinline__ const int* used_row(int q, int C) const { return row_at(used, q, C, 0, R); }
+  __device__ __forceinline__ const float* usable_row(int q) const { return row_at(usable, q, 2, 0, R); }
+  __device__ __forceinline__ bool feas_at(int q) const { return __ldg(lane_at(feas, q, R)); }
+  __device__ __forceinline__ int coll_at(int q) const { return *lane_at(coll, q, R); }
+  __device__ __forceinline__ int node_at(int q) const { return *lane_at(nodes, q, R); }
+};
+
+template <class Tile>
+__device__ __forceinline__ bool tile_fit(const Tile& tile, const int* dem, int q, int C, int pos,
                                          int n_real) {
-  return pos < n_real && feas[q] && fits(used + (size_t)q * C, cap + (size_t)q * C, dem, 1, C);
+  return pos < n_real && tile.feas_at(q) && fits(tile.used_row(q, C), tile.cap_row(q, C), dem, 1, C);
 }
 
 constexpr int TC_THREADS = 256;
 constexpr int TC_ROWS = 2;
 
-template <bool ROWS4>
+template <class Tile, bool ROWS4>
 __global__ void __launch_bounds__(TC_THREADS)
-    tile_count_kernel(const int* cap, const unsigned char* feas, const int* used,
-                      const int* demand, int* out, unsigned long long* ticket, int T, int C,
-                      int t0, int offset, int n_real, int bits) {
+    tile_count_kernel(const Tile tile, const int* demand, int* out, unsigned long long* ticket,
+                      int T, int C, int t0, int offset, int n_real, int bits) {
   int d[4] = {0, 0, 0, 0};
   if (ROWS4)
 #pragma unroll
@@ -81,10 +123,10 @@ __global__ void __launch_bounds__(TC_THREADS)
 #pragma unroll
     for (int r = 0; r < TC_ROWS; ++r) {
       const int q = q0 + r * TC_THREADS;
-      f[r] = q < T ? __ldg(feas + q) : 0;
+      f[r] = q < T ? tile.feas_at(q) : 0;
       if (ROWS4 && q < T) {
-        c4[r] = __ldg(reinterpret_cast<const int4*>(cap) + q);
-        u4[r] = __ldg(reinterpret_cast<const int4*>(used) + q);
+        c4[r] = __ldg(reinterpret_cast<const int4*>(tile.cap_row(q, 4)));
+        u4[r] = __ldg(reinterpret_cast<const int4*>(tile.used_row(q, 4)));
       }
     }
 #pragma unroll
@@ -96,7 +138,7 @@ __global__ void __launch_bounds__(TC_THREADS)
         fit = fit && u4[r].x + d[0] <= c4[r].x && u4[r].y + d[1] <= c4[r].y &&
               u4[r].z + d[2] <= c4[r].z && u4[r].w + d[3] <= c4[r].w;
       else
-        fit = fit && fits(used + (size_t)q * C, cap + (size_t)q * C, demand, 1, C);
+        fit = fit && fits(tile.used_row(q, C), tile.cap_row(q, C), demand, 1, C);
       cnt += fit;
       before += fit && pos < offset;
     }
@@ -127,13 +169,9 @@ __global__ void __launch_bounds__(TC_THREADS)
   }
 }
 
+template <class Tile>
 struct WindowParams {
-  const int* cap;                 // [T,C]
-  const float* usable;            // [T,2]
-  const unsigned char* feas;      // [T]
-  const int* used;                // [T,C]
-  const int* coll;                // [T]
-  const int* nodes;               // [T] node id per row
+  Tile tile;                      // the tile's planes
   const int* demand;              // [C]
   int* bases;                     // [2] out: base window of each straddle group
   float* seg_score;               // [2T+1] out
@@ -153,19 +191,21 @@ __device__ __forceinline__ unsigned long long bid(float score, int rank) {
 }
 
 // row q's fit, and its used cpu and memory (the score's inputs)
-__device__ __forceinline__ bool window_fit(const WindowParams& P, int q, int& u0, int& u1) {
+template <class Tile>
+__device__ __forceinline__ bool window_fit(const WindowParams<Tile>& P, int q, int& u0, int& u1) {
   const int* dem = P.demand;
   if (P.rows4) {
-    const int4 c4 = __ldg(reinterpret_cast<const int4*>(P.cap) + q);
-    const int4 u4 = __ldg(reinterpret_cast<const int4*>(P.used) + q);
+    const int4 c4 = __ldg(reinterpret_cast<const int4*>(P.tile.cap_row(q, 4)));
+    const int4 u4 = __ldg(reinterpret_cast<const int4*>(P.tile.used_row(q, 4)));
     u0 = u4.x;
     u1 = u4.y;
-    return P.t0 + q < P.n_real && P.feas[q] && u4.x + dem[0] <= c4.x && u4.y + dem[1] <= c4.y &&
-           u4.z + dem[2] <= c4.z && u4.w + dem[3] <= c4.w;
+    return P.t0 + q < P.n_real && P.tile.feas_at(q) && u4.x + dem[0] <= c4.x &&
+           u4.y + dem[1] <= c4.y && u4.z + dem[2] <= c4.z && u4.w + dem[3] <= c4.w;
   }
-  u0 = P.used[(size_t)q * P.C];
-  u1 = P.used[(size_t)q * P.C + 1];
-  return tile_fit(P.cap, P.feas, P.used, dem, q, P.C, P.t0 + q, P.n_real);
+  const int* u = P.tile.used_row(q, P.C);
+  u0 = u[0];
+  u1 = u[1];
+  return tile_fit(P.tile, dem, q, P.C, P.t0 + q, P.n_real);
 }
 
 // the straddle group's segment of window w
@@ -173,7 +213,8 @@ __device__ __forceinline__ int window_segment(int T, int w, bool wrapped, int lo
   return wrapped ? T + min(max(w - hi, 0), T - 1) : min(max(w - lo, 0), T - 1);
 }
 
-__global__ void __launch_bounds__(THREADS) tile_score_kernel(WindowParams P) {
+template <class Tile>
+__global__ void __launch_bounds__(THREADS) tile_score_kernel(WindowParams<Tile> P) {
   const int T = P.T, S = 2 * T + 1;
   const int q = blockIdx.x * THREADS + threadIdx.x;
   const int stride = gridDim.x * THREADS;
@@ -192,10 +233,11 @@ __global__ void __launch_bounds__(THREADS) tile_score_kernel(WindowParams P) {
     float sc = 0.0f;
     if (fit) {
       // binpack + anti-affinity over fired planes
-      const int cl = P.coll[q];
+      const int cl = P.tile.coll_at(q);
       const bool ap = cl > 0;
-      const float bp = binpack_f32(free_frac(u0 + P.demand[0], P.usable[2 * q]),
-                                   free_frac(u1 + P.demand[1], P.usable[2 * q + 1]));
+      const float* us = P.tile.usable_row(q);
+      const float bp = binpack_f32(free_frac(u0 + P.demand[0], us[0]),
+                                   free_frac(u1 + P.demand[1], us[1]));
       sc = __fdiv_rn(__fadd_rn(bp, anti_affinity(__int2float_rn(cl), ap,
                                                  __int2float_rn(P.group_count))),
                      ap ? 2.0f : 1.0f);
@@ -208,7 +250,8 @@ __global__ void __launch_bounds__(THREADS) tile_score_kernel(WindowParams P) {
   if (threadIdx.x == 0) P.block_s[blockIdx.x] = counts;
 }
 
-__global__ void __launch_bounds__(THREADS) tile_bid_kernel(WindowParams P) {
+template <class Tile>
+__global__ void __launch_bounds__(THREADS) tile_bid_kernel(WindowParams<Tile> P) {
   const int T = P.T, tid = threadIdx.x, b = blockIdx.x;
   const int q = b * THREADS + tid;
   const int lm = max(P.limit, 1);
@@ -267,7 +310,8 @@ __global__ void __launch_bounds__(THREADS) tile_bid_kernel(WindowParams P) {
   }
 }
 
-__global__ void __launch_bounds__(THREADS) tile_winner_kernel(WindowParams P) {
+template <class Tile>
+__global__ void __launch_bounds__(THREADS) tile_winner_kernel(WindowParams<Tile> P) {
   const int T = P.T;
   const int q = blockIdx.x * THREADS + threadIdx.x;
   if (q >= T) return;
@@ -279,7 +323,54 @@ __global__ void __launch_bounds__(THREADS) tile_winner_kernel(WindowParams P) {
   if (P.win_s[seg] != bid(sc, rank)) return;
   P.seg_score[seg] = sc;
   P.seg_rank[seg] = rank;
-  P.seg_node[seg] = P.nodes[q];
+  P.seg_node[seg] = P.tile.node_at(q);
+}
+
+// count fields of ``bits`` bits (T < 2^bits); the ticket takes the rest
+template <class Tile>
+int launch_count(const Tile& tile, bool rows4, const int* demand, int* out,
+                 unsigned long long* ticket, int T, int C, int t0, int offset, int n_real,
+                 cudaStream_t s) {
+  int bits = 1;
+  while (bits < 31 && (1ll << bits) <= T) ++bits;
+  const int ticket_bits = 64 - 2 * bits;
+  const int max_blocks = ticket_bits >= 31 ? INT_MAX : (1 << ticket_bits) - 1;
+  const int blocks = min(max(1, (T + TC_THREADS * TC_ROWS - 1) / (TC_THREADS * TC_ROWS)),
+                         max_blocks);
+  auto kernel = rows4 ? tile_count_kernel<Tile, true> : tile_count_kernel<Tile, false>;
+  kernel<<<blocks, TC_THREADS, 0, s>>>(tile, demand, out, ticket, T, C, t0, offset, n_real, bits);
+  return (int)cudaGetLastError();
+}
+
+template <class Tile>
+int launch_window(const WindowParams<Tile>& P, cudaStream_t s) {
+  const int blocks = (P.T + THREADS - 1) / THREADS;
+  tile_score_kernel<Tile><<<blocks, THREADS, 0, s>>>(P);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tile_bid_kernel<Tile><<<blocks, THREADS, 0, s>>>(P);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  tile_winner_kernel<Tile><<<blocks, THREADS, 0, s>>>(P);
+  return (int)cudaGetLastError();
+}
+
+// The tile table of K12s and K13s: the six planes' slabs (the static tile,
+// then the dynamic one, as shard.paged_specs() lists them); whether the
+// rows of every slab of the two row planes load as 16-byte vectors
+bool slab_tile(const unsigned long long* table, int S, int T, int C, SlabTile& tile) {
+  Table t{table, 0};
+  t.slabs(tile.cap);
+  t.slabs(tile.usable);
+  t.slabs(tile.feas);
+  t.slabs(tile.nodes);
+  t.slabs(tile.used);
+  t.slabs(tile.coll);
+  tile.R = T / S;
+  bool rows4 = C == 4;
+  for (int k = 0; k < S; ++k)
+    rows4 = rows4 && (((uintptr_t)tile.cap.p[k] | (uintptr_t)tile.used.p[k]) & 15) == 0;
+  return rows4;
 }
 
 }  // namespace
@@ -288,21 +379,22 @@ extern "C" int ntt_tile_count(const void* cap, const void* feas, const void* use
                               const void* demand, void* out, void* ticket, int T, int C, int t0,
                               int offset, int n_real, void* stream) {
   if (T < 0 || C < 1) return (int)cudaErrorInvalidValue;
-  // count fields of ``bits`` bits (T < 2^bits); the ticket takes the rest
-  int bits = 1;
-  while (bits < 31 && (1ll << bits) <= T) ++bits;
-  const int ticket_bits = 64 - 2 * bits;
-  const int max_blocks = ticket_bits >= 31 ? INT_MAX : (1 << ticket_bits) - 1;
-  const int blocks = min(max(1, (T + TC_THREADS * TC_ROWS - 1) / (TC_THREADS * TC_ROWS)),
-                         max_blocks);
+  const FlatTile tile{(const int*)cap, nullptr, (const unsigned char*)feas, nullptr,
+                      (const int*)used, nullptr};
   const bool rows4 = C == 4 && (((uintptr_t)cap | (uintptr_t)used) & 15) == 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  auto kernel = rows4 ? tile_count_kernel<true> : tile_count_kernel<false>;
-  kernel<<<blocks, TC_THREADS, 0, s>>>((const int*)cap, (const unsigned char*)feas,
-                                       (const int*)used, (const int*)demand, (int*)out,
-                                       (unsigned long long*)ticket, T, C, t0, offset, n_real,
-                                       bits);
-  return (int)cudaGetLastError();
+  return launch_count(tile, rows4, (const int*)demand, (int*)out, (unsigned long long*)ticket, T,
+                      C, t0, offset, n_real, (cudaStream_t)stream);
+}
+
+// K12s: sweep 1 over a tile split into S slabs (``table``: slab_tile's)
+extern "C" int ntt_mesh_tile_count(const unsigned long long* table, const void* demand, void* out,
+                                   void* ticket, int S, int T, int C, int t0, int offset,
+                                   int n_real, void* stream) {
+  if (S < 1 || S > MAX_SHARDS || T < 0 || T % S || C < 1) return (int)cudaErrorInvalidValue;
+  SlabTile tile;
+  const bool rows4 = slab_tile(table, S, T, C, tile);
+  return launch_count(tile, rows4, (const int*)demand, (int*)out, (unsigned long long*)ticket, T,
+                      C, t0, offset, n_real, (cudaStream_t)stream);
 }
 
 extern "C" int ntt_tile_window(const void* cap, const void* usable, const void* feas,
@@ -315,42 +407,30 @@ extern "C" int ntt_tile_window(const void* cap, const void* usable, const void* 
   if (T < 1 || C < 2) return (int)cudaErrorInvalidValue;
   const bool rows4 =
       C == 4 && (((uintptr_t)cap | (uintptr_t)used) & 15) == 0;
-  WindowParams P{(const int*)cap,
-                 (const float*)usable,
-                 (const unsigned char*)feas,
-                 (const int*)used,
-                 (const int*)coll,
-                 (const int*)nodes,
-                 (const int*)demand,
-                 (int*)bases,
-                 (float*)seg_score,
-                 (int*)seg_rank,
-                 (int*)seg_node,
-                 (int*)last,
-                 (float*)score_s,
-                 (int*)rank_s,
-                 (unsigned long long*)win_s,
-                 (int*)block_s,
-                 T,
-                 C,
-                 group_count,
-                 limit,
-                 t0,
-                 offset,
-                 n_real,
-                 flat_base,
-                 x0,
-                 total,
-                 w_use,
-                 rows4};
-  cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (T + THREADS - 1) / THREADS;
-  tile_score_kernel<<<blocks, THREADS, 0, s>>>(P);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  tile_bid_kernel<<<blocks, THREADS, 0, s>>>(P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  tile_winner_kernel<<<blocks, THREADS, 0, s>>>(P);
-  return (int)cudaGetLastError();
+  const FlatTile tile{(const int*)cap, (const float*)usable, (const unsigned char*)feas,
+                      (const int*)nodes, (const int*)used, (const int*)coll};
+  const WindowParams<FlatTile> P{tile, (const int*)demand, (int*)bases, (float*)seg_score,
+                                 (int*)seg_rank, (int*)seg_node, (int*)last, (float*)score_s,
+                                 (int*)rank_s, (unsigned long long*)win_s, (int*)block_s, T, C,
+                                 group_count, limit, t0, offset, n_real, flat_base, x0, total,
+                                 w_use, rows4};
+  return launch_window(P, (cudaStream_t)stream);
+}
+
+// K13s: sweep 2 over a tile split into S slabs (``table``: slab_tile's)
+extern "C" int ntt_mesh_tile_window(const unsigned long long* table, const void* demand,
+                                    void* bases, void* seg_score, void* seg_rank, void* seg_node,
+                                    void* last, void* score_s, void* rank_s, void* win_s,
+                                    void* block_s, int S, int T, int C, int group_count,
+                                    int limit, int t0, int offset, int n_real, int flat_base,
+                                    int x0, int total, int w_use, void* stream) {
+  if (S < 1 || S > MAX_SHARDS || T < 1 || T % S || C < 2) return (int)cudaErrorInvalidValue;
+  SlabTile tile;
+  const bool rows4 = slab_tile(table, S, T, C, tile);
+  const WindowParams<SlabTile> P{tile, (const int*)demand, (int*)bases, (float*)seg_score,
+                                 (int*)seg_rank, (int*)seg_node, (int*)last, (float*)score_s,
+                                 (int*)rank_s, (unsigned long long*)win_s, (int*)block_s, T, C,
+                                 group_count, limit, t0, offset, n_real, flat_base, x0, total,
+                                 w_use, rows4};
+  return launch_window(P, (cudaStream_t)stream);
 }

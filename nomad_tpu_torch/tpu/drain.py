@@ -35,9 +35,10 @@ collector counts them at its first consumer's sync).
 Under an active mesh (``shard.active_mesh(n_real)``, the JAX collector's
 gate) the batch pads the node axis to a mesh multiple, reads the mirror's
 row-sharded planes (or places its host planes with ``shard.batch_specs``),
-runs the sharded exact scan over the fused batch and the sharded usage
-bases on the same stream; each eval's base comes back as row slabs. The
-wavefront drive under a mesh is not ported (ROADMAP A12b-2) and raises.
+runs the sharded exact scan over the fused batch, or with the wavefront
+stanza on the sharded wavefront (``shard.wavefront_specs()`` is the same
+placement), and the sharded usage bases on the same stream; each eval's
+base comes back as row slabs.
 """
 
 from __future__ import annotations
@@ -480,7 +481,6 @@ class KernelBatchCollector:
 
     def __init__(self, shared: SharedCluster, expected: int, timeout: float = 60.0,
                  pad_evals: int = 0, device=None):
-        _refuse_wavefront_under_mesh(shared.n_real)
         self.shared = shared
         self.device = resolve_device(device)
         ds = shared.device_state
@@ -587,7 +587,6 @@ class KernelBatchCollector:
         n_real = shared.n_real
         # the node axis split over the mesh, gated by the cluster's size as
         # the JAX collector gates it; N rounds to a mesh multiple
-        _refuse_wavefront_under_mesh(n_real)
         mesh = shard.active_mesh(n_real)
         if mesh is not None and mesh.device.type != dev.type:
             raise ValueError(f"the mesh is on {mesh.device}, the collector on {dev}")
@@ -715,9 +714,3 @@ class KernelBatchCollector:
         )
         metrics.sample("drain.batch_build", t_build - t0)
 
-
-def _refuse_wavefront_under_mesh(n_real: int) -> None:
-    """The wavefront drive of a fused batch under a mesh is not ported
-    (ROADMAP A12b-2): it raises, never runs unsharded in silence."""
-    if wavefront.enabled():
-        shard.refuse_under_mesh("the wavefront drain batch under a mesh", n_real)

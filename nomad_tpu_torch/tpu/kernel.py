@@ -956,6 +956,7 @@ LAUNCHES = {
     "binpack": 0, "class_boosts": 0, "scores": 0, "rot_incl": 0,
     "mesh_exact": 0, "mesh_runs": 0, "mesh_windowed": 0,
     "mesh_verify": 0, "mesh_bases": 0, "mesh_scatter": 0,
+    "mesh_wavefront": 0, "mesh_tile_count": 0, "mesh_tile_window": 0,
 }
 
 
@@ -1281,22 +1282,24 @@ def _plan_batch_windowed_cuda(lib, args: WindowArgs, used0, collisions0, n_real:
 MESH_MAX_SHARDS = 16
 #: resource columns the sharded kernels keep in registers
 MESH_MAX_COLS = 8
-_MESH_WHICH = {"mesh_exact": 0, "mesh_runs": 1, "mesh_windowed": 2}
+_MESH_WHICH = {"mesh_exact": 0, "mesh_runs": 1, "mesh_windowed": 2, "mesh_wavefront": 3}
 _MESH_REFUSED = 0x4E5410
 
 
-def mesh_shape(kernel: str, n_shards: int, N: int, G: int = 1, V: int = 1, E: int = 1) -> dict:
+def mesh_shape(kernel: str, n_shards: int, N: int, G: int = 1, V: int = 1, E: int = 1,
+               W: int = 1, M: int = 1) -> dict:
     """The launch of sharded kernel ``kernel`` (``mesh_exact``,
-    ``mesh_runs``, ``mesh_windowed``) over ``n_shards`` shards of an N-row
-    axis on the current card: its ``blocks_a_shard``, ``blocks``, the
-    card's co-resident ``max_blocks`` and the global ``scratch`` bytes.
+    ``mesh_runs``, ``mesh_windowed``, ``mesh_wavefront``: the last with a
+    window of W lanes and M candidates a lane) over ``n_shards`` shards of
+    an N-row axis on the current card: its ``blocks_a_shard``, ``blocks``,
+    the card's co-resident ``max_blocks`` and the global ``scratch`` bytes.
     Shards that cannot all be co-resident raise ``KernelFault``."""
     if not 1 <= n_shards <= MESH_MAX_SHARDS:
         raise KernelFault(f"the sharded kernels take 1 to {MESH_MAX_SHARDS} shards, not {n_shards}")
     out = (ctypes.c_int * 2)()
     scratch = ctypes.c_longlong(0)
     rc = _library().ntt_mesh_shape(out, ctypes.addressof(scratch), _MESH_WHICH[kernel],
-                                   n_shards, N, G, V, E, None)
+                                   n_shards, N, G, V, E, W * (2 + M), None)
     if rc == _MESH_REFUSED:
         raise KernelFault(f"{n_shards} shards of {kernel} cannot be co-resident on the card "
                           f"({out[1]} blocks)")

@@ -30,6 +30,15 @@ in pinned memory, uploads run on a side stream, and the compute stream
 waits on each tile's upload event: the next tile's copy overlaps this
 tile's sweep. On the CPU (the caller asked for it) a tile is a copy.
 
+Under a mesh (``plan_batch_paged(..., mesh=...)``, the JAX module's
+``mesh``) a tile's rows are split into the mesh's S slabs as
+``shard.paged_specs()`` places them (``tile_rows(mesh)`` rounds the tile
+to a multiple of S), and the sweeps run sharded: on the CPU their sharded
+plain versions, on the card K12s and K13s (``csrc/paging.cu``'s kernels
+on a tile read through a pointer table, which the cache builds once per
+upload of a tile). Sharding is a layout: the tile bytes uploaded, the
+placements and the rounds are the unsharded run's.
+
 Config stanza, with the JAX package's env names and defaults:
 ``NOMAD_TPU_PAGING`` (off unless ``1``), ``NOMAD_TPU_PAGING_BUDGET_MB``
 (256) and ``NOMAD_TPU_PAGING_TILE_NODES`` (65,536). ``planner.plan_eval``
@@ -59,6 +68,7 @@ import torch
 from .. import resolve_device
 from ..debug import devprof as _devprof
 from . import kernel
+from . import shard as _shard
 from .kernel import _LOG2_10, _LOG2_10_HI, _LOG2_10_LO, NEG_INF, _binpack
 
 _BIG = 2**30
@@ -117,14 +127,16 @@ def _tile_nodes_raw() -> int:
     return max(1, int(os.environ.get("NOMAD_TPU_PAGING_TILE_NODES", str(DEFAULT_TILE_NODES))))
 
 
-def tile_rows() -> int:
+def tile_rows(mesh=None) -> int:
     """The tile policy: the configured ``tile_nodes`` rounded up to a power
-    of two, never below ``MIN_TILE_NODES``."""
+    of two, never below ``MIN_TILE_NODES``, and up to a multiple of
+    ``mesh``'s shards."""
     t = max(MIN_TILE_NODES, _tile_nodes_raw())
     p = 1
     while p < t:
         p *= 2
-    return p
+    m = _shard.mesh_size(mesh)
+    return -(-p // m) * m
 
 
 def plane_bytes_per_node(r_cols: int = 3) -> int:
@@ -158,13 +170,19 @@ class TileCache:
     ``dyn``: used, collisions), uploading what is absent or dirty; resident
     bytes stay at or under ``limit_bytes``, the budget floored at two tiles
     (``budget_raised`` says when the floor engaged). The builders return
-    numpy arrays; on CUDA they should view pinned memory."""
+    numpy arrays; on CUDA they should view pinned memory. With ``mesh`` the
+    planes are placed by ``shard.paged_specs()`` (each a ``shard.Sharded``
+    of the mesh's slabs) and, on the card, the entry's ``table`` holds the
+    tile's pointer table for the sharded sweeps."""
 
-    def __init__(self, budget_bytes: int, build_static, build_dynamic, device=None):
+    def __init__(self, budget_bytes: int, build_static, build_dynamic, device=None, mesh=None):
         self.budget_bytes = int(budget_bytes)
         self._build_static = build_static
         self._build_dynamic = build_dynamic
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device.type != self.device.type:
+            raise ValueError(f"a mesh on {mesh.device} for tiles on {self.device}")
+        self.mesh = mesh
         self._copy_stream = None
         if self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
@@ -184,19 +202,39 @@ class TileCache:
         self._ever: set[int] = set()
 
     def _put(self, tree, ent: dict) -> tuple:
-        """Copy a tile's arrays to the device. On CUDA the copies run on the
-        side stream and ``ent["ready"]`` becomes their completion event."""
-        _devprof.count_tree_h2d(tree)
+        """Copy a tile's arrays to the device (under a mesh, split by
+        ``shard.paged_specs()`` through the counted ``devprof.device_put``).
+        On CUDA the copies run on the side stream and ``ent["ready"]``
+        becomes their completion event."""
+        if self.mesh is not None:
+            static_specs, dyn_specs = _shard.paged_specs()
+            spec = static_specs if len(tree) == len(static_specs) else dyn_specs
         if self._copy_stream is None:
+            if self.mesh is not None:
+                return _shard.put(tuple(np.array(x) for x in tree), spec, self.mesh)
+            _devprof.count_tree_h2d(tree)
             return tuple(torch.from_numpy(np.array(x)) for x in tree)
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self._copy_stream):
-            out = tuple(torch.from_numpy(x).to(self.device, non_blocking=True) for x in tree)
+            if self.mesh is not None:
+                out = _shard.put(tuple(tree), spec, self.mesh, pinned=True)
+            else:
+                _devprof.count_tree_h2d(tree)
+                out = tuple(torch.from_numpy(x).to(self.device, non_blocking=True) for x in tree)
             ent["ready"] = torch.cuda.Event()
             ent["ready"].record(self._copy_stream)
-        for t in out:  # freed at eviction only after the sweeps queued on it
-            t.record_stream(compute)
+        for x in out:  # freed at eviction only after the sweeps queued on it
+            for t in (x.slabs if self.mesh is not None else (x,)):
+                t.record_stream(compute)
         return out
+
+    def _placed(self, ent: dict) -> None:
+        """Note that the entry's planes changed: on the card under a mesh,
+        its pointer table is rebuilt (once per upload, not per sweep)."""
+        if self.mesh is not None and self._copy_stream is not None:
+            cap, usable, feas, nodes = ent["static"]
+            used, coll = ent["dyn"]
+            ent["table"] = _tile_table(cap, usable, feas, nodes, used, coll)
 
     def wait(self, ent: dict) -> None:
         """Make the compute stream wait for the entry's uploads."""
@@ -234,6 +272,7 @@ class TileCache:
                 dyn = self._build_dynamic(t)
                 nbytes = _tree_nbytes(dyn)
                 ent["dyn"] = self._put(dyn, ent)
+                self._placed(ent)
                 self._dirty.discard(t)
                 self.reuploads += 1
                 self.reupload_bytes += nbytes
@@ -258,6 +297,7 @@ class TileCache:
         ent = {"stamp": self._clock}
         ent["static"] = self._put(static, ent)
         ent["dyn"] = self._put(dyn, ent)
+        self._placed(ent)
         self._resident[t] = ent
         self._dirty.discard(t)
         self._ever.add(t)
@@ -377,8 +417,40 @@ def tile_window_ref(cap, usable, feas, used, coll, nodes, demand, group_count: i
     return (bases, *_segment_winners(score, feas_rank, active, seg, nodes), last)
 
 
+def tile_count_sharded_ref(cap, feas, used, demand, t0: int, offset: int, n_real: int):
+    """Sharded plain version of sweep 1 (JAX ``_tile_count_jit`` on a tile
+    placed by ``shard.paged_specs()``): the unsharded one on the gathered
+    tile, whose two counts are replicated (``split_like`` of a replicated
+    output is the output)."""
+    return tile_count_ref(*_shard.gather((cap, feas, used)), demand, t0, offset, n_real)
+
+
+def tile_window_sharded_ref(cap, usable, feas, used, coll, nodes, demand, group_count: int,
+                            limit: int, t0: int, offset: int, n_real: int, flat_base: int,
+                            x0: int, total: int, w_use: int):
+    """Sharded plain version of sweep 2 (JAX ``_tile_window_jit`` on a tile
+    placed by ``shard.paged_specs()``): the unsharded one on the gathered
+    tile; its outputs are replicated."""
+    return tile_window_ref(*_shard.gather((cap, usable, feas, used, coll, nodes)), demand,
+                           group_count, limit, t0, offset, n_real, flat_base, x0, total, w_use)
+
+
 _COUNT_SHAPES = dict(cap="TC", feas="T", used="TC", demand="C", counts="K2")
 _WINDOW_SHAPES = dict(cap="TC", usable="T2", feas="T", used="TC", coll="T", nodes="T", demand="C")
+#: how the sharded sweeps take a tile's planes (``shard.paged_specs()``),
+#: and their shapes with the tile's rows as the split axis N
+_TILE_SPECS = dict(cap=_shard.ROWS, usable=_shard.ROWS, feas=_shard.LANE, nodes=_shard.LANE,
+                   used=_shard.ROWS, coll=_shard.LANE, demand=_shard.REP, counts=_shard.REP)
+_MESH_COUNT_SHAPES = {k: v.replace("T", "N") for k, v in _COUNT_SHAPES.items()}
+_MESH_WINDOW_SHAPES = {k: v.replace("T", "N") for k, v in _WINDOW_SHAPES.items()}
+
+
+def _tile_table(cap, usable, feas, nodes, used, coll) -> np.ndarray:
+    """The pointer table K12s and K13s take: the six planes of a sharded
+    tile in ``shard.paged_specs()``'s order, each its slabs; a plane the
+    sweep does not read may be None (null pointers)."""
+    none = _shard.Sharded(_shard.ROWS, ())
+    return kernel._table([none if x is None else x for x in (cap, usable, feas, nodes, used, coll)])
 
 #: (device index, stream) -> the zeroed ticket word sweep 1's kernel draws
 #: its blocks' tickets from (the last block clears it)
@@ -388,15 +460,21 @@ _TICKETS: dict = {}
 def tile_count(cap, feas, used, demand, t0: int, offset: int, n_real: int, out=None):
     """Sweep 1 over one tile; int32 [2] (count, count before the offset),
     written into ``out`` when given. On the card one launch, whatever
-    ``out`` held before. Does not wait for the card."""
+    ``out`` held before (K12s on a tile split over a mesh). Does not wait
+    for the card."""
+    sharded = _shard.is_sharded((cap, feas, used))
     if cap.device.type == "cpu":
-        res = tile_count_ref(cap, feas, used, demand, t0, offset, n_real)
+        ref = tile_count_sharded_ref if sharded else tile_count_ref
+        res = ref(cap, feas, used, demand, t0, offset, n_real)
         return res if out is None else out.copy_(res)
     from . import _build
 
     device = cap.device
     if out is None:
         out = torch.empty(2, dtype=torch.int32, device=device)
+    if sharded:
+        _tile_counter(cap, feas, used, demand, out[None])(0, cap, feas, used, t0, offset, n_real)
+        return out
     d = kernel._check_cuda(dict(cap=cap, feas=feas, used=used, demand=demand, out=out),
                            dict(_COUNT_SHAPES, out="2"), device)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -420,17 +498,20 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
 
 def _tile_counter(cap, feas, used, demand, counts):
     """Sweep 1 for the tiles of one paged eval: a callable ``(t, cap, feas,
-    used, t0, offset, n_real)`` that writes tile t's counts into row t of
-    ``counts`` [K, 2]. On the card the shapes, dtypes and device are
-    checked here, once, against the first tile's planes: every tile of the
-    eval has those, and the calls pass pointers only."""
+    used, t0, offset, n_real, table=None)`` that writes tile t's counts into
+    row t of ``counts`` [K, 2]. On the card the shapes, dtypes and device
+    are checked here, once, against the first tile's planes: every tile of
+    the eval has those, and the calls pass pointers only (a tile split over
+    a mesh its pointer table, ``table`` when the tile cache keeps it)."""
     if cap.device.type == "cpu":
-        def count(t, cap, feas, used, t0, offset, n_real):
+        def count(t, cap, feas, used, t0, offset, n_real, table=None):
             tile_count(cap, feas, used, demand, t0, offset, n_real, out=counts[t])
         return count
     from . import _build
 
     device = cap.device
+    if _shard.is_sharded((cap, feas, used)):
+        return _mesh_tile_counter(cap, feas, used, demand, counts)
     d = kernel._check_cuda(dict(cap=cap, feas=feas, used=used, demand=demand, counts=counts),
                            _COUNT_SHAPES, device)
     T, C, K = d["T"], d["C"], d["K"]
@@ -439,7 +520,7 @@ def _tile_counter(cap, feas, used, demand, counts):
     fixed = (demand.data_ptr(), counts.data_ptr(), _ticket(device, stream).data_ptr())
     launches = kernel.LAUNCHES
 
-    def count(t, cap, feas, used, t0, offset, n_real, _keep=(demand, counts)):
+    def count(t, cap, feas, used, t0, offset, n_real, table=None, _keep=(demand, counts)):
         if not 0 <= t < K:
             raise IndexError(f"tile {t} has no row in counts [{K}, 2]")
         rc = fn(cap.data_ptr(), feas.data_ptr(), used.data_ptr(), fixed[0], fixed[1] + 8 * t,
@@ -450,20 +531,57 @@ def _tile_counter(cap, feas, used, demand, counts):
     return count
 
 
-def tile_window(cap, usable, feas, used, coll, nodes, demand, group_count: int, limit: int,
-                t0: int, offset: int, n_real: int, flat_base: int, x0: int, total: int,
-                w_use: int):
-    """Sweep 2 over one tile; the outputs of ``tile_window_ref`` as device
-    tensors. On the card, three short launches of a grid over the tile's
-    rows (score, bid, winner). Does not wait for the card."""
-    scalars = (group_count, limit, t0, offset, n_real, flat_base, x0, total, w_use)
-    if cap.device.type == "cpu":
-        return tile_window_ref(cap, usable, feas, used, coll, nodes, demand, *scalars)
+def _mesh_tile_counter(cap, feas, used, demand, counts):
+    """``_tile_counter`` on tiles split over a mesh: K12s, one launch a
+    tile over its S slabs, the counts and the ticket word as the unsharded
+    sweep keeps them."""
     from . import _build
 
     device = cap.device
-    d = kernel._check_cuda(dict(cap=cap, usable=usable, feas=feas, used=used, coll=coll,
-                                nodes=nodes, demand=demand), _WINDOW_SHAPES, device)
+    d = kernel._check_mesh(dict(cap=cap, feas=feas, used=used, demand=demand, counts=counts),
+                           _TILE_SPECS, _MESH_COUNT_SHAPES, device)
+    S, T, C, K = d["S"], d["N"], d["C"], d["K"]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = _build.library().ntt_mesh_tile_count
+    fixed = (demand.data_ptr(), counts.data_ptr(), _ticket(device, stream).data_ptr())
+    launches = kernel.LAUNCHES
+
+    def count(t, cap, feas, used, t0, offset, n_real, table=None, _keep=(demand, counts)):
+        if not 0 <= t < K:
+            raise IndexError(f"tile {t} has no row in counts [{K}, 2]")
+        if table is None:
+            table = _tile_table(cap, None, feas, None, used, None)
+        rc = fn(table.ctypes.data, fixed[0], fixed[1] + 8 * t, fixed[2], S, T, C, t0, offset,
+                n_real, stream)
+        if rc:
+            kernel._launch_status("mesh_tile_count", rc)
+        launches["mesh_tile_count"] += 1
+    return count
+
+
+def tile_window(cap, usable, feas, used, coll, nodes, demand, group_count: int, limit: int,
+                t0: int, offset: int, n_real: int, flat_base: int, x0: int, total: int,
+                w_use: int, table=None):
+    """Sweep 2 over one tile; the outputs of ``tile_window_ref`` as device
+    tensors. On the card, three short launches of a grid over the tile's
+    rows (score, bid, winner); on a tile split over a mesh, K13s (the same
+    three over the slabs, through ``table``, the tile cache's pointer
+    table, or one built here). Does not wait for the card."""
+    scalars = (group_count, limit, t0, offset, n_real, flat_base, x0, total, w_use)
+    planes = dict(cap=cap, usable=usable, feas=feas, used=used, coll=coll, nodes=nodes)
+    sharded = _shard.is_sharded(tuple(planes.values()))
+    if cap.device.type == "cpu":
+        ref = tile_window_sharded_ref if sharded else tile_window_ref
+        return ref(cap, usable, feas, used, coll, nodes, demand, *scalars)
+    from . import _build
+
+    device = cap.device
+    if sharded:
+        d = kernel._check_mesh(dict(planes, demand=demand), _TILE_SPECS, _MESH_WINDOW_SHAPES,
+                               device)
+        d["T"] = d["N"]
+    else:
+        d = kernel._check_cuda(dict(planes, demand=demand), _WINDOW_SHAPES, device)
     T, C = d["T"], d["C"]
     i32 = dict(dtype=torch.int32, device=device)
     bases = torch.empty(2, **i32)
@@ -477,46 +595,58 @@ def tile_window(cap, usable, feas, used, coll, nodes, demand, group_count: int, 
         torch.empty(2 * T, dtype=torch.int64, device=device),  # per-segment best key
         torch.empty(-(-T // 1024), **i32),  # per block of rows: fit counts
     )
-    kernel._launch(
-        "tile_window", _build.library().ntt_tile_window,
-        *(kernel._ptr(t) for t in (cap, usable, feas, used, coll, nodes, demand,
-                                   bases, seg_score, seg_rank, seg_node, last, *scratch)),
-        T, C, *scalars,
-        kernel._stream(device),
-    )
+    outs = (bases, seg_score, seg_rank, seg_node, last, *scratch)
+    if sharded:
+        if table is None:
+            table = _tile_table(cap, usable, feas, nodes, used, coll)
+        kernel._launch(
+            "mesh_tile_window", _build.library().ntt_mesh_tile_window,
+            ctypes.c_void_p(table.ctypes.data), *(kernel._ptr(t) for t in (demand, *outs)),
+            d["S"], T, C, *scalars,
+            kernel._stream(device),
+        )
+    else:
+        kernel._launch(
+            "tile_window", _build.library().ntt_tile_window,
+            *(kernel._ptr(t) for t in (cap, usable, feas, used, coll, nodes, demand, *outs)),
+            T, C, *scalars,
+            kernel._stream(device),
+        )
     return bases, seg_score, seg_rank, seg_node, last[0]
 
 
-def sweep_keys(tn: int) -> tuple:
+def sweep_keys(tn: int, n_shards: int = 1) -> tuple:
     """The device ledger's shape keys of the two sweeps over tiles of
-    ``tn`` rows (planner ``paged``; one device, so S1)."""
-    return f"T{tn}S1c", f"T{tn}S1w"
+    ``tn`` rows split into ``n_shards`` slabs (planner ``paged``)."""
+    return f"T{tn}S{n_shards}c", f"T{tn}S{n_shards}w"
 
 
-def count_sweep(cap, feas, used, demand, counts, offset: int, n_real: int, key: str):
+def count_sweep(cap, feas, used, demand, counts, offset: int, n_real: int, key: str,
+                table=None):
     """Sweep 1's counter for the tiles of one eval (``_tile_counter``),
-    made and launched on tile 0; the launch enters the device ledger under
-    ``key``. Returns the counter for the other tiles."""
+    made and launched on tile 0 (``table``: its pointer table, on a tile
+    split over a mesh); the launch enters the device ledger under ``key``,
+    sharded apart. Returns the counter for the other tiles."""
     if cap.device.type == "cuda":
         kernel._library()
     t0 = time.perf_counter()
     count = _tile_counter(cap, feas, used, demand, counts)
-    count(0, cap, feas, used, 0, offset, n_real)
-    kernel._ledger("paged", key, cap.device, t0)
+    count(0, cap, feas, used, 0, offset, n_real, table=table)
+    kernel._ledger("paged", key, cap.device, t0, _shard.is_sharded(cap))
     return count
 
 
 def window_sweep(cap, usable, feas, used, coll, nodes, demand, group_count: int, limit: int,
                  t0: int, offset: int, n_real: int, flat_base: int, x0: int, total: int,
-                 w_use: int, key: str):
+                 w_use: int, key: str, table=None):
     """``tile_window`` over one tile, its launch entered in the device
-    ledger under ``key``."""
+    ledger under ``key`` (sharded apart)."""
     if cap.device.type == "cuda":
         kernel._library()
     start = time.perf_counter()
     out = tile_window(cap, usable, feas, used, coll, nodes, demand, group_count, limit, t0,
-                      offset, n_real, flat_base, x0, total, w_use)
-    kernel._ledger("paged", key, cap.device, start)
+                      offset, n_real, flat_base, x0, total, w_use, table=table)
+    kernel._ledger("paged", key, cap.device, start, _shard.is_sharded(cap))
     return out
 
 
@@ -534,12 +664,13 @@ def _host_plane(shape, dtype, pinned: bool) -> np.ndarray:
 
 
 def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limit, n_allocs,
-                     used0, collisions0, n_real: int, a_pad: int, device=None):
+                     used0, collisions0, n_real: int, a_pad: int, device=None, mesh=None):
     """Windowed placement with the node axis streamed in tiles. Same inputs
     as the flat windowed planner (host numpy planes in node-id space and the
     ring permutation); returns ``(placements i32[a_pad], rounds, stats)``
     with the flat planner's placements and rounds, under the stanza's
-    budget (``budget_mb()`` MB)."""
+    budget (``budget_mb()`` MB). With ``mesh`` each tile is split into the
+    mesh's slabs and swept by the sharded sweeps (JAX ``mesh``)."""
     kernel._fault_point()
     dev = resolve_device(device)
     pinned = dev.type == "cuda"
@@ -551,7 +682,7 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
     coll_nodes = np.asarray(collisions0, dtype=np.int32)
     n0, c = capacity.shape
 
-    tn = tile_rows()
+    tn = tile_rows(mesh)
     n_tiles = max(1, -(-int(n_real) // tn))
     n_pad = n_tiles * tn
     m = min(n0, n_pad)
@@ -584,8 +715,8 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
         sl = slice(t * tn, (t + 1) * tn)
         return (used_r[sl], coll_r[sl])
 
-    cache = TileCache(budget_mb() * (1 << 20), build_static, build_dynamic, dev)
-    ckey, wkey = sweep_keys(tn)
+    cache = TileCache(budget_mb() * (1 << 20), build_static, build_dynamic, dev, mesh)
+    ckey, wkey = sweep_keys(tn, _shard.mesh_size(mesh))
     demand_np = np.asarray(demand, dtype=np.int32)
     demand_d = torch.from_numpy(demand_np.copy()).to(dev)
     a = int(n_allocs)
@@ -615,9 +746,9 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
             used_t, _ = cur["dyn"]
             if count is None:  # tile 0
                 count = count_sweep(cap_t, feas_t, used_t, demand_d, counts, offset, n_real,
-                                    ckey)
+                                    ckey, table=cur.get("table"))
             else:
-                count(t, cap_t, feas_t, used_t, t * tn, offset, n_real)
+                count(t, cap_t, feas_t, used_t, t * tn, offset, n_real, table=cur.get("table"))
         tile_counts = counts.cpu().numpy().astype(np.int64)
         cnts, befs = tile_counts[:, 0], tile_counts[:, 1]
 
@@ -643,7 +774,8 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
             used_t, coll_t = cur["dyn"]
             parts.append(window_sweep(
                 cap_t, usable_t, feas_t, used_t, coll_t, nodes_t, demand_d, int(group_count),
-                lraw, t * tn, offset, int(n_real), int(flat_base[t]), x0, total, w_use, wkey))
+                lraw, t * tn, offset, int(n_real), int(flat_base[t]), x0, total, w_use, wkey,
+                table=cur.get("table")))
         parts = _to_host(parts, pinned)
         for _, t_score, t_rank, t_node, _ in parts:
             _devprof.count_d2h(t_score.nbytes + t_rank.nbytes + t_node.nbytes + 16)
@@ -690,7 +822,7 @@ def plan_batch_paged(capacity, usable, feasible, perm, demand, group_count, limi
         offset = (offset + max(consumed, 0)) % n_real
         placed += w_use
 
-    _devprof.count_rounds("paged", rounds, a, False)
+    _devprof.count_rounds("paged", rounds, a, mesh is not None)
     stats = cache.stats()
     stats.update({"rounds": rounds, "tiles": n_tiles, "tile_nodes": tn, "placed": placed,
                   "n_pad": n_pad})

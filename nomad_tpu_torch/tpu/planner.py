@@ -33,7 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..debug import devprof as _devprof
 from . import kernel, paging, shard, wavefront
 from .problems import bucket
@@ -82,19 +82,12 @@ def pad_planes(planes: dict, mesh=None) -> dict:
     return out
 
 
-def choose_mode(planes: dict, exact_only: bool = False, mesh=None) -> str:
+def choose_mode(planes: dict, exact_only: bool = False) -> str:
     """``runs``, ``windowed``, ``paged``, ``exact-scan`` or ``wavefront``, by
     the scheduler's predicates (batch_sched.py:690, :768, :785 and :917)
     on padded planes; ``exact_only`` (the scheduler's ``EXACT_ONLY``)
-    leaves out the runs and windowed planners. Under ``mesh`` the
-    wavefront and paged routes raise: their sharded forms are not ported."""
-    mode = _mode(planes, exact_only)
-    if mesh is not None and mode in ("wavefront", "paged"):
-        raise not_ported(f"the {mode} route under a mesh", shard.UNPORTED)
-    return mode
-
-
-def _mode(planes: dict, exact_only: bool) -> str:
+    leaves out the runs and windowed planners. A mesh changes no route:
+    each runs sharded."""
     G = planes["feasible"].shape[0]
     E = planes["perm"].shape[0]
     exact = "wavefront" if wavefront.enabled() else "exact-scan"
@@ -249,7 +242,7 @@ def launch_eval(planes: dict, device=None, exact_only: bool = False) -> PendingP
     if mesh is not None and mesh.device.type != dev.type:
         raise ValueError(f"the mesh lives on {mesh.device}, the eval asks for {dev}")
     p = pad_planes(planes, mesh)
-    mode = choose_mode(p, exact_only, mesh)
+    mode = choose_mode(p, exact_only)
     n_real, a_real = p["n_real"], p["a_real"]
     A = p["demands"].shape[0]
     N = p["capacity"].shape[0]
@@ -260,7 +253,7 @@ def launch_eval(planes: dict, device=None, exact_only: bool = False) -> PendingP
         placements, rounds, pstats = paging.plan_batch_paged(
             p["capacity"], p["usable"], p["feasible"][0], p["perm"][0], p["demands"][0],
             int(p["group_count"][0]), int(p["limits"][0]), a_real, p["used0"],
-            p["collisions0"][0], n_real, A, device=dev,
+            p["collisions0"][0], n_real, A, device=dev, mesh=mesh,
         )
         placements = torch.from_numpy(placements)
         extra = {k: v for k, v in pstats.items() if k != "rounds"}
@@ -278,7 +271,8 @@ def launch_eval(planes: dict, device=None, exact_only: bool = False) -> PendingP
         placements, rounds = kernel.plan_batch_windowed(args, used0, coll0, n_real, A,
                                                         n_valid=a_real)
     elif mode == "wavefront":
-        args, state = exact_inputs(p, dev)
+        # wavefront_specs() is batch_specs(): the exact scan's placement
+        args, state = exact_inputs(p, dev, mesh)
         _sync(dev)
         t0, start = time.perf_counter(), _event(dev)
         _, placements, rounds = wavefront.plan_batch_wavefront(args, state, n_real, n_valid=a_real)

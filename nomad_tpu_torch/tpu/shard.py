@@ -34,12 +34,16 @@ What differs from the JAX module, at the device seams only:
   mirror's row-sharded planes) passes through as it is, as a JAX
   ``device_put`` of an array already carrying its sharding does.
 
-The server path runs under the mesh too: the mirror keeps its planes as
-ROWS slabs (``mirror.DeviceState(mesh=...)``), and the fused drain batch,
-the usage bases, the dirty-row scatter and the applier's dense verify
-launch the sharded kernels on them (``csrc/mesh.cu``,
-``csrc/mesh_server.cu``). What stays unported under a mesh, the wavefront
-and paged routes, raises (:func:`refuse_under_mesh`).
+Every route of the device tier runs under the mesh: the flat planners
+(K5s-K7s), the wavefront drive (K11s, ``csrc/mesh.cu``, on the exact
+scan's placement) and the paged tile sweeps (K12s and K13s,
+``csrc/paging.cu``, each tile split by :func:`paged_specs`); on the server
+path the mirror keeps its planes as ROWS slabs
+(``mirror.DeviceState(mesh=...)``), and the fused drain batch (the scan or
+the wavefront), the usage bases, the dirty-row scatter and the applier's
+dense verify launch the sharded kernels on them (``csrc/mesh.cu``,
+``csrc/mesh_server.cu``). Only a mesh over several cards raises
+(``configure``; ROADMAP A12c).
 
 Everything degrades to the unsharded path when no mesh is active: the
 helpers return their inputs untouched and the planners run exactly the
@@ -61,8 +65,6 @@ import threading
 from typing import Optional
 
 import numpy as np
-
-from .. import not_ported
 
 logger = logging.getLogger("nomad_tpu.tpu.shard")
 
@@ -215,19 +217,6 @@ def active_mesh(n_nodes: Optional[int] = None):
     return mesh
 
 
-#: the ROADMAP item of what a mesh cannot run yet
-UNPORTED = "A12b-2, the wavefront and paged routes under a mesh"
-
-
-def refuse_under_mesh(what: str, n_nodes: int) -> None:
-    """Raise for a route whose sharded form is not ported (the
-    wavefront and paged routes: ROADMAP A12b-2) while a mesh is active and
-    a cluster of ``n_nodes`` passes its size gate; never runs it unsharded
-    in silence."""
-    if active_mesh(n_nodes) is not None:
-        raise not_ported(what, UNPORTED)
-
-
 def mesh_size(mesh) -> int:
     """Shards in ``mesh`` (1 for None — the unsharded degenerate).
     Takes the mesh EXPLICITLY: callers that were gated off (small
@@ -285,8 +274,8 @@ def batch_specs():
 def wavefront_specs():
     """(BatchArgs, BatchState) spec trees for the wavefront planner: the
     wavefront is an alternative DRIVE over the exact-scan batch — same
-    planes, same carry — so its layout IS ``batch_specs()``. The port's
-    wavefront does not run under a mesh yet (ROADMAP A12b-2)."""
+    planes, same carry — so its layout IS ``batch_specs()`` (K11s reads
+    the exact scan's slabs)."""
     return batch_specs()
 
 
@@ -323,8 +312,8 @@ def window_specs():
 def paged_specs():
     """(static-tile, dynamic-tile) spec trees for the paged planner's
     tile stream: a tile is a contiguous node-row slab, so the layout is
-    the windowed planner's restricted to one tile. The port's paged
-    planner does not run under a mesh yet (ROADMAP A12b-2)."""
+    the windowed planner's restricted to one tile (K12s and K13s read a
+    tile's slabs through its pointer table)."""
     rows, node = ROWS, LANE
     return (rows, rows, node, node), (rows, node)
 
@@ -344,14 +333,17 @@ def _map(fn, tree, spec_tree):
     return fn(tree, spec_tree)
 
 
-def put(tree, spec_tree, mesh):
+def put(tree, spec_tree, mesh, pinned: bool = False):
     """Upload a planner arg tree with its spec tree: each ROWS, COLS or
     LANE leaf as ``mesh.size`` contiguous slabs (a :class:`Sharded`), each
     REP leaf once. Leaves are numpy arrays or scalars (or tensors, moved
     through host memory); integer planes are pinned to int32 and floats
     to float32 as ``kernel.from_numpy`` pins them. A :class:`Sharded` leaf
     is already placed: it must be split as its spec says, over the mesh's
-    shard count, and passes through uncopied and uncounted.
+    shard count, and passes through uncopied and uncounted. ``pinned``:
+    the leaves are numpy planes of those dtypes in pinned host memory (the
+    paged tile stream's), whose slabs upload as they are, on the current
+    stream, without waiting for it.
 
     Placement routes through ``devprof.device_put`` — THE counted
     wrapper — so every host→device byte the mesh path moves lands in
@@ -365,14 +357,15 @@ def put(tree, spec_tree, mesh):
                 raise ValueError(f"a leaf split {x.split} over {len(x.slabs)} shards, "
                                  f"placed as {spec} over {mesh.size}")
             return x
-        a = pin_host(x.cpu().numpy() if hasattr(x, "data_ptr") else x)
+        a = x if pinned else pin_host(x.cpu().numpy() if hasattr(x, "data_ptr") else x)
         if spec == REP:
-            return _devprof.device_put(a, mesh.device)
+            return _devprof.device_put(a, mesh.device, non_blocking=pinned)
         axis = _AXIS_OF[spec]
         slabs = []
         for r0, r1 in mesh.rows(a.shape[axis]):
             part = a[r0:r1] if axis == 0 else a[:, r0:r1]
-            slabs.append(_devprof.device_put(np.ascontiguousarray(part), mesh.device))
+            slabs.append(_devprof.device_put(np.ascontiguousarray(part), mesh.device,
+                                             non_blocking=pinned))
         return Sharded(spec, slabs)
 
     return _map(_put, tree, spec_tree)

@@ -21,9 +21,9 @@ port's copy of the JAX scheduler's ``_bucket``), so warming the bucket
 ladder covers every cluster size that rounds into it. Under a mesh
 (``tpu/shard.py``) the example inputs are placed through the runtime's
 spec trees (``shard.put``), so the sharded kernels warm at the shapes and
-splits the runtime launches; the routes not ported under a mesh (the
-wavefront and the paged sweeps, ROADMAP A12b-2) refuse, which is logged
-and shortens the count.
+splits the runtime launches: the flat planners, the wavefront
+(``shard.wavefront_specs()``) and the paged sweeps on a tile of
+``paging.tile_rows(mesh)`` rows split by ``shard.paged_specs()``.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ from __future__ import annotations
 import logging
 import threading
 
-from .. import not_ported
 from .problems import bucket as _bucket
 
 logger = logging.getLogger("nomad_tpu.tpu.warmup")
@@ -227,12 +226,10 @@ def prewarm(shapes=DEFAULT_SHAPES, v_values: int = DEFAULT_V, device=None, mesh=
                 _sync(torch, dev)
                 compiled += 1
 
-                # the wavefront drive shares the exact scan's planes, so
-                # its ladder entry reuses the example trees just built
-                # (under a mesh it refuses: ROADMAP A12b-2)
+                # the wavefront drive shares the exact scan's planes (and
+                # wavefront_specs() is batch_specs()), so its ladder entry
+                # reuses the example trees just placed
                 if _wavefront.enabled():
-                    if shape_mesh is not None:
-                        raise not_ported("the wavefront warm-up under a mesh", _shard.UNPORTED)
                     _wavefront.plan_batch_wavefront(bargs, binit, n_pad)
                     _sync(torch, dev)
                     compiled += 1
@@ -241,21 +238,19 @@ def prewarm(shapes=DEFAULT_SHAPES, v_values: int = DEFAULT_V, device=None, mesh=
                 continue
         # the paged planner's tile sweeps launch per TILE shape, not per
         # cluster shape — one (count, window) pair covers every node axis
-        # the pager streams
+        # the pager streams; under a mesh the tile is split over it
         if _paging.enabled():
             try:
-                if mesh is not None:
-                    raise not_ported("the paged warm-up under a mesh", _shard.UNPORTED)
-                tn = _paging.tile_rows()
-                cap_t = torch.ones((tn, 4), **i32)
-                usable_t = torch.ones((tn, 2), **f32)
-                feas_t = torch.ones(tn, **b8)
-                used_t = torch.zeros((tn, 4), **i32)
-                coll_t = torch.zeros(tn, **i32)
-                nodes_t = torch.arange(tn, **i32)
+                tn = _paging.tile_rows(mesh)
+                sspec, dspec = _shard.paged_specs()
+                cap_t, usable_t, feas_t, nodes_t = _placed(
+                    (torch.ones((tn, 4), **i32), torch.ones((tn, 2), **f32),
+                     torch.ones(tn, **b8), torch.arange(tn, **i32)), sspec, mesh)
+                used_t, coll_t = _placed((torch.zeros((tn, 4), **i32), torch.zeros(tn, **i32)),
+                                         dspec, mesh)
                 demand_t = torch.ones(4, **i32)
                 counts = torch.empty((1, 2), **i32)
-                ckey, wkey = _paging.sweep_keys(tn)
+                ckey, wkey = _paging.sweep_keys(tn, _shard.mesh_size(mesh))
                 _paging.count_sweep(cap_t, feas_t, used_t, demand_t, counts, 0, tn, ckey)
                 _sync(torch, dev)
                 compiled += 1
@@ -319,8 +314,6 @@ def prewarm_drain(n_nodes: int, batch: int, v_values: int = 8, device=None,
             _failed("the drain batch", (N, batch))
         if _wavefront.enabled() and args is not None:
             try:
-                if mesh is not None:
-                    raise not_ported("the wavefront warm-up under a mesh", _shard.UNPORTED)
                 _wavefront.plan_batch_wavefront(args, init, n_nodes)
                 _sync(torch, dev)
                 compiled += 1

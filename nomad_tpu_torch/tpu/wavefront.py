@@ -19,15 +19,19 @@ the environment and ``reset`` goes back to it.
 The reductions of the selection are staged as tournaments over an
 ``[S, N/S]`` view of the node axis (a local stage per shard, then an
 S-wide finish), as the JAX module stages them for a mesh. Integer sums
-and float max are order-free, so every S gives the same bits; the port
-runs on one card, so its wrapper always takes S = 1.
+and float max are order-free, so every S gives the same bits.
 
 ``plan_batch_wavefront_ref`` is the plain PyTorch version and
 ``plan_batch_wavefront`` the wrapper: the plain version for CPU tensors,
 the hand-written CUDA kernel ``csrc/wavefront.cu`` for CUDA tensors (one
 cooperative launch of a thread block cluster per lane of the window, each
-walking its lane's ring only as far as its limit window). Each launch
-enters the device ledger and records its rounds, as the JAX module's do.
+walking its lane's ring only as far as its limit window). A tree that
+``shard.put`` placed under ``shard.wavefront_specs()`` (the node axis split
+into S shards) runs the sharded plain version on the CPU and the sharded
+kernel K11s (``csrc/mesh.cu``, one cooperative launch of S x Q blocks) on
+the card, with S taken from the tree. Each launch enters the device ledger
+(sharded launches keyed apart) and records its rounds, as the JAX module's
+do.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import torch
 
 from ..debug import devprof as _devprof
 from . import kernel
+from . import shard as _shard
 from .kernel import (MAX_SKIP, NEG_INF, BatchArgs, BatchState, _rot_incl_t, _scores,  # noqa: F401
                      _tcumsum, _tmax, _tmin, _tsum)
 
@@ -245,6 +250,19 @@ def plan_batch_wavefront_ref(args: BatchArgs, init: BatchState, n_real: int, win
     return BatchState(used, coll, counts, present, offset), placements, rounds
 
 
+def plan_batch_wavefront_sharded_ref(args: BatchArgs, init: BatchState, n_real: int,
+                                     window: int, top_m: int):
+    """Sharded plain version of the wavefront drive (JAX
+    ``_plan_batch_wavefront_jit`` on a tree placed under
+    ``shard.wavefront_specs()``): the plain version on the gathered planes
+    with its tournaments staged over the tree's shards; returns (final
+    state, split as ``init`` is, node index per alloc or -1, rounds)."""
+    s = shards_for(int(args.capacity.shape[0]), _shard.shards_of((args, init)))
+    state, placements, rounds = plan_batch_wavefront_ref(
+        _shard.gather(args), _shard.gather(init), n_real, window, top_m, s)
+    return _shard.split_like(state, init), placements, rounds
+
+
 #: candidates per lane whose best M - 1 keys the kernel's threads keep in
 #: registers; more candidates keep them in a sorted list in global memory
 WAVE_MAX_TOP_M = 4
@@ -274,7 +292,7 @@ def cluster_shape(window: int, n_classes: int, top_m: int, device: torch.device,
 
 
 def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid: int = None,
-                         walked: torch.Tensor | None = None):
+                         walked: torch.Tensor | None = None, n_shards: int | None = None):
     """Run the wavefront drive with the stanza's W and M; returns (final
     state, node index per alloc or -1, rounds). A drop-in for
     ``kernel.plan_batch``. On the card ``rounds`` is a device scalar, so
@@ -284,26 +302,39 @@ def plan_batch_wavefront(args: BatchArgs, init: BatchState, n_real: int, n_valid
     waiting for them.
     ``walked``, a one-element int64 tensor on the card, gets the ring
     positions the committed lanes' selections walked added to it (the
-    plain version walks no chunks and takes none)."""
+    unsharded kernel only: the plain versions walk no chunks and K11s
+    walks every position of each step, so they take none).
+    A tree split over a mesh runs sharded, its shard count taken from the
+    tree; ``n_shards`` (the JAX signature's) must agree with it."""
     kernel._fault_point()
     A = int(args.demands.shape[0])
     n_pad = int(args.capacity.shape[0])
     W = window_for(A)
     M = contention_top_m()
-    S = shards_for(n_pad, 1)
+    sharded = _shard.is_sharded((args, init))
+    tree_shards = _shard.shards_of((args, init))
+    if n_shards is not None and int(n_shards) != tree_shards:
+        raise ValueError(f"n_shards {n_shards} for a tree split over {tree_shards} shards")
+    S = shards_for(n_pad, tree_shards)
     key = f"E{args.perm.shape[0]}G{args.feasible.shape[0]}A{A}N{n_pad}W{W}M{M}S{S}"
     device = args.capacity.device
+    if walked is not None and (sharded or device.type == "cpu"):
+        raise ValueError("only the unsharded kernel counts the ring positions it walks")
     if device.type == "cpu":
-        if walked is not None:
-            raise ValueError("only the kernel counts the ring positions it walks")
         t0 = time.perf_counter()
-        out = plan_batch_wavefront_ref(args, init, n_real, W, M, S)
+        if sharded:
+            out = plan_batch_wavefront_sharded_ref(args, init, n_real, W, M)
+        else:
+            out = plan_batch_wavefront_ref(args, init, n_real, W, M, S)
     else:
         lib = kernel._library()
         t0 = time.perf_counter()
-        out = _plan_batch_wavefront_cuda(lib, args, init, walked, W, M, device)
-    kernel._ledger("wavefront", key, device, t0)
-    _devprof.count_rounds("wavefront", out[2], A if n_valid is None else int(n_valid), False)
+        if sharded:
+            out = _plan_batch_wavefront_mesh_cuda(lib, args, init, W, M, device)
+        else:
+            out = _plan_batch_wavefront_cuda(lib, args, init, walked, W, M, device)
+    kernel._ledger("wavefront", key, device, t0, sharded)
+    _devprof.count_rounds("wavefront", out[2], A if n_valid is None else int(n_valid), sharded)
     return out
 
 
@@ -338,4 +369,31 @@ def _plan_batch_wavefront_cuda(lib, args: BatchArgs, init: BatchState, walked, W
         N, C, G, V, E, A, W, M,
         kernel._stream(device),
     )
+    return state, placements, rounds[0]
+
+
+def _plan_batch_wavefront_mesh_cuda(lib, args: BatchArgs, init: BatchState, W: int, M: int,
+                                    device):
+    """K11s: one cooperative launch of S x Q blocks over the tree's slabs
+    (``csrc/mesh.cu``), the exact scan's step a lane under the wavefront's
+    round rule."""
+    aspec, sspec = _shard.wavefront_specs()
+    d = kernel._check_mesh({**args._asdict(), **init._asdict()},
+                           {**aspec._asdict(), **sspec._asdict()}, kernel._EXACT_SHAPES, device)
+    N, C, G, V, E, A, S = (d[k] for k in "NCGVEAS")
+    for t in args.perm.slabs:
+        kernel._check_index(t, N, "perm")
+    kernel._check_index(args.groups, G, "groups")
+    kernel._check_index(args.group_eval, E, "group_eval")
+    if not 2 <= C <= kernel.MESH_MAX_COLS:
+        raise kernel.KernelFault(f"the sharded wavefront takes 2 to {kernel.MESH_MAX_COLS} "
+                                 f"resource columns, not {C}")
+    shape = kernel.mesh_shape("mesh_wavefront", S, N, G, V, E, W, M)
+    state = BatchState(*(kernel._clone(x) for x in init))
+    placements = torch.empty(A, dtype=torch.int32, device=device)
+    rounds = torch.zeros(1, dtype=torch.int32, device=device)
+    scratch = torch.empty(max(shape["scratch"], 16), dtype=torch.uint8, device=device)
+    kernel._launch_mesh("mesh_wavefront", lib.ntt_mesh_wavefront,
+                        [*args, *state, placements, rounds, scratch],
+                        S, shape["blocks_a_shard"], N, C, G, V, E, A, W, M, device=device)
     return state, placements, rounds[0]

@@ -2272,3 +2272,168 @@ def test_mesh_drain_batch_on_card_matches_cpu(s, cuda_device, monkeypatch):
         for eval_id, (placements, base) in want.items():
             np.testing.assert_array_equal(out[key][eval_id][0], placements)
             np.testing.assert_array_equal(out[key][eval_id][1], base)
+
+
+# ---------------------------------------------------------------------------
+# the wavefront and paged routes under a mesh: K11s (csrc/mesh.cu) and K12s
+# and K13s (csrc/paging.cu) against their sharded plain versions and the
+# unsharded kernels
+# ---------------------------------------------------------------------------
+
+#: name -> (nodes, allocs, seed, W, M): an uneven axis (real rows end inside
+#: a shard) at M 1 and 4, and a window narrower than the default at M 3
+MESH_WAVE_CASES = {"uneven_m1": (2059, 256, 11, 32, 1), "uneven_m4": (2059, 256, 29, 32, 4),
+                   "1k_w8_m3": (1024, 200, 3, 8, 3)}
+
+
+def _mesh_wave_kernels(args, init, n_real, s, cuda_device):
+    """K11s over ``s`` shards on the card against its sharded plain
+    version, the unsharded K11 and the sequential K5 on the same inputs."""
+    aspec, sspec = shard.wavefront_specs()
+    card, cpu = shard.Mesh(s, cuda_device), shard.Mesh(s, "cpu")
+    before = dict(tk.LAUNCHES)
+    state, got, rounds = wavefront.plan_batch_wavefront(
+        shard.put(args, aspec, card), shard.put(init, sspec, card), n_real, n_shards=s)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["mesh_wavefront"] == before["mesh_wavefront"] + 1
+    assert {k: v - before[k] for k, v in tk.LAUNCHES.items() if v != before[k]} == {
+        "mesh_wavefront": 1}
+    want_state, want, want_rounds = wavefront.plan_batch_wavefront_sharded_ref(
+        shard.put(args, aspec, cpu), shard.put(init, sspec, cpu), n_real,
+        wavefront.window_for(args.demands.shape[0]), wavefront.contention_top_m())
+    _same(got, want)
+    assert int(rounds) == want_rounds
+    for g, w in zip(shard.gather(state), shard.gather(want_state)):
+        _same(g, w)
+    ca, cs = tk.from_numpy(args, cuda_device), tk.from_numpy(init, cuda_device)
+    _, flat, flat_rounds = wavefront.plan_batch_wavefront(ca, cs, n_real)
+    _same(got, flat)
+    assert int(flat_rounds) == want_rounds
+    _, seq = tk.plan_batch(ca, cs, n_real)
+    _same(got, seq)
+    return want_rounds
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("case", sorted(MESH_WAVE_CASES))
+def test_mesh_wavefront_kernel_matches_plain(case, s, cuda_device):
+    n, a, seed, window, top_m = MESH_WAVE_CASES[case]
+    args, init = problems.wavefront_problem(_mesh_cluster(n, a, seed, s))
+    wavefront.configure(max_round=window, contention_top_m=top_m)
+    rounds = _mesh_wave_kernels(tk.BatchArgs(**args), tk.BatchState(**init), n, s, cuda_device)
+    assert rounds < a
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("mix,top_m", [("drain-bench", 1), ("drain-tenant", 4)])
+def test_mesh_wavefront_over_a_fused_batch(mix, top_m, s, cuda_device):
+    """K11s at E 32: a fused drain batch of several evals, each its own ring
+    and cursor, with padded lanes."""
+    from nomad_tpu_torch.tpu import drain
+
+    n_real = 1000
+    shared, preps = problems.drain_problem(problems.build_cluster(n_real, 1, seed=5), 12, mix,
+                                           seed=5)
+    order = [drain.DrainPrep.from_dict(d) for d in preps]
+    shape = drain.batch_shape(order, n_real, 32, shard.Mesh(s, "cpu"))
+    args_np, state_np, _ = drain.assemble(order, n_real, shape)
+    planes = drain.host_planes(drain.SharedCluster(shared["capacity"], shared["usable"],
+                                                   shared["used0"]), shape[3])
+    args = tk.BatchArgs(capacity=planes[0], usable=planes[1], **args_np)
+    init = tk.BatchState(used=planes[2], **state_np)
+    assert args.perm.shape[0] == 32 and not args.valid.all()
+    wavefront.configure(contention_top_m=top_m)
+    _mesh_wave_kernels(args, init, n_real, s, cuda_device)
+
+
+_TILE_SPLITS = (shard.ROWS, shard.ROWS, shard.LANE, shard.ROWS, shard.LANE, shard.LANE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("case", sorted(TILE_EDGE_CASES))
+def test_mesh_tile_sweeps_match_plain(case, s, cuda_device):
+    """K12s and K13s on every tile of a round of 1,000-row tiles split into
+    ``s`` slabs: one launch each a call, against their sharded plain
+    versions and the unsharded kernels."""
+    offset, w_use_div, c, dead = TILE_EDGE_CASES[case]
+    for args in _tile_round(1_000, offset, w_use_div, c=c, dead_tile=dead):
+        planes, dem, scalars = args[:6], args[6], args[7:]
+        t0, off, n_real = scalars[2], scalars[3], scalars[4]
+        card = [x.to(cuda_device) for x in planes]
+        on_slabs = [shard.split(x, spec, s) for x, spec in zip(card, _TILE_SPLITS)]
+        cpu_slabs = [shard.split(x, spec, s) for x, spec in zip(planes, _TILE_SPLITS)]
+        demand = dem.to(cuda_device)
+        before = dict(tk.LAUNCHES)
+        got_c = paging.tile_count(on_slabs[0], on_slabs[2], on_slabs[3], demand, t0, off, n_real)
+        got_w = paging.tile_window(*on_slabs, demand, *scalars)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in tk.LAUNCHES.items() if v != before[k]} == {
+            "mesh_tile_count": 1, "mesh_tile_window": 1}
+        _same(got_c, paging.tile_count_sharded_ref(cpu_slabs[0], cpu_slabs[2], cpu_slabs[3], dem,
+                                                   t0, off, n_real))
+        _same(got_c, paging.tile_count(card[0], card[2], card[3], demand, t0, off, n_real))
+        want_w = paging.tile_window_sharded_ref(*cpu_slabs, dem, *scalars)
+        flat_w = paging.tile_window(*card, demand, *scalars)
+        for g, w, f in zip(got_w, want_w, flat_w):
+            _same(g.reshape(w.shape), w)
+            _same(g, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", MESH_SHARDS)
+@pytest.mark.parametrize("n,a,limit,tile_nodes", [(797, 96, 6, 64), (8192, 1024, 4, 1024)])
+def test_mesh_paged_on_card_matches_unsharded(n, a, limit, tile_nodes, s, cuda_device,
+                                              monkeypatch):
+    """The paged planner over ``s`` slabs a tile on the card, under a budget
+    of two tiles: only K12s and K13s launch, and placements, rounds and the
+    tile cache's counts (bytes uploaded among them) equal the unsharded
+    run's on the card and the sharded run's on the CPU."""
+    _two_tile_budget(monkeypatch)
+    case = problems.paged_case(5, n, a, limit=limit)
+    paging.configure(tile_nodes=tile_nodes)
+    flat, flat_rounds, flat_stats = paging.plan_batch_paged(*case, device=cuda_device)
+    before = dict(tk.LAUNCHES)
+    got, rounds, stats = paging.plan_batch_paged(*case, device=cuda_device,
+                                                 mesh=shard.Mesh(s, cuda_device))
+    launched = {k: v - before[k] for k, v in tk.LAUNCHES.items() if v != before[k]}
+    assert set(launched) == {"mesh_tile_count", "mesh_tile_window"}
+    np.testing.assert_array_equal(got, flat)
+    assert rounds == flat_rounds and stats == flat_stats
+    want, want_rounds, want_stats = paging.plan_batch_paged(*case, device="cpu",
+                                                            mesh=shard.Mesh(s, "cpu"))
+    np.testing.assert_array_equal(got, want)
+    assert rounds == want_rounds and stats == want_stats
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["wavefront", "paged"])
+def test_mesh_routes_on_card_place_as_unsharded(route, cuda_device, monkeypatch):
+    """``planner.plan_eval`` under a mesh of 4 on the card: the wavefront
+    and paged routes launch only their sharded kernels and place as the
+    unsharded routes do."""
+    monkeypatch.setattr(shard, "MIN_NODES", 1024)
+    if route == "wavefront":
+        wavefront.configure(enabled=True)
+        planes = problems.eval_planes(*problems.wavefront_problem(
+            problems.build_cluster(2000, 3000, seed=4), n_groups=8))
+        kernels = {"mesh_wavefront"}
+    else:
+        paging.configure(enabled=True, device_node_budget_mb=1, tile_nodes=4096)
+        planes = problems.eval_planes(*problems.exact_problem(
+            problems.build_cluster(25_000, 3000, seed=4), spread=False))
+        planes["limits"][:] = 10
+        kernels = {"mesh_tile_count", "mesh_tile_window"}
+    flat, flat_stats = planner.plan_eval(planes, device=cuda_device)
+    shard.configure(4, device="cuda")
+    try:
+        before = dict(tk.LAUNCHES)
+        got, stats = planner.plan_eval(planes, device=cuda_device)
+    finally:
+        shard.configure(enabled=False)
+    assert {k for k, v in tk.LAUNCHES.items() if v != before[k]} == kernels
+    assert stats["mode"] == flat_stats["mode"] == route
+    assert stats["shards"] == 4 and stats["rounds"] == flat_stats["rounds"]
+    np.testing.assert_array_equal(got, flat)

@@ -24,7 +24,8 @@ clusters shard. With no tolerance:
   batch, with only sharded drain, scatter and verify launches in its
   ledger; the applier's verify under the mesh commits as the host oracle;
 - a faulted sharded drain or verify degrades, counted; the wavefront
-  drain under a mesh raises naming A12b-2;
+  drain under a mesh runs sharded (K11s's plain version) and places as
+  the unsharded wavefront drain;
 - the drain warm-up under a mesh launches the sharded kernels at the
   fused shape (unsharded below the gate) and warms as many programs as
   the JAX warm-up compiles; ``prewarm``'s mesh expansion warms both
@@ -36,6 +37,7 @@ kernels against these plain versions on the card.
 """
 
 import random
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -582,14 +584,45 @@ def test_faulted_sharded_drain_degrades_as_the_unsharded_one(monkeypatch):
 
 
 def test_wavefront_drain_under_a_mesh_raises():
+    """The wavefront drain under a mesh (which raised before its sharded
+    form was ported) runs the sharded wavefront over the fused batch and
+    places as the unsharded wavefront drain; below the gate it runs
+    unsharded."""
+    n = 300
+    shared_np, preps = problems.drain_problem(problems.build_cluster(n, 1, seed=4), 4,
+                                              "drain-tenant", seed=4)
+    twf.configure(enabled=True)
+    out = {}
+    for mesh_on in (True, False):
+        tshard.configure(N_DEV if mesh_on else None, enabled=mesh_on, device="cpu")
+        shared = tdrain.SharedCluster(shared_np["capacity"], shared_np["usable"],
+                                      shared_np["used0"])
+        collector = tdrain.KernelBatchCollector(shared, len(preps), device="cpu")
+        got = {}
+
+        def one(d):
+            placements, base = collector.submit(tdrain.DrainPrep.from_dict(d))
+            got[d["eval_id"]] = (placements.numpy(), tshard.gather(base).numpy()
+                                 if isinstance(base, tshard.Sharded) else base.numpy())
+
+        threads = [threading.Thread(target=one, args=(d,)) for d in preps]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        stats = tdrain.LAST_DRAIN_STATS
+        assert stats["planner"] == "wavefront" and stats["shards"] == (N_DEV if mesh_on else 1)
+        out[mesh_on] = got
+    tshard.configure(enabled=False)
+    assert sorted(out[True]) == sorted(out[False]) and len(out[True]) == len(preps)
+    for eval_id, (placements, base) in out[False].items():
+        np.testing.assert_array_equal(out[True][eval_id][0], placements)
+        np.testing.assert_array_equal(out[True][eval_id][1][: base.shape[0]], base)
+    # below the gate the wavefront drain runs unsharded
+    tshard.configure(N_DEV, device="cpu")
     rng, N, capacity, used = _node_planes(300, 4, N_DEV)
     usable = np.ones((300, 2), np.float32)
-    shared = tdrain.SharedCluster(capacity[:300], usable, used[:300])
-    tshard.configure(N_DEV, device="cpu")
-    twf.configure(enabled=True)
-    with pytest.raises(NotImplementedError, match="wavefront.*A12b-2"):
-        tdrain.KernelBatchCollector(shared, 2, device="cpu")
-    # below the gate the wavefront drain runs unsharded
     small = tdrain.SharedCluster(capacity[:GATE - 1], usable[:GATE - 1], used[:GATE - 1])
     assert tdrain.KernelBatchCollector(small, 2, device="cpu").shared is small
 

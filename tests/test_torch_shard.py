@@ -18,11 +18,13 @@ tolerance:
   its mesh and the port's unsharded run, with ``shards`` 8 in its stats,
   and under the ``tpu.kernel`` fault point degrades to the same exact-np
   placements;
-- the routes whose sharded forms are not ported (wavefront, paged) and a
-  mesh over several cards raise ``NotImplementedError`` naming their
-  ROADMAP items; the server path's seams (the fused drain, the mirror's
-  device state, the drain warm-up) run under the mesh
-  (tests/test_torch_mesh_server.py holds them against the JAX package).
+- the wavefront and paged routes run under the mesh and place as
+  unsharded (tests/test_torch_mesh_paths.py holds them against the JAX
+  package); only a mesh over several cards raises ``NotImplementedError``,
+  naming ROADMAP A12c; the server path's seams (the fused drain, the
+  wavefront drain among them, the mirror's device state, the drain
+  warm-up) run under the mesh (tests/test_torch_mesh_server.py holds them
+  against the JAX package).
 
 tests/test_torch_gpu.py holds the sharded kernels against these plain
 versions on the card.
@@ -453,7 +455,8 @@ def test_faulted_sharded_eval_degrades_to_the_same_host_placements(_sched_gates)
 
 
 # ---------------------------------------------------------------------------
-# what raises
+# the routes that raised before their sharded forms were ported, and what
+# still raises
 # ---------------------------------------------------------------------------
 
 def _planes(n=300, a=200, **kw):
@@ -463,20 +466,25 @@ def _planes(n=300, a=200, **kw):
 
 
 def test_unported_routes_raise_under_a_mesh(monkeypatch):
+    """The wavefront and paged routes, which raised under a mesh before
+    their sharded forms were ported, run under it and place as unsharded."""
     monkeypatch.setattr(tshard, "MIN_NODES", 256)
-    tshard.configure(N_DEV, device="cpu")
     try:
         twf.configure(enabled=True)
-        with pytest.raises(NotImplementedError, match="wavefront.*A12b-2"):
-            tplanner.plan_eval(_planes(a=40), device="cpu")
-        twf.reset()
-        tpaging.configure(enabled=True, tile_nodes=64)
+        tpaging.configure(tile_nodes=64)
         monkeypatch.setattr(tpaging, "budget_mb", lambda: 0)
-        planes = _planes(spread=False)
-        planes["affinity_present"][:] = False
-        planes["limits"][:] = 8
-        with pytest.raises(NotImplementedError, match="paged.*A12b-2"):
-            tplanner.plan_eval(planes, device="cpu")
+        paged = _planes(spread=False)
+        paged["affinity_present"][:] = False
+        paged["limits"][:] = 8
+        for route, planes in (("wavefront", _planes(a=40)), ("paged", paged)):
+            tpaging.configure(enabled=route == "paged")
+            want, want_stats = tplanner.plan_eval(planes, device="cpu")
+            tshard.configure(N_DEV, device="cpu")
+            got, stats = tplanner.plan_eval(planes, device="cpu")
+            tshard.configure(enabled=False)
+            assert stats["mode"] == want_stats["mode"] == route
+            assert (stats["shards"], want_stats["shards"]) == (N_DEV, 1)
+            np.testing.assert_array_equal(got, want)
     finally:
         twf.reset()
         tpaging.reset()
@@ -484,8 +492,7 @@ def test_unported_routes_raise_under_a_mesh(monkeypatch):
 
 def test_server_path_seams_raise_under_a_mesh(monkeypatch):
     """The server path's seams run under the mesh (its sharded forms are
-    ported); of them, only the wavefront drive of the fused batch still
-    raises, naming A12b-2."""
+    ported), the wavefront drive of the fused batch among them."""
     from nomad_tpu_torch.tpu import drain, mirror
 
     monkeypatch.setattr(tshard, "MIN_NODES", 256)
@@ -504,8 +511,13 @@ def test_server_path_seams_raise_under_a_mesh(monkeypatch):
     assert all(e["sharded"] for e in devprof.snapshot()["compile_ledger"])
     twf.configure(enabled=True)
     try:
-        with pytest.raises(NotImplementedError, match="wavefront drain batch.*A12b-2"):
-            drain.KernelBatchCollector(shared, 1, device="cpu")
+        # the wavefront collector runs sharded: a batch of one eval
+        prep = problems.drain_problem(problems.build_cluster(n, 1, seed=3), 1, seed=3)[1][0]
+        collector = drain.KernelBatchCollector(shared, 1, device="cpu")
+        placements, base = collector.submit(drain.DrainPrep.from_dict(prep))
+        stats = drain.LAST_DRAIN_STATS
+        assert stats["planner"] == "wavefront" and stats["shards"] == N_DEV
+        assert isinstance(base, tshard.Sharded) and (placements.numpy() >= 0).any()
     finally:
         twf.reset()
     # below the gate the unsharded seams run
